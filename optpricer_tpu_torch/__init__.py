@@ -15,6 +15,8 @@ from .ops.black_scholes import (
 )
 from .models.monte_carlo import euro_greeks_mc, euro_price_mc
 from .models.binomial import crr
+from .models.mc_fused import exotic_greeks_mc, exotic_price_mc
+from .models.analytic import geometric_asian_price
 
 # Production data model
 from .core import Instrument, MarketData, to_instrument_market
@@ -29,6 +31,7 @@ __all__ = [
     "OptionSpec", "CALL", "PUT",
     "bs_price", "bs_greeks", "implied_vol",
     "euro_price_mc", "euro_greeks_mc", "crr",
+    "exotic_price_mc", "exotic_greeks_mc", "geometric_asian_price",
     # Production data model
     "Instrument", "MarketData", "to_instrument_market",
     # Vectorised

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` have a plain C interface, so they are compiled by
-``nvcc`` alone (no torch headers: seconds, not minutes) into a shared
-library and loaded with ``ctypes``. The library lands in
+``nvcc`` alone (no torch headers: seconds, not minutes) and loaded with
+``ctypes``. Each source is compiled to an object by its own ``nvcc``, all
+started together, and the objects are linked into one shared library in
 ``build/optpricer_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses it.
 A missing ``nvcc`` or a failed build raises; there is no fallback.
@@ -21,15 +22,26 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "optpricer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("terminal_mc.cu",)
+              "-Xcompiler", "-fPIC")
+# source -> its own flags. The path kernels are built without FMA
+# contraction, so each per-path operation rounds as in their plain torch
+# versions (see the notes at the top of path_mc.cu and qmc_path.cu).
+SOURCES = {
+    "terminal_mc.cu": (),
+    "path_mc.cu": ("-fmad=false",),
+    "qmc_path.cu": ("-fmad=false",),
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of the C entry points in csrc/terminal_mc.cu
+# name -> argtypes of the C entry points in csrc/*.cu
 _SIGNATURES = {
     "optpricer_terminal_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_terminal_qmc": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "optpricer_path_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
 }
 
 
@@ -48,34 +60,54 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, flags in sorted(SOURCES.items()):
+        digest.update(f"{name} {' '.join(flags)}".encode())
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             digest.update(path.name.encode())
             digest.update(path.read_bytes())
-    return BUILD_DIR / f"libterminal_mc-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"liboptpricer_kernels-{digest.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists.
+
+    ``verbose`` prints ptxas' register and spill report of every kernel,
+    one block per source.
+    """
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {}
+        for name, flags in SOURCES.items():
+            obj = str(Path(tmp) / f"{Path(name).stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, *flags, *ptxas, "-c", "-o", obj,
+                   str(CSRC / name)]
+            procs[name] = (cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        failed = []
+        for name, (cmd, _, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+            elif verbose:
+                print(f"--- {name}\n{err}", end="")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        out = str(Path(tmp) / "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", out,
+               *(obj for _, obj, _ in procs.values())]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(out, lib)
     return lib
 
 

@@ -1,13 +1,15 @@
 """Command-line pricing tool of the PyTorch port.
 
 Counterpart of ``optpricer_tpu/cli.py`` for the engines ported so far:
-``bs``, ``binomial``, ``mc`` and ``greeks``, with the same flags and the
-same 10-decimal output, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions). ``fd`` and the other subcommands wait for
-their engines (ROADMAP).
+``bs``, ``binomial``, ``mc``, ``greeks`` and ``qmc``, with the same flags
+and the same 10-decimal output, plus ``--device`` (default ``cuda``; ``cpu``
+runs the kernels' plain versions). ``fd`` and the other subcommands wait
+for their engines (ROADMAP).
 
     python -m optpricer_tpu_torch.cli mc --S0 100 --K 110 --T 1 --r 0.03 \\
         --sigma 0.2 --n-paths 1000000 --seed 7
+    python -m optpricer_tpu_torch.cli qmc --S0 100 --K 100 --T 1 --r 0.03 \\
+        --sigma 0.2 --payoff asian --n-paths 65536 --n-steps 64
 """
 from __future__ import annotations
 
@@ -74,6 +76,18 @@ def _run_greeks(ns) -> str:
     return "\n".join(f"{name:<6} {g[name]: .10f}" for name in order)
 
 
+def _run_qmc(ns) -> str:
+    from .models.mc_fused import exotic_price_mc
+
+    value, stderr = exotic_price_mc(
+        ns.payoff, ns.S0, ns.K, ns.T, ns.r, ns.q, sigma=ns.sigma,
+        kind=ns.kind, backend="qmc", n_paths=ns.n_paths,
+        n_steps=ns.n_steps, seed=ns.seed, barrier=ns.barrier,
+        barrier_type=ns.barrier_type, average_type=ns.average_type,
+        strike_type=ns.strike_type, payout=ns.payout, device=ns.device)
+    return f"{value:.10f}  (stderr {stderr:.10f})"
+
+
 # engine name -> (help text, extra flags, runner)
 _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
     "bs": ("Black-Scholes price", (), _run_bs),
@@ -92,6 +106,22 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
         ("--n-paths", dict(dest="n_paths", type=int, default=1_000_000)),
         ("--seed", dict(type=int, default=None)),
     ), _run_greeks),
+    "qmc": ("Randomised-QMC path pricer (Sobol + Brownian bridge)", (
+        ("--payoff", dict(default="vanilla",
+                          choices=("vanilla", "asian", "barrier",
+                                   "digital", "lookback"))),
+        ("--n-paths", dict(dest="n_paths", type=int, default=65_536,
+                           help="points per replicate (x8 shifts)")),
+        ("--n-steps", dict(dest="n_steps", type=int, default=64)),
+        ("--seed", dict(type=int, default=0)),
+        ("--barrier", dict(type=float, default=0.0)),
+        ("--barrier-type", dict(dest="barrier_type",
+                                default="up-and-out")),
+        ("--average-type", dict(dest="average_type",
+                                default="arithmetic")),
+        ("--strike-type", dict(dest="strike_type", default="fixed")),
+        ("--payout", dict(type=float, default=1.0)),
+    ), _run_qmc),
 }
 
 

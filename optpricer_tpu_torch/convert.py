@@ -11,7 +11,18 @@ host vectors through ``numpy.asarray``, so this module never imports
   ``optpricer_tpu.ops.pallas_mc._terminal_params`` (S0, K, μT, σ√T, df,
   n_paths, sign);
 * ``seed_pair`` converts the int32[2] ``[seed % (2**31-1), offset]`` vector
-  that ``mc_sumstats_pallas`` / ``mc_sumstats_qmc`` hand their kernels.
+  that ``mc_sumstats_pallas`` / ``mc_sumstats_qmc`` /
+  ``path_mc_sumstats_pallas`` hand their kernels, and the
+  ``[seed, n_points - 1]`` pair of ``path_qmc_sumstats_pallas``;
+* ``path_params`` converts the f32[24] vector of
+  ``optpricer_tpu.ops.pallas_path_mc._common_params``;
+* ``qmc_path_params`` converts the f32[6] vector (S0, K, df, barrier,
+  rebate, payout) of ``path_qmc_sumstats_pallas``;
+* ``int32_table`` / ``float32_table`` convert the 2-D kernel operands: the
+  path-QMC kernel's direction numbers ``V`` and digital shifts (int32 views
+  of uint32 words), bridge matrix ``B`` and drift row (f32). The path
+  kernel's ``svi`` table (f32) converts the same way; only its lv/lsv
+  branches, not yet ported, read it.
 """
 from __future__ import annotations
 
@@ -21,7 +32,8 @@ import torch
 from .core import Instrument, MarketData, OptionSpec
 
 __all__ = ["option_spec", "instrument", "market_data", "terminal_params",
-           "seed_pair"]
+           "seed_pair", "path_params", "qmc_path_params", "int32_table",
+           "float32_table"]
 
 
 def _field(value):
@@ -47,11 +59,45 @@ def market_data(obj) -> MarketData:
                       flat_vol=_field(obj.flat_vol))
 
 
-def terminal_params(params, device="cpu") -> torch.Tensor:
+def _vector(params, n: int, what: str, device) -> torch.Tensor:
     arr = np.array(params, np.float32)
-    if arr.shape != (7,):
-        raise ValueError(f"terminal params must have shape (7,), got {arr.shape}")
+    if arr.shape != (n,):
+        raise ValueError(f"{what} params must have shape ({n},), got "
+                         f"{arr.shape}")
     return torch.as_tensor(arr).to(device)
+
+
+def terminal_params(params, device="cpu") -> torch.Tensor:
+    return _vector(params, 7, "terminal", device)
+
+
+def path_params(params, device="cpu") -> torch.Tensor:
+    return _vector(params, 24, "path", device)
+
+
+def qmc_path_params(params, device="cpu") -> torch.Tensor:
+    return _vector(params, 6, "path-QMC", device)
+
+
+def _table(arr, dtype, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.array(arr))
+    if arr.ndim != 2:
+        raise ValueError(f"kernel tables are 2-D, got shape {arr.shape}")
+    if np.dtype(dtype).kind == "i":
+        if arr.dtype.kind not in "iu" or arr.dtype.itemsize != 4:
+            raise ValueError(f"expected 32-bit integer words, got {arr.dtype}")
+        arr = arr.view(dtype)      # uint32 words keep their bits
+    else:
+        arr = arr.astype(dtype)
+    return torch.as_tensor(arr).to(device)
+
+
+def int32_table(arr, device="cpu") -> torch.Tensor:
+    return _table(arr, np.int32, device)
+
+
+def float32_table(arr, device="cpu") -> torch.Tensor:
+    return _table(arr, np.float32, device)
 
 
 def seed_pair(seed, device="cpu") -> torch.Tensor:

@@ -14,9 +14,9 @@
 //   13 compensations). A block holds 256 consecutive elements of one
 //   program and reduces them in a fixed warp-shuffle tree; no atomics, so
 //   one seed gives bitwise-identical stats on every run.
-// * A second, tiny pass (combine_rows_kernel) Kahan-sums the block rows of
-//   each program in block order and, for the terminal kernel, the program
-//   rows in program order, like ops/stats.combine_scan.
+// * A second, tiny pass (combine_rows_kernel, csrc/reduce.cuh) Kahan-sums
+//   the block rows of each program in block order and, for the terminal
+//   kernel, the program rows in program order, like ops/stats.combine_scan.
 //
 // What bounds them: integer and SFU throughput. Each base draw costs one
 // Threefry-2x32-20 block (~80 integer ops), a log/sqrt/sincospi (or two
@@ -36,6 +36,7 @@
 #include <cstdint>
 
 #include "fastmath.cuh"
+#include "reduce.cuh"
 #include "threefry.cuh"
 
 namespace optpricer {
@@ -118,38 +119,6 @@ __device__ __forceinline__ void add_branch(float z, float w, const Params &p,
   add_moments(o, w, s);
 }
 
-__device__ __forceinline__ void kahan_step(float *acc, float *comp,
-                                           const float *s) {
-#pragma unroll
-  for (int k = 0; k < NSTAT; ++k) {
-    const float y = s[k] - comp[k];
-    const float t = acc[k] + y;
-    comp[k] = (t - acc[k]) - y;
-    acc[k] = t;
-  }
-}
-
-// Fixed-order block sum of the 13 per-thread accumulators into one row.
-__device__ __forceinline__ void block_row(const float *acc, float *row) {
-  __shared__ float warp_sums[NSTAT][THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NSTAT; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[k][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < NSTAT) {
-    float t = 0.0f;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) t += warp_sums[threadIdx.x][w];
-    row[threadIdx.x] = t;
-  }
-}
-
 template <bool ANTI, bool INVCDF>
 __global__ void __launch_bounds__(THREADS)
 terminal_mc_kernel(const int *seed, const float *par, int reps,
@@ -198,9 +167,10 @@ terminal_mc_kernel(const int *seed, const float *par, int reps,
     for (int k = 0; k < NSTAT; ++k) s[k] = 0.0f;
     add_branch<ANTI>(z1, w1, p, s);
     add_branch<ANTI>(z2, w2, p, s);
-    kahan_step(acc, comp, s);
+    kahan_step<NSTAT>(acc, comp, s);
   }
-  block_row(acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
+  block_row<NSTAT, THREADS>(
+      acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -240,36 +210,10 @@ terminal_qmc_kernel(const int *seed, const float *par, int reps,
 #pragma unroll
     for (int k = 0; k < NSTAT; ++k) s[k] = 0.0f;
     add_moments(o, w, s);
-    kahan_step(acc, comp, s);
+    kahan_step<NSTAT>(acc, comp, s);
   }
-  block_row(acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
-}
-
-// out[seg] = Kahan sum of rows[seg * rows_per_seg : (seg + 1) * rows_per_seg]
-// in row order; one thread per (segment, stat).
-__global__ void combine_rows_kernel(const float *rows, int rows_per_seg,
-                                    int n_seg, float *out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_seg * NSTAT) return;
-  const int seg = i / NSTAT, k = i % NSTAT;
-  const float *src = rows + static_cast<size_t>(seg) * rows_per_seg * ROW + k;
-  float acc = 0.0f, comp = 0.0f;
-  for (int r = 0; r < rows_per_seg; ++r) {
-    const float y = src[static_cast<size_t>(r) * ROW] - comp;
-    const float t = acc + y;
-    comp = (t - acc) - y;
-    acc = t;
-  }
-  out[static_cast<size_t>(seg) * ROW + k] = acc;
-}
-
-inline cudaError_t combine(const float *rows, int rows_per_seg, int n_seg,
-                           float *out, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (n_seg * NSTAT + threads - 1) / threads;
-  combine_rows_kernel<<<blocks, threads, 0, stream>>>(rows, rows_per_seg,
-                                                       n_seg, out);
-  return cudaGetLastError();
+  block_row<NSTAT, THREADS>(
+      acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
 }
 
 }  // namespace optpricer
@@ -298,11 +242,12 @@ extern "C" int optpricer_terminal_mc(const void *seed, const void *par,
     terminal_mc_kernel<false, false><<<blocks, THREADS, 0, s>>>(sd, pr, reps, br);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = combine(br, BLOCKS_PER_PROGRAM, n_programs,
-                static_cast<float *>(prog_rows), s);
+  err = combine<NSTAT, ROW>(br, BLOCKS_PER_PROGRAM, n_programs,
+                            static_cast<float *>(prog_rows), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(combine(static_cast<const float *>(prog_rows),
-                                  n_programs, 1, static_cast<float *>(out), s));
+  return static_cast<int>(combine<NSTAT, ROW>(
+      static_cast<const float *>(prog_rows), n_programs, 1,
+      static_cast<float *>(out), s));
 }
 
 // Randomised-QMC sums per program. out: f32[n_programs, 16].
@@ -318,6 +263,6 @@ extern "C" int optpricer_terminal_qmc(const void *seed, const void *par,
       progs_per_rep, br);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(combine(br, BLOCKS_PER_PROGRAM, n_programs,
-                                  static_cast<float *>(out), s));
+  return static_cast<int>(combine<NSTAT, ROW>(
+      br, BLOCKS_PER_PROGRAM, n_programs, static_cast<float *>(out), s));
 }

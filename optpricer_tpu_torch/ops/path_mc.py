@@ -1,0 +1,585 @@
+"""Path-dependent Monte-Carlo sufficient statistics: the path kernel (K4).
+
+Counterpart of ``optpricer_tpu/ops/pallas_path_mc.py``. Each path carries
+its spot, running sum / log-sum / max / min, barrier flag and variance (or
+SABR σ) state through ``n_steps`` steps — two steps per Box-Muller pair, so
+``n_steps`` is even — and reduces its discounted payoff to 21 sufficient
+statistics; nothing path-shaped reaches device memory. The draws are the
+JAX kernel's ``sw_prng`` stream: Threefry keyed by (seed, global program
+id) with counter (element, draw index), so a seed gives the reference's
+sample and the statistics agree with it to f32 round-off.
+
+Dynamics ported: ``gbm``, ``heston`` (full-truncation Euler), ``heston_qe``
+(Andersen QE), ``sabr_ln`` (β = 1) and ``sabr_cev`` (β < 1, Euler). The
+Dupire (``svi_slices=``) and LSV (``lsv=``) branches need host modules that
+are not ported yet and raise ``NotImplementedError``.
+
+Stats layout (``NSTAT = 21``): the dual-CV layout of ``ops/stats.py``
+[n, ΣX, ΣX², ΣY1, ΣY1², ΣXY1, ΣY2, ΣY2², ΣXY2, ΣY1Y2], then ΣY3 (the
+payoff's exercise indicator) and ΣY/ΣY² for the vega, rho, theta,
+LR-delta and gamma observables Y4..Y8 (zero unless ``greek_stats``).
+Under ``geo_cv`` Y1 is the geometric-Asian payoff instead of e^{−rT}S_T.
+
+Names, JAX → port:
+
+============================  ===========================
+``path_mc_sumstats_pallas``   ``path_mc_sumstats_kernel``
+``_run_path_kernel``          ``path_mc`` (kernel wrapper)
+``_common_params``            ``_common_params``
+``_resolve_config``           ``_resolve_config``
+============================  ===========================
+
+``path_mc`` launches ``path_mc_kernel`` (``csrc/path_mc.cu``) for tensors
+on a CUDA device and counts the launch in ``path_mc.launches``; for tensors
+on the CPU it runs the plain torch version ``_path_mc_plain``, which walks
+all programs and reps of the grid at once, one step pair at a time. Any
+other device raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..dtypes import MC_DTYPE, resolve_device
+from . import stats as stats_ops
+from .fastmath import exp32, log32, norminv32
+from .swprng import threefry2x32
+from .terminal_mc import _MAX_TILE_INDEX, _plan_grid, _seed_pair, _stream
+
+__all__ = ["path_mc_sumstats_kernel", "path_mc", "TILE", "NSTAT",
+           "PAYOFF_IDS", "DYNAMICS"]
+
+BLOCK_R = 32            # rows of a path tile
+LANES = 128
+TILE = BLOCK_R * LANES  # paths per rep (4096)
+NSTAT = stats_ops.STATS2_DIM + 11
+NPARAM = 24
+
+PAYOFF_IDS = {"vanilla": 0, "barrier": 1, "asian": 2, "digital": 3,
+              "lookback": 4}
+# dynamics name -> kernel id (csrc/path_mc.cu Dyn)
+DYNAMICS = {"gbm": 0, "heston": 1, "heston_qe": 2, "sabr_ln": 3,
+            "sabr_cev": 4}
+_SV = ("heston", "heston_qe", "sabr_ln", "sabr_cev")
+
+_ROW = 24               # kernel stats rows are padded to 24 floats
+_THREADS = 128          # csrc/path_mc.cu THREADS
+_BLOCKS_PER_PROGRAM = TILE // _THREADS
+_TINY = 2.0 ** -24
+_TWO_PI = float(np.float32(6.283185307179586))
+
+# flag bits of the kernel's runtime payoff switches (csrc/path_mc.cu Flag)
+_FLAG_BITS = {"barrier_up": 1, "knock_out": 2, "average_geo": 4,
+              "strike_floating": 8, "is_call": 16, "geo_cv": 32}
+
+
+# ---------------------------------------------------------------------------
+# host planning
+# ---------------------------------------------------------------------------
+def _common_params(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
+                   barrier, rebate, payout, dS_bump, heston=None, sabr=None,
+                   inv_xw=0.0) -> torch.Tensor:
+    """Host f32[24]: S0, K, (r−q−σ²/2)dt, σ√dt, e^{−rT}, n_paths, sign,
+    barrier, rebate, payout, dt, r−q, √dt, dS_bump, Heston (v0, κ, θ, ξ, ρ),
+    SABR (α0, β, ν, ρ), 1/x_width."""
+    dt = T / n_steps
+    mu = (r - q - 0.5 * sigma * sigma) * dt
+    sig = sigma * np.sqrt(dt)
+    df = np.exp(-r * T)
+    sign = 1.0 if is_call else -1.0
+    h = heston or {}
+    s = sabr or {}
+    return torch.tensor(
+        [S0, K, mu, sig, df, float(n_paths), sign, barrier, rebate, payout,
+         dt, r - q, np.sqrt(dt), dS_bump,
+         h.get("v0", 0.0), h.get("kappa", 0.0), h.get("theta", 0.0),
+         h.get("xi", 0.0), h.get("rho", 0.0),
+         s.get("alpha0", 0.0), s.get("beta", 1.0), s.get("nu", 0.0),
+         s.get("rho", 0.0), inv_xw], dtype=MC_DTYPE)
+
+
+def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
+                    payoff, antithetic, barrier, barrier_type, rebate,
+                    average_type, strike_type, payout, svi_slices, scheme,
+                    dS_bump, heston, sabr=None, geo_cv=False, lsv=None):
+    """(params, static_kwargs) for ``path_mc``; n_steps must be even
+    (two Box-Muller normals advance two steps per loop iteration). The
+    reference's third result, its Dupire/LSV ``svi`` operand, is read by
+    the lv/lsv branches only and is left out until they are ported."""
+    if n_steps % 2:
+        raise ValueError("pallas path engine requires even n_steps")
+    if geo_cv and not (payoff == "asian" and average_type == "arithmetic"
+                       and strike_type == "fixed" and heston is None
+                       and sabr is None and svi_slices is None
+                       and lsv is None):
+        raise ValueError("geo_cv requires a fixed-strike arithmetic asian "
+                         "payoff under GBM dynamics")
+    if lsv is not None:
+        raise NotImplementedError(
+            "the path kernel's lsv/lsv_qe branches are not ported yet "
+            "(ROADMAP B.3.5, with A.14 lsv.py)")
+    if svi_slices is not None:
+        raise NotImplementedError(
+            "the path kernel's Dupire lv_euler/lv_milstein branches are not "
+            "ported yet (ROADMAP B.3.2, with A.9 calibration.py)")
+    params = _common_params(n_paths, n_steps, S0, K, T, r, q,
+                            sigma if sigma is not None else 0.0,
+                            is_call, barrier, rebate, payout, dS_bump,
+                            heston, sabr)
+    if heston is not None:
+        dynamics = "heston_qe" if scheme == "qe" else "heston"
+    elif sabr is not None:
+        dynamics = "sabr_ln" if float(sabr["beta"]) == 1.0 else "sabr_cev"
+    else:
+        dynamics = "gbm"
+    static = dict(
+        n_steps=int(n_steps), antithetic=bool(antithetic),
+        payoff_id=PAYOFF_IDS[payoff],
+        barrier_up=barrier_type.startswith("up"),
+        knock_out=barrier_type.endswith("out"),
+        average_geo=(average_type == "geometric"),
+        strike_floating=(strike_type == "floating"),
+        is_call=bool(is_call), dynamics=dynamics, geo_cv=bool(geo_cv))
+    return params, static
+
+
+def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
+                  with_greeks, payoff_id, geo_cv):
+    if geo_cv and payoff_id != PAYOFF_IDS["asian"]:
+        raise ValueError("geo_cv needs the asian payoff")
+    if n_programs < 1 or reps < 1:
+        raise ValueError(f"empty grid: n_programs={n_programs}, reps={reps} "
+                         "(n_paths must be positive)")
+    if n_steps < 2 or n_steps % 2:
+        raise ValueError(f"n_steps must be even and positive, got {n_steps}")
+    if n_programs * reps >= _MAX_TILE_INDEX:
+        raise ValueError("n_paths must stay below 2**24 tiles of TILE paths")
+    if dynamics not in DYNAMICS:
+        raise NotImplementedError(
+            f"dynamics {dynamics!r} is not ported (ROADMAP B.3.2, B.3.5)")
+    if with_greeks and dynamics != "gbm":
+        raise ValueError("greek_stats requires GBM dynamics")
+    if seed.dtype != torch.int32 or seed.shape != (2,):
+        raise ValueError("seed must be an int32 tensor of shape (2,)")
+    if params.dtype != MC_DTYPE or params.shape != (NPARAM,):
+        raise ValueError(f"params must be a float32 tensor of shape "
+                         f"({NPARAM},)")
+    if not (seed.is_contiguous() and params.is_contiguous()):
+        raise ValueError("seed and params must be contiguous")
+    if seed.device != params.device:
+        raise ValueError(f"seed on {seed.device}, params on {params.device}")
+    if params.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {params.device}")
+
+
+# ---------------------------------------------------------------------------
+# plain torch version (the CPU path and the kernel's on-card reference)
+# ---------------------------------------------------------------------------
+class _Scalars:
+    """The f32[24] params as 0-d f32 tensors on the params' device, and the
+    scalar-only terms of the step, each rounded to f32 in the kernel's
+    order (so the kernel and this version round alike)."""
+
+    def __init__(self, params: torch.Tensor, dynamics: str):
+        names = ("S0", "K", "mu", "sig", "df", "n_paths", "sign", "barrier",
+                 "rebate", "payout", "dt", "rq", "sqrt_dt", "bump", "h_v0",
+                 "h_kappa", "h_theta", "h_xi", "h_rho", "s_alpha0", "s_beta",
+                 "s_nu", "s_rho", "inv_xw")
+        for i, name in enumerate(names):
+            setattr(self, name, params[i])
+        rho = self.s_rho if dynamics.startswith("sabr") else self.h_rho
+        self.rho_sv = rho
+        self.rho_c = torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0))
+        if dynamics == "heston_qe":
+            kap, th, xi, dt = self.h_kappa, self.h_theta, self.h_xi, self.dt
+            self.emkt = torch.exp(-kap * dt)
+            om = 1.0 - self.emkt
+            self.c1 = xi * xi * self.emkt * om / kap
+            self.c2 = th * xi * xi * (om * om) / (2.0 * kap)
+            self.K0c = -self.h_rho * kap * th * dt / xi
+            half_dt = 0.5 * dt
+            self.K1c = half_dt * (kap * self.h_rho / xi - 0.5) \
+                - self.h_rho / xi
+            self.K2c = half_dt * (kap * self.h_rho / xi - 0.5) \
+                + self.h_rho / xi
+            self.K34 = half_dt * (1.0 - self.h_rho * self.h_rho)
+
+
+def _move(p: _Scalars, dynamics, S, v, z, zv):
+    """One step of the asset (and variance / σ) dynamics."""
+    if dynamics == "gbm":
+        return S * exp32(p.mu + p.sig * z), v
+    if dynamics == "heston":
+        v_eff = torch.clamp(v, min=0.0)
+        z1 = p.rho_sv * zv + p.rho_c * z
+        sq = torch.sqrt(v_eff)
+        S_new = S * exp32((p.rq - 0.5 * v_eff) * p.dt
+                          + sq * p.sqrt_dt * z1)
+        v_new = torch.clamp(
+            v + p.h_kappa * (p.h_theta - v_eff) * p.dt
+            + p.h_xi * sq * p.sqrt_dt * zv, min=0.0)
+        return S_new, v_new
+    if dynamics == "heston_qe":
+        u = zv  # the raw uniform; the quadratic branch's normal is Φ⁻¹(u)
+        zq = norminv32(u)
+        eps = 1e-12
+        m = p.h_theta + (v - p.h_theta) * p.emkt
+        s2 = v * p.c1 + p.c2
+        psi = s2 / torch.clamp(m * m, min=eps)
+        two_over = 2.0 / torch.clamp(torch.clamp(psi, max=1.5), min=eps)
+        b2 = two_over - 1.0 + torch.sqrt(two_over) * torch.sqrt(
+            torch.clamp(two_over - 1.0, min=0.0))
+        a = m / (1.0 + b2)
+        bz = torch.sqrt(torch.clamp(b2, min=0.0)) + zq
+        psi_e = torch.clamp(psi, min=1.5)
+        pe = (psi_e - 1.0) / (psi_e + 1.0)
+        beta_e = (1.0 - pe) / torch.clamp(m, min=eps)
+        v_exp = torch.where(
+            u <= pe, 0.0,
+            log32((1.0 - pe) / torch.clamp(1.0 - u, min=eps)) / beta_e)
+        v_new = torch.where(psi <= 1.5, a * bz * bz, v_exp)
+        S_new = S * exp32(
+            p.rq * p.dt + p.K0c + p.K1c * v + p.K2c * v_new
+            + torch.sqrt(torch.clamp(p.K34 * (v + v_new), min=0.0)) * z)
+        return S_new, v_new
+    # SABR: exact lognormal σ; the asset step uses the pre-update σ
+    z1 = p.rho_sv * zv + p.rho_c * z
+    if dynamics == "sabr_ln":
+        S_new = S * exp32((p.rq - 0.5 * v * v) * p.dt + v * p.sqrt_dt * z1)
+    else:
+        Sb = exp32(p.s_beta * log32(torch.clamp(S, min=1e-12)))
+        S_new = torch.clamp(S + p.rq * S * p.dt + v * Sb * p.sqrt_dt * z1,
+                            min=1e-12)
+    sig_n = v * exp32(p.s_nu * p.sqrt_dt * zv
+                      - 0.5 * p.s_nu * p.s_nu * p.dt)
+    return S_new, sig_n
+
+
+def _advance(p, st, z, zv, t_now, *, dynamics, payoff_id, barrier_up,
+             average_geo, geo_cv, with_greeks):
+    prev_max, prev_min = st["rmax"], st["rmin"]
+    S, v = _move(p, dynamics, st["S"], st["v"], z, zv)
+    st = dict(st, S=S, v=v)
+    if with_greeks:
+        W = st["W"] + p.sqrt_dt * z
+        st["W"] = W
+        t_new = t_now + p.dt
+        if t_now == 0.0:
+            st["z1c"] = z  # the first shock
+        if payoff_id in (1, 3):
+            st["g2"] = st["g2"] + z * z
+        if payoff_id == 2:
+            if average_geo:
+                st["g1"] = st["g1"] + W
+            else:
+                st["g1"] = st["g1"] + S * W
+                st["g2"] = st["g2"] + S * t_new
+        if payoff_id == 4:
+            newmax = S > prev_max
+            newmin = S < prev_min
+            st["g1"] = torch.where(newmax, W, st["g1"])
+            st["g3"] = torch.where(newmax, t_new, st["g3"])
+            st["g2"] = torch.where(newmin, W, st["g2"])
+            st["g4"] = torch.where(newmin, t_new, st["g4"])
+    if payoff_id == 2:
+        st["rsum"] = st["rsum"] + S
+        if average_geo or geo_cv:
+            st["rlog"] = st["rlog"] + log32(S)
+    if payoff_id == 4:
+        st["rmax"] = torch.maximum(st["rmax"], S)
+        st["rmin"] = torch.minimum(st["rmin"], S)
+    if payoff_id == 1:
+        hit = (S >= p.barrier) if barrier_up else (S <= p.barrier)
+        st["crossed"] = torch.maximum(st["crossed"], hit.to(MC_DTYPE))
+    return st
+
+
+def _payoff_obs(p, st, *, n_steps, payoff_id, knock_out, average_geo,
+                strike_floating, is_call, geo_cv, with_greeks):
+    """The nine per-path observables X, Y1..Y8 of one state."""
+    S, rsum, rlog, rmax, rmin = (st[k] for k in ("S", "rsum", "rlog",
+                                                 "rmax", "rmin"))
+    sign, K, df = p.sign, p.K, p.df
+    vanilla = torch.clamp(sign * (S - K), min=0.0)
+    if payoff_id == 0:
+        pay = vanilla
+    elif payoff_id == 1:
+        hit = st["crossed"] > 0.5
+        pay = torch.where(hit, p.rebate, vanilla) if knock_out \
+            else torch.where(hit, vanilla, p.rebate)
+    elif payoff_id == 2:
+        avg = exp32(rlog / n_steps) if average_geo else rsum / n_steps
+        pay = torch.clamp(sign * (S - avg), min=0.0) if strike_floating \
+            else torch.clamp(sign * (avg - K), min=0.0)
+    elif payoff_id == 3:
+        pay = torch.where(sign * (S - K) > 0.0, p.payout, 0.0)
+    elif strike_floating:
+        pay = (S - rmin) if is_call else (rmax - S)
+    else:
+        pay = torch.clamp(rmax - K, min=0.0) if is_call \
+            else torch.clamp(K - rmin, min=0.0)
+    X = df * pay
+    if geo_cv:
+        Y1 = df * torch.clamp(sign * (exp32(rlog / n_steps) - K), min=0.0)
+    else:
+        Y1 = df * S
+    Y2 = df * (sign * (S - K) > 0.0).to(MC_DTYPE)
+    Y3 = df * (pay > 0.0).to(MC_DTYPE)
+    zeros = torch.zeros_like(S)
+    if not with_greeks:
+        return X, Y1, Y2, Y3, zeros, zeros, zeros, zeros, zeros
+    W, g1, g2, g3, g4, z1c = (st[k] for k in ("W", "g1", "g2", "g3", "g4",
+                                              "z1c"))
+    S0, sig = p.S0, p.sig
+    m_f = float(n_steps)
+    T_total = m_f * p.dt
+    sig_ann = sig / p.sqrt_dt
+    c_drift = p.rq - 0.5 * sig_ann * sig_ann
+    r_rate = -torch.log(df) / T_total
+    if payoff_id in (1, 3):
+        # likelihood-ratio observables from (z1, W, Q = Σz²)
+        Y4 = X * ((g2 - m_f) / sig_ann - W)
+        Y5 = X * (W / sig_ann) - T_total * X
+        Y6 = r_rate * X - X * ((g2 - m_f) / (2.0 * T_total)
+                               + c_drift * W / (sig_ann * T_total))
+        Y7 = X * z1c / (S0 * sig)
+        Y8 = X * ((z1c * z1c - 1.0) / (S0 * S0 * sig * sig)
+                  - z1c / (S0 * S0 * sig))
+        return X, Y1, Y2, Y3, Y4, Y5, Y6, Y7, Y8
+
+    def d_terminal():
+        return (S * (W - sig_ann * T_total), S * T_total,
+                S * (c_drift * T_total + 0.5 * sig_ann * W) / T_total)
+
+    if payoff_id == 0:
+        dinner = tuple(sign * d for d in d_terminal())
+    elif payoff_id == 2:
+        if average_geo:
+            avg_v = exp32(rlog / n_steps)
+            tsum = p.dt * (m_f * (m_f + 1.0) / 2.0)
+            davg = (avg_v * (g1 - sig_ann * tsum) / m_f,
+                    avg_v * tsum / m_f,
+                    avg_v * (c_drift * tsum + 0.5 * sig_ann * g1)
+                    / (m_f * T_total))
+        else:
+            davg = ((g1 - sig_ann * g2) / m_f,
+                    g2 / m_f,
+                    (c_drift * g2 + 0.5 * sig_ann * g1) / (m_f * T_total))
+        if strike_floating:
+            dinner = tuple(sign * (a - b)
+                           for a, b in zip(d_terminal(), davg))
+        else:
+            dinner = tuple(sign * d for d in davg)
+    else:
+        dmax = (rmax * (g1 - sig_ann * g3), rmax * g3,
+                rmax * (c_drift * g3 + 0.5 * sig_ann * g1) / T_total)
+        dmin = (rmin * (g2 - sig_ann * g4), rmin * g4,
+                rmin * (c_drift * g4 + 0.5 * sig_ann * g2) / T_total)
+        if strike_floating:
+            dinner = tuple(a - b for a, b in zip(d_terminal(), dmin)) \
+                if is_call else tuple(a - b for a, b in zip(dmax,
+                                                            d_terminal()))
+        else:
+            dinner = dmax if is_call else tuple(-d for d in dmin)
+    itm = (pay > 0.0).to(MC_DTYPE)
+    Y4 = df * itm * dinner[0]
+    Y5 = -T_total * X + df * itm * dinner[1]
+    Y6 = r_rate * X - df * itm * dinner[2]
+    K_eff = 0.0 if strike_floating else K
+    D = (X + sign * K_eff * Y3) / S0
+    Y8 = D * z1c / (S0 * sig) - D / S0
+    return X, Y1, Y2, Y3, Y4, Y5, Y6, zeros, Y8
+
+
+def _moments(obs, w):
+    """The 21 sums over the last (tile) axis."""
+    X, Y1, Y2, Y3, Y4, Y5, Y6, Y7, Y8 = obs
+    WX, WY1, WY2 = X * w, Y1 * w, Y2 * w
+    WY4, WY5, WY6, WY7, WY8 = Y4 * w, Y5 * w, Y6 * w, Y7 * w, Y8 * w
+    terms = (w, WX, WX * X, WY1, WY1 * Y1, WX * Y1, WY2, WY2 * Y2, WX * Y2,
+             WY1 * Y2, Y3 * w, WY4, WY4 * Y4, WY5, WY5 * Y5, WY6, WY6 * Y6,
+             WY7, WY7 * Y7, WY8, WY8 * Y8)
+    return torch.stack([t.sum(dim=-1) for t in terms], dim=-1)
+
+
+def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
+                   antithetic: bool, payoff_id: int, barrier_up: bool,
+                   knock_out: bool, average_geo: bool, strike_floating: bool,
+                   is_call: bool, dynamics: str = "gbm",
+                   with_greeks: bool = False, geo_cv: bool = False
+                   ) -> torch.Tensor:
+    """Plain version of ``path_mc``: every (program, rep, element) path at
+    once as a (n_programs, reps, TILE) tensor, one step pair at a time;
+    tile sums, Kahan over reps, then the programs combined in order."""
+    dev = params.device
+    key0, offset = (int(v) for v in seed.tolist())
+    p = _Scalars(params, dynamics)
+    n_half = n_steps // 2
+    shape = (n_programs, reps, TILE)
+    pid = (offset + torch.arange(n_programs, dtype=torch.int64,
+                                 device=dev)).view(-1, 1, 1)
+    rep = torch.arange(reps, dtype=torch.int64, device=dev).view(1, -1, 1)
+    elem = torch.arange(TILE, dtype=torch.int64, device=dev).view(1, 1, -1)
+
+    def bits(draw):
+        return threefry2x32(key0, pid, elem, draw)
+
+    def normals(draw):
+        bits_a, bits_b = bits(draw)
+        u1 = ((bits_a >> 8).to(MC_DTYPE) + 0.5) * _TINY
+        u2 = (bits_b >> 8).to(MC_DTYPE) * _TINY
+        rad = torch.sqrt(-2.0 * log32(u1))
+        theta = _TWO_PI * u2
+        return rad * torch.cos(theta), rad * torch.sin(theta)
+
+    def uniforms(draw):
+        bits_a, bits_b = bits(draw)
+        return (((bits_a >> 8).to(MC_DTYPE) + 0.5) * _TINY,
+                ((bits_b >> 8).to(MC_DTYPE) + 0.5) * _TINY)
+
+    def init_state():
+        S = p.S0.expand(shape)
+        zeros = torch.zeros(shape, dtype=MC_DTYPE, device=dev)
+        if payoff_id == 1:
+            crossed = ((S >= p.barrier) if barrier_up
+                       else (S <= p.barrier)).to(MC_DTYPE)
+        else:
+            crossed = zeros
+        if dynamics.startswith("heston"):
+            v = p.h_v0.expand(shape)
+        elif dynamics.startswith("sabr"):
+            v = p.s_alpha0.expand(shape)
+        else:
+            v = zeros
+        st = dict(S=S, rsum=zeros, rlog=zeros, rmax=S, rmin=S,
+                  crossed=crossed, v=v)
+        if with_greeks:
+            st.update(W=zeros, g1=zeros, g2=zeros, g3=zeros, g4=zeros,
+                      z1c=zeros)
+        return st
+
+    adv = dict(dynamics=dynamics, payoff_id=payoff_id, barrier_up=barrier_up,
+               average_geo=average_geo, geo_cv=geo_cv,
+               with_greeks=with_greeks)
+    st_p, st_m = init_state(), init_state()
+    for t in range(n_half):
+        d0 = (rep * n_half + t) * 2
+        z1, z2 = normals(d0)
+        if dynamics == "heston_qe":
+            zv1, zv2 = uniforms(d0 + 1)
+        elif dynamics in _SV:
+            zv1, zv2 = normals(d0 + 1)
+        else:
+            zv1, zv2 = z1, z2
+        t0 = float(np.float32(2.0 * t) * np.float32(p.dt.item()))
+        t1 = float(np.float32(t0) + np.float32(p.dt.item()))
+        st_p = _advance(p, st_p, z1, zv1, t0, **adv)
+        st_p = _advance(p, st_p, z2, zv2, t1, **adv)
+        if antithetic:
+            if dynamics == "heston_qe":
+                mv1, mv2 = 1.0 - zv1, 1.0 - zv2
+            else:
+                mv1, mv2 = -zv1, -zv2
+            st_m = _advance(p, st_m, -z1, mv1, t0, **adv)
+            st_m = _advance(p, st_m, -z2, mv2, t1, **adv)
+
+    pk = dict(n_steps=n_steps, payoff_id=payoff_id, knock_out=knock_out,
+              average_geo=average_geo, strike_floating=strike_floating,
+              is_call=is_call, geo_cv=geo_cv, with_greeks=with_greeks)
+    obs = _payoff_obs(p, st_p, **pk)
+    if antithetic:
+        obs = tuple(0.5 * (a + b)
+                    for a, b in zip(obs, _payoff_obs(p, st_m, **pk)))
+    # tail mask by the per-tile remainder, in f32 as on the TPU
+    prog_offset = (pid.to(MC_DTYPE) * reps + rep.to(MC_DTYPE)) * TILE
+    w = (elem.to(MC_DTYPE) < p.n_paths - prog_offset).to(MC_DTYPE)
+    s = _moments(obs, w)                            # (n_programs, reps, 21)
+    acc = torch.zeros((n_programs, NSTAT), dtype=MC_DTYPE, device=dev)
+    comp = torch.zeros_like(acc)
+    for c in range(reps):
+        acc, comp = stats_ops.kahan_add(acc, comp, s[:, c])
+    return stats_ops.combine_scan(acc)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
+            n_programs: int, reps: int, n_steps: int, antithetic: bool,
+            payoff_id: int, barrier_up: bool, knock_out: bool,
+            average_geo: bool, strike_floating: bool, is_call: bool,
+            dynamics: str = "gbm", with_greeks: bool = False,
+            geo_cv: bool = False) -> torch.Tensor:
+    """f32[21] path-dependent sums over the (n_programs, reps) grid.
+
+    Kernel ``path_mc_kernel`` in ``csrc/path_mc.cu``; it replaces
+    ``optpricer_tpu/ops/pallas_path_mc.py:_path_kernel`` (launched from
+    ``_run_path_kernel``). One thread owns one (program, element) path and
+    loops over reps and step pairs with its state in registers; it is
+    bound by integer and SFU issue (a Threefry block per step pair, one or
+    two per pair under stochastic volatility, an exp32 per step and
+    state).
+    """
+    _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
+                  with_greeks, payoff_id, geo_cv)
+    kw = dict(n_programs=n_programs, reps=reps, n_steps=n_steps,
+              antithetic=antithetic, payoff_id=payoff_id,
+              barrier_up=barrier_up, knock_out=knock_out,
+              average_geo=average_geo, strike_floating=strike_floating,
+              is_call=is_call, dynamics=dynamics, with_greeks=with_greeks,
+              geo_cv=geo_cv)
+    if params.device.type == "cpu":
+        return _path_mc_plain(seed, params, **kw)
+    dev = params.device
+    flags = sum(bit for name, bit in _FLAG_BITS.items() if kw[name])
+    block_rows = torch.empty((n_programs * _BLOCKS_PER_PROGRAM, _ROW),
+                             dtype=MC_DTYPE, device=dev)
+    prog_rows = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
+    out = torch.empty((_ROW,), dtype=MC_DTYPE, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.optpricer_path_mc(
+            seed.data_ptr(), params.data_ptr(), block_rows.data_ptr(),
+            prog_rows.data_ptr(), out.data_ptr(), n_programs, reps, n_steps,
+            DYNAMICS[dynamics], int(payoff_id), flags,
+            int(bool(with_greeks)), int(bool(antithetic)), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"path_mc_kernel launch failed: CUDA error {err}")
+    path_mc.launches += 1
+    return out[:NSTAT]
+
+
+path_mc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# public entry point
+# ---------------------------------------------------------------------------
+def path_mc_sumstats_kernel(
+    seed: int, n_paths: int, n_steps: int, S0, K, T, r, q, sigma,
+    is_call: bool, *, payoff: str, antithetic: bool,
+    barrier: float = 0.0, barrier_type: str = "up-and-out",
+    rebate: float = 0.0, average_type: str = "arithmetic",
+    strike_type: str = "fixed", payout: float = 1.0,
+    svi_slices=None, scheme: str = "log_euler", dS_bump: float = 0.01,
+    heston=None, sabr=None, lsv=None, greek_stats: bool = False,
+    geo_cv: bool = False, device=None,
+) -> torch.Tensor:
+    """(21,) f32 sufficient statistics for a path-dependent payoff.
+
+    ``greek_stats=True`` (GBM only) fills moments [11..20] with ΣY/ΣY² of
+    the vega/rho/theta/LR-delta/gamma observables — pathwise for the
+    continuous payoffs, likelihood-ratio for barrier and digital.
+    Dynamics: GBM by default, Heston with a ``heston`` dict (Euler, or
+    Andersen QE under ``scheme="qe"``), SABR with a ``sabr`` dict.
+    n_steps must be even.
+    """
+    dev = resolve_device(device)
+    params, static = _resolve_config(
+        n_paths, n_steps, S0, K, T, r, q, sigma, is_call, payoff, antithetic,
+        barrier, barrier_type, rebate, average_type, strike_type, payout,
+        svi_slices, scheme, dS_bump, heston, sabr, geo_cv, lsv)
+    reps, n_programs = _plan_grid(int(n_paths), TILE)
+    return path_mc(_seed_pair(seed, dev), params.to(dev), n_programs=n_programs, reps=reps,
+                   with_greeks=bool(greek_stats), **static)

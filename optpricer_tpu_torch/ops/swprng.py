@@ -11,12 +11,19 @@ Shaw, SC'11 — the PRF under JAX's own PRNG). It has two forms:
 
 Both give the JAX function's bits exactly for the same (key, counter), which
 is what lets the port reproduce the reference's draws.
+
+``jax_fold_in_bits`` rebuilds, on the host, the words that
+``jax.random.bits(jax.random.fold_in(jax.random.key(seed), i), (d,),
+jnp.uint32)`` returns under JAX's default ``threefry2x32`` implementation
+with ``jax_threefry_partitionable`` on: the path-QMC kernel's digital
+shifts.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["threefry2x32"]
+__all__ = ["threefry2x32", "jax_fold_in_bits"]
 
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
@@ -53,3 +60,19 @@ def threefry2x32(key0, key1, ctr0, ctr1):
         x0 = (x0 + ks[(block + 1) % 3]) & _MASK
         x1 = (x1 + ks[(block + 2) % 3] + (block + 1)) & _MASK
     return x0, x1
+
+
+def jax_fold_in_bits(seed: int, i: int, d: int) -> np.ndarray:
+    """(d,) uint32: ``bits(fold_in(key(seed), i), (d,), uint32)``.
+
+    The steps of JAX's threefry2x32 implementation, in host integers:
+    ``key(seed)`` is the pair (high, low) of the seed's 64-bit word;
+    ``fold_in`` hashes the counter (0, i) under that key; ``bits`` (the
+    partitionable form) hashes the counters (0, j), j < d, under the new
+    key and XORs the two output words.
+    """
+    seed64 = int(seed) & 0xFFFFFFFFFFFFFFFF
+    k0, k1 = threefry2x32(seed64 >> 32, seed64 & _MASK, 0, int(i) & _MASK)
+    j = torch.arange(int(d), dtype=torch.int64)
+    b0, b1 = threefry2x32(k0, k1, 0, j)
+    return (b0 ^ b1).numpy().astype(np.uint32)

@@ -6,10 +6,13 @@ different generators in the two CLIs on the CPU (the reference takes its
 ``fold_in`` chunk scan there, the port its terminal kernel), so they agree
 within Monte-Carlo error: 4 combined standard errors for the price, and
 for the Greeks bands at 2^20 paths scaled from tests/test_mc_greeks.py.
+``qmc`` on ``--device cpu`` must print exactly what the port's own
+``exotic_price_mc(backend="qmc", device="cpu")`` gives, at 10 decimals.
 """
 import pytest
 
 from optpricer_tpu import cli as jcli
+import optpricer_tpu_torch as tp
 from optpricer_tpu_torch import cli as tcli
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
@@ -60,3 +63,24 @@ def test_greeks_agree_within_error(capsys):
         name = ref_line.split()[0]
         assert abs(float(got_line.split()[1]) - float(ref_line.split()[1])) \
             <= bands[name], name
+
+
+@pytest.mark.parametrize("extra, payoff, kw", [
+    (["--n-paths", "2048", "--n-steps", "8"], "vanilla",
+     dict(n_paths=2048, n_steps=8)),
+    (["--payoff", "asian", "--average-type", "geometric", "--kind", "put",
+      "--n-paths", "4096", "--n-steps", "16", "--seed", "3"], "asian",
+     dict(average_type="geometric", kind="put", n_paths=4096, n_steps=16,
+          seed=3)),
+    (["--payoff", "barrier", "--barrier", "125", "--n-paths", "3000",
+      "--n-steps", "12"], "barrier",
+     dict(barrier=125.0, n_paths=3000, n_steps=12)),
+])
+def test_qmc_line_equals_port_entry_point(extra, payoff, kw, capsys):
+    argv = ["qmc", *MARKET, *extra, "--device", "cpu"]
+    got = _run(tcli.main, argv, capsys)
+    defaults = dict(n_paths=65_536, n_steps=64, seed=0)
+    px, se = tp.exotic_price_mc(payoff, 100.0, 110.0, 1.0, 0.03,
+                                sigma=0.2, backend="qmc", device="cpu",
+                                **(defaults | kw))
+    assert got == f"{px:.10f}  (stderr {se:.10f})"

@@ -1,0 +1,221 @@
+"""Port vs reference: ``exotic_price_mc`` / ``exotic_greeks_mc`` and their
+host estimators.
+
+* ``exotic_price_mc(device="cpu")`` against JAX
+  ``exotic_price_mc(backend="pallas")``, which on the CPU runs the path
+  kernel in interpret mode on the same ``sw_prng`` sample. The stats agree
+  to ~1e-5 relative (``tests/test_torch_path_mc.py``); the estimators turn
+  that into |Δprice| ≤ max(1e-5·|price|, 0.01·stderr) and a stderr within
+  rtol 1e-2 (a control-variate stderr is the root of a difference of
+  near-equal variances; 5.3e-5 and 3.2e-3 measured on the dual-CV put).
+* ``exotic_greeks_mc`` against JAX ``exotic_greeks_mc(backend="pallas")``:
+  the same keys, every Greek within rtol 5e-5 (6.6e-6 measured), every
+  stderr within rtol 1e-3 (5.8e-5 measured).
+* ``backend="qmc"`` against the JAX path-QMC kernel's stats and estimator
+  (the JAX entry point takes its staged XLA pipeline on the CPU).
+* ``_estimate_from_stats`` and ``geometric_asian_price_f64`` are the same
+  float64 code: exactly equal on the same inputs.
+* The XLA goldens draw from ``jax.random``, not from the kernels' stream,
+  so the port meets them statistically: within 4·√(se² + se_golden²).
+"""
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import optpricer_tpu as jp
+from optpricer_tpu.models import analytic as janalytic
+from optpricer_tpu.models import mc_fused as jmf
+from optpricer_tpu.ops import pallas_qmc_path as jqp
+import optpricer_tpu_torch as tp
+from optpricer_tpu_torch.models import analytic as tanalytic
+from optpricer_tpu_torch.models import mc_fused as tmf
+from optpricer_tpu_torch.ops import path_mc as tpm
+from tests.torch_threads import torch_one_thread  # noqa: F401
+
+GOLDENS = json.loads((Path(__file__).with_name("goldens.json")).read_text())
+MARKET = (100.0, 105.0, 1.0, 0.03, 0.01)  # S0, K, T, r, q
+BASE = dict(n_steps=8, n_paths=6000, seed=3)
+HESTON = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7)
+SABR = dict(alpha0=0.2, beta=0.6, nu=0.4, rho=-0.3)
+
+
+def _close_price(got, ref):
+    assert abs(got[0] - ref[0]) <= max(1e-5 * abs(ref[0]), 0.01 * ref[1])
+    assert got[1] == pytest.approx(ref[1], rel=1e-2)
+
+
+@pytest.mark.parametrize("payoff, kw", [
+    ("asian", dict(sigma=0.2, control_variate=True)),      # the geo CV
+    ("asian", dict(sigma=0.2, average_type="geometric")),
+    ("vanilla", dict(sigma=0.2, control_variate=True, kind="put")),
+    ("barrier", dict(heston=HESTON, scheme="qe", barrier=125.0,
+                     control_variate=True)),
+    ("vanilla", dict(sabr=SABR, control_variate=True)),    # CEV
+    ("lookback", dict(sigma=0.2, strike_type="floating", antithetic=False)),
+    ("digital", dict(sigma=0.2, kind="put", payout=2.0)),
+], ids=["asian-geo_cv", "asian-geometric", "vanilla-put-cv", "heston_qe",
+        "sabr_cev", "lookback", "digital"])
+def test_price_matches_reference_kernel(payoff, kw):
+    ref = jp.exotic_price_mc(payoff, *MARKET, backend="pallas", **BASE, **kw)
+    got = tp.exotic_price_mc(payoff, *MARKET, device="cpu", **BASE, **kw)
+    _close_price(got, ref)
+
+
+@pytest.mark.parametrize("payoff, kw", [
+    ("vanilla", {}), ("asian", dict(average_type="geometric")),
+    ("lookback", dict(strike_type="floating")),
+    ("barrier", dict(barrier=120.0)), ("digital", dict(kind="put"))])
+def test_greeks_match_reference_kernel(payoff, kw):
+    ref = jp.exotic_greeks_mc(payoff, *MARKET, sigma=0.2, backend="pallas",
+                              **BASE, **kw)
+    got = tp.exotic_greeks_mc(payoff, *MARKET, sigma=0.2, device="cpu",
+                              **BASE, **kw)
+    assert set(got) == set(ref)
+    for key, value in ref.items():
+        rtol = 1e-3 if key.endswith("stderr") else 5e-5
+        assert got[key] == pytest.approx(value, rel=rtol, abs=1e-12), key
+
+
+def test_qmc_backend_matches_reference_kernel():
+    kw = dict(payoff="asian", average_type="geometric")
+    stats = jqp.path_qmc_sumstats_pallas(7, 2048, 8, *MARKET, 0.2, True,
+                                         interpret=True, **kw)
+    for cv in (False, True):
+        ref = jqp.qmc_path_estimate(stats, 100.0, 0.01, 1.0,
+                                    control_variate=cv)
+        got = tp.exotic_price_mc("asian", *MARKET, sigma=0.2, backend="qmc",
+                                 n_paths=2048, n_steps=8, seed=7,
+                                 average_type="geometric",
+                                 control_variate=cv, device="cpu")
+        assert got[0] == pytest.approx(ref[0], rel=1e-6)
+        assert got[1] == pytest.approx(ref[1], rel=1e-3)
+
+
+def _stats21(**kw):
+    return tpm.path_mc_sumstats_kernel(
+        5, 5000, 8, *MARKET, 0.2, True, antithetic=True,
+        device="cpu", **kw).double().numpy()
+
+
+@pytest.mark.parametrize("control_variate", [True, False])
+def test_estimate_from_stats_exact(control_variate):
+    s = _stats21(payoff="asian", geo_cv=True)
+    geo = tanalytic.geometric_asian_price_f64(*MARKET, 0.2, n_steps=8)
+    cases = [("gbm", None), ("sv", None), ("gbm", geo)]
+    for dynamics, geo_ey in cases:
+        for is_call in (True, False):
+            args = (s, *MARKET, 0.2, is_call, dynamics, control_variate)
+            assert tmf._estimate_from_stats(*args, geo_ey=geo_ey) == \
+                jmf._estimate_from_stats(*args, geo_ey=geo_ey)
+    empty = np.zeros(21)
+    assert np.isnan(tmf._estimate_from_stats(empty, *MARKET, 0.2, True,
+                                             "gbm", control_variate)[0])
+
+
+def test_geometric_asian_closed_forms():
+    for kind in ("call", "put"):
+        for n_steps in (1, 8, 252):
+            args = (100.0, 95.0, 0.7, 0.04, 0.01, 0.3)
+            ref = janalytic.geometric_asian_price_f64(*args, kind=kind,
+                                                      n_steps=n_steps)
+            assert tanalytic.geometric_asian_price_f64(
+                *args, kind=kind, n_steps=n_steps) == ref
+            vec = tp.geometric_asian_price(*args, kind=kind,
+                                           n_steps=n_steps, device="cpu")
+            jvec = janalytic.geometric_asian_price(*args, kind=kind,
+                                                   n_steps=n_steps)
+            assert float(vec) == pytest.approx(float(jvec), rel=1e-13)
+            assert float(vec) == pytest.approx(ref, rel=1e-13)
+    strikes = np.array([80.0, 100.0, 120.0])
+    vec = tp.geometric_asian_price(100.0, strikes, 1.0, 0.03, sigma=0.2,
+                                   device="cpu")
+    np.testing.assert_allclose(
+        vec.numpy(), np.asarray(janalytic.geometric_asian_price(
+            100.0, strikes, 1.0, 0.03, sigma=0.2)), rtol=1e-13)
+
+
+@pytest.mark.parametrize("name, payoff, kw", [
+    ("exotic_asian_xla_seed3", "asian",
+     dict(S0=100.0, K=100.0, sigma=0.2, seed=3)),
+    ("exotic_barrier_heston_xla_seed5", "barrier",
+     dict(S0=100.0, K=100.0, seed=5, barrier=135.0,
+          heston=dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6))),
+    ("exotic_sabr_xla_seed9", "vanilla",
+     dict(S0=100.0, K=100.0, seed=9,
+          sabr=dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4))),
+])
+def test_xla_goldens_met_statistically(name, payoff, kw):
+    golden = GOLDENS[name]
+    kw = dict(kw)
+    S0, K = kw.pop("S0"), kw.pop("K")
+    px, se = tp.exotic_price_mc(payoff, S0, K, 1.0, 0.03, n_steps=32,
+                                n_paths=50_000, device="cpu", **kw)
+    assert abs(px - golden["price"]) <= 4.0 * np.hypot(se, golden["stderr"])
+    # the kernel counts an antithetic pair as one observation, the XLA
+    # engine each path: the pair-averaged stderr is the smaller
+    assert 0.0 < se <= golden["stderr"]
+
+
+def test_seed_reproducible_and_cuda_request_raises():
+    kw = dict(sigma=0.2, n_steps=4, n_paths=4096, seed=11, device="cpu")
+    assert tp.exotic_price_mc("asian", *MARKET, **kw) == \
+        tp.exotic_price_mc("asian", *MARKET, **kw)
+    assert tp.exotic_price_mc("asian", *MARKET, dtype="float32", **kw) == \
+        tp.exotic_price_mc("asian", *MARKET, **kw)
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tp.exotic_price_mc("asian", *MARKET, sigma=0.2, n_steps=4,
+                               n_paths=4096, seed=1)
+
+
+_SIG = dict(sigma=0.2, n_steps=4, n_paths=4096, device="cpu")
+
+
+@pytest.mark.parametrize("fn, kw, item", [
+    ("price", dict(sigma_loc=lambda S, t: 0.2, n_steps=4), "A.9"),
+    ("price", dict(merton=dict(sigma=0.2, lam=0.1, mJ=0.0, sJ=0.1)), "A.10"),
+    ("price", dict(vg=dict(sigma=0.2, theta=-0.1, nu=0.2)), "A.13"),
+    ("price", dict(nig=dict(alpha=10.0, beta=-2.0, delta=0.2)), "A.13"),
+    ("price", dict(sabr=SABR, scheme="exact"), "A.10"),
+    ("price", dict(_SIG, dividends=[(0.5, 1.0)]), "A.10"),
+    ("price", dict(_SIG, mesh=object()), "A.15"),
+    ("price", dict(_SIG, backend="xla"), "A.10"),
+    ("price", dict(_SIG, n_steps=7), "A.10"),
+    ("price", dict(_SIG, dtype="float64"), "A.10"),
+    ("greeks", dict(heston=HESTON), "A.10"),
+    ("greeks", dict(sabr=SABR), "A.10"),
+    ("greeks", dict(_SIG, n_steps=7), "A.10"),
+    ("greeks", dict(_SIG, backend="xla"), "A.10"),
+    ("greeks", dict(_SIG, backend="qmc"), "A.10"),
+    ("greeks", dict(_SIG, mesh=object()), "A.15"),
+    ("greeks", dict(_SIG, dtype=np.float64), "A.10"),
+])
+def test_unported_routes_raise(fn, kw, item):
+    call = tp.exotic_price_mc if fn == "price" else tp.exotic_greeks_mc
+    with pytest.raises(NotImplementedError, match=item):
+        call("vanilla", *MARKET, **kw)
+
+
+def test_validation_matches_reference():
+    bad = [("straddle", dict(sigma=0.2)), ("asian", {}),
+           ("asian", dict(sigma=0.2, heston=HESTON)),
+           ("asian", dict(sigma=0.2, kind="forward")),
+           ("asian", dict(sigma=0.2, scheme="qe")),
+           ("asian", dict(heston=HESTON, backend="qmc"))]
+    for payoff, kw in bad:
+        with pytest.raises(ValueError) as ref:
+            jp.exotic_price_mc(payoff, *MARKET, n_steps=4, n_paths=64,
+                               **(dict(backend="pallas") | kw))
+        with pytest.raises(ValueError) as got:
+            tp.exotic_price_mc(payoff, *MARKET, n_steps=4, n_paths=64,
+                               device="cpu", **kw)
+        assert str(got.value) == str(ref.value)
+    for payoff, kw in [("asian", dict(sigma=0.2, dividends=[(0.5, 1.0)])),
+                       ("asian", {}), ("cliquet", dict(sigma=0.2))]:
+        with pytest.raises(ValueError) as ref:
+            jp.exotic_greeks_mc(payoff, *MARKET, **kw)
+        with pytest.raises(ValueError) as got:
+            tp.exotic_greeks_mc(payoff, *MARKET, device="cpu", **kw)
+        assert str(got.value) == str(ref.value)

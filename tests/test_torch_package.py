@@ -21,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -29,8 +29,12 @@ def test_import_never_pulls_in_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # cli, convert, core, dtypes, _build, models.*, ops.* at least
-    assert int(proc.stdout.strip()) >= 12
+    names = set(proc.stdout.split())
+    for module in ("cli", "convert", "core", "dtypes", "_build",
+                   "models.monte_carlo", "models.binomial", "models.mc_fused",
+                   "models.analytic", "ops.terminal_mc", "ops.path_mc",
+                   "ops.qmc_path", "ops.sobol", "ops.swprng"):
+        assert f"optpricer_tpu_torch.{module}" in names, module
 
 
 def test_public_names_resolve():
