@@ -25,14 +25,28 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      up-and-in and up-and-out there; the vanilla with Greek moments at
      1M x 8; the Heston Euler and SABR β=1 call and put at 1M x 64;
    * the path-QMC kernel (K5) for the five payoffs at 65 536 points x 8
-     replicates x 64 steps (the main path's shape) and x 252 steps.
+     replicates x 64 steps (the main path's shape) and x 252 steps;
+   * the batched Thomas kernel (K7) at (511, 1024) in f64 and f32, at the
+     propagator build's 511 x 511 in f64 with one coefficient column for
+     every system, at the "auto" ladder's call (one coefficient row for
+     1 024 right-hand sides of 511, through the last-axis adapter) in f64
+     and f32, and on a ragged (3, 37) last-axis case, every case with
+     garbage in a[0] and c[n-1];
+   * the fused local-vol march (K8) on the full ladder (1 024 strikes x 511
+     rows x 512 steps): PCR for calls and puts, with and without the
+     American projection; Thomas for a call and an American put (the plain
+     Thomas march, ~5·10^6 small launches, is timed once here).
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
-   of K4 within 2e-5·√(n·ΣY²).
-4. determinism — the terminal kernel at 2^24 and the path kernel at the
-   main path's shape, each twice on one seed: bitwise equal.
-5. main path — the public API on ``device="cuda"`` with the launch counts
-   set to 0 just before and read just after:
+   of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
+   2e-5 (f32); K8's ladder prices within 2e-5. Each kernel's line names the
+   case that carries its largest price (K7: solution) difference.
+4. determinism — the terminal kernel at 2^24, the path kernel at the main
+   path's shape and K8 (PCR and Thomas at 512 steps), each twice on one
+   input: bitwise equal.
+5. main paths — the public API on ``device="cuda"``; each path's launch
+   counts are set to 0 just before it and read just after.
+   The Monte-Carlo path:
    * euro_price_mc at 1M paths and at 2^30 base draws, the QMC backend at
      2^22, euro_greeks_mc at 1M, crr_vec over 1 000 strikes at N=500, and
      the CLI's bs / binomial / mc / greeks as subprocesses; every MC price
@@ -50,11 +64,36 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      Greeks, the Asian finite;
    * the CLI's qmc as a subprocess, equal to the same call in-process.
    Each of the four kernels must have been launched.
+   The PDE path (BASELINE config 4 and the local-vol ladders):
+   * config 4 on a 512-node grid, N_t = 256: the European call within 1e-3
+     relative of Black-Scholes; the American put by PSOR above the European
+     put and within 0.003 relative of crr(N=4000, american); the up-and-out
+     call at 130 between 0 and the European, up-and-in + up-and-out equal
+     to the vanilla; fd_greeks' delta within 0.005 of Black-Scholes;
+     fem_price within 2e-3 relative; each equal to the same call on
+     device="cpu" to rtol 1e-9;
+   * fd_price_local_vol with σ ≡ 0.2 within 0.002 of Black-Scholes, and
+     with σ(t)² = 0.03 + 0.02t within 0.005 of Black-Scholes at the RMS vol;
+   * the local-vol ladder, 1 024 strikes 70..130 x N_S = 512 x N_t = 512
+     under the smile 0.2 + 0.1·exp(-ln²(S/100)) + 0.05·t, by
+     solver="auto" (K7 each step) in float64 and in float32, "fused" (K8
+     PCR) and "fused_thomas" (K8 Thomas, both float32): the three float32
+     ladders agree within atol 2e-4 and rtol 2e-5, and each with the
+     float64 one within rtol 1e-4 (a float32 march's round-off over 512
+     steps);
+   * the CLI's fd as a subprocess, equal to the same call in-process.
+   K7 and K8 must have been launched.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
-   plain version): K1 at 2^30 and 2^24 base draws and its plain version at
-   2^24; K2 and its plain version at 2^22 points; K4 and its plain version
-   at the main path's shape, and K4 with Greek moments there; K5 and its
-   plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252.
+   plain version and the dense solve): K1 at 2^30 and 2^24 base draws and
+   its plain version at 2^24; K2 and its plain version at 2^22 points; K4
+   and its plain version at the main path's shape, and K4 with Greek
+   moments there; K5 and its plain version at 65 536 x 8 x 64 and at 2^20 x
+   8 x 252; K7 at (511, 1024) in f64 and f32 with its plain version and
+   torch.linalg.solve on the dense (1024, 511, 511) f64 matrices; K8 PCR
+   and Thomas on the full ladder with the plain PCR (the plain Thomas is
+   phase 3's one run); the "auto" ladder call; the host-clock wall time of
+   each config-4 call; and, under torch.profiler, the device-busy share of
+   the PSOR put, the European call and the "auto" and "fused" ladders.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -62,10 +101,11 @@ stats − price from the plain version's| in phase 3, in price units),
 ``ms`` / ``plain_ms`` at the shape given, ``bound_ms`` / ``bound_by`` (the
 least time the card could take for that work: the operations on these
 inputs over the H100's float32 peak, or the bytes over the memory rate,
-whichever is larger; K1/K2 count their source's operations, K4/K5 the
-least their function needs) and ``library_ms`` (null: no single PyTorch
-call computes these functions). The last line is
-``{"ok": true, "device": {...}}``.
+whichever is larger; K1/K2 count their source's operations, K4/K5/K8 the
+least their function needs, K7 its bytes) and ``library_ms`` (K7: the
+dense batched ``torch.linalg.solve``; null for the others, which no single
+PyTorch call computes). K7's ``max_abs_err`` is in solution units, K8's in
+price units. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -114,6 +154,15 @@ def ops_k4_path_step(antithetic: bool, greeks: bool) -> float:
     return 65 + per_state * (2 if antithetic else 1)
 
 
+def ops_k8_ladder(n_strikes: int, m: int, n_t: int) -> float:
+    """K8's least work for a European ladder: per strike, row and step the
+    rhs (three products of the layer with the row's coefficients and two
+    adds, 5), the forward elimination (d' = (d − a·d'_prev)·rcp, 3) and the
+    back substitution (2); per row and step, shared by every strike, σ's
+    operator coefficients, the pivot c' and its reciprocal (~25)."""
+    return (10 * n_strikes + 25) * m * n_t
+
+
 def ops_k5_point(n_steps: int) -> float:
     """K5 per point, for the geometric Asian that phase 6 times: per step
     the Sobol word by one Gray-code XOR (1), the cell-centred uniform (4),
@@ -130,6 +179,11 @@ def bound(ops: float, n_bytes: float):
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def smile(S, t):
+    """The local-vol smile of tests/test_pallas_tridiag.py:53-54."""
+    return 0.2 + 0.1 * torch.exp(-(torch.log(S / 100.0)) ** 2) + 0.05 * t
 
 
 def card_line() -> str:
@@ -187,6 +241,22 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def device_busy(fn):
+    """(wall ms, device-busy ms, kernels) of one call of ``fn`` under
+    torch.profiler: the summed durations of the kernels it ran (one stream,
+    so they do not overlap) against the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return wall * 1e3, busy, len(kernels)
+
+
 def check_price(label, price, se, ref, seconds=None, slack=1e-4,
                 what="BS"):
     err = abs(price - ref)
@@ -204,6 +274,441 @@ def run_cli(args):
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          check=True, timeout=600)
     return out.stdout.strip()
+
+
+class PdeSlice:
+    """The PDE slice (K7, K8; BASELINE config 4 and the local-vol ladders):
+    its kernel checks, determinism, main path and timings at the main
+    path's sizes."""
+
+    LV_MARKET = (100.0, 1.0, 0.04, 0.01)  # S0, T, r, q
+    N_STRIKES = 1024      # the ladder: strikes 70..130 x N_S x N_T
+    N_S = 512
+    N_T = 512
+    K7_SHAPE = (511, 1024)
+    GRID4 = dict(N_S=512, N_t=256)  # BASELINE config 4
+    CRR_STEPS = 4000
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+        self.strikes = torch.linspace(70.0, 130.0,
+                                      self.N_STRIKES).double().numpy()
+        self.wall = {}
+        self.k7_bytes = {}
+        self.plain_thomas_ms = None
+
+    # -- inputs ----------------------------------------------------------
+    def k7_system(self, n, batch, dtype, shared=False, seed=0,
+                  garbage=True):
+        """Diagonally dominant (n, batch) systems; ``shared``: one
+        coefficient column for every system; ``garbage`` in a[0], c[n-1]."""
+        g = torch.Generator().manual_seed(seed)
+        a, b, c, d = (torch.randn(n, batch, generator=g, dtype=torch.float64)
+                      for _ in range(4))
+        b = b + 4.0
+        if shared:
+            a, b, c = a[:, :1], b[:, :1], c[:, :1]
+        if garbage:
+            a[0] = 1e30
+            c[-1] = float("nan")
+        return [t.to(device=self.dev, dtype=dtype).contiguous()
+                for t in (a, b, c, d)]
+
+    def k8_setup(self, kind, american, method):
+        """(operands, σ table, fd_lv kwargs, layer -> prices) for K8 on the
+        ladder."""
+        from optpricer_tpu_torch.ops import fd_lv as flv
+
+        S0, T, r, q = self.LV_MARKET
+        (x_np, dt, K_arr, mask, params, K32, sign, m, m_pad) = \
+            flv._kernel_inputs(S0, self.strikes, T, r, q, kind,
+                               N_S=self.N_S, N_t=self.N_T, S_max_mult=4.0,
+                               ref_vol=0.3)
+        tab = flv._sigma_table(smile, x_np, dt, self.N_S, self.N_T, m_pad,
+                               self.dev)
+        ops = [torch.from_numpy(t).to(self.dev) for t in (params, K32, sign)]
+        kw = dict(n_t=self.N_T, m=m, m_pad=m_pad, theta=0.5,
+                  american=american, method=method)
+        return ops, tab, kw, lambda V: flv._ladder_prices(
+            V, x_np, K_arr, mask, S0, r, T)
+
+    # -- phase 3 ---------------------------------------------------------
+    def phase3(self, record):
+        from optpricer_tpu_torch.ops import fd_lv as flv
+        from optpricer_tpu_torch.ops import thomas as tth
+
+        def k7_check(case, got, ref, rtol):
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"thomas {case}: non-finite solution")
+            # norm-wise: max |x_k - x_p| / max |x_p|
+            diff = (got - ref).abs().double()
+            rel = diff.max().item() / ref.abs().max().item()
+            if rel > rtol:
+                raise AssertionError(f"thomas {case}: max rel err {rel:.3e} "
+                                     f"> {rtol}")
+            record("thomas", rel, diff.max().item(), 0.0, case)
+
+        n, batch = self.K7_SHAPE
+        rtols = {torch.float64: 1e-10, torch.float32: 2e-5}
+        cases = [(f"{n} x {batch} f64", (n, batch, torch.float64)),
+                 (f"{n} x {batch} f32", (n, batch, torch.float32)),
+                 (f"{n} x {n} f64 shared columns (propagator build)",
+                  (n, n, torch.float64, True))]
+        for case, args in cases:
+            a, b, c, d = self.k7_system(*args)
+            k7_check(case, tth.tridiag_solve_kernel(a, b, c, d),
+                     tth._thomas_plain(a, b, c, d), rtols[args[2]])
+        # the "auto" ladder's call: one (n,) row per coefficient for every
+        # strike, the (strikes, n) rhs, through the last-axis adapter
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            a, b, c, d = self.k7_system(n, batch, dtype, shared=True)
+            k7_check(f"{batch} x {n} {tag} shared rows, last axis (the "
+                     "ladder's call)",
+                     tth.tridiag_solve_kernel_lastdim(a[:, 0], b[:, 0],
+                                                      c[:, 0], d.t()),
+                     tth._thomas_plain(a, b, c, d).t(), rtols[dtype])
+        a, b, c, d = (t.t().contiguous()
+                      for t in self.k7_system(37, 3, torch.float64))
+        k7_check("ragged (3, 37) last axis",
+                 tth.tridiag_solve_kernel_lastdim(a, b, c, d),
+                 tth._thomas_plain(a.t(), b.t(), c.t(), d.t()).t(), 1e-10)
+
+        # both methods at the ladder's full 512 steps; the plain Thomas
+        # march (~5·10^6 small launches) is timed once on the European call
+        k8_cases = [(kind, am, "pcr") for kind in ("call", "put")
+                    for am in (False, True)]
+        k8_cases += [("call", False, "thomas"), ("put", True, "thomas")]
+        for kind, am, method in k8_cases:
+            ops, tab, kw, prices = self.k8_setup(kind, am, method)
+            k = flv.fd_lv(*ops, tab, **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p = flv._fd_lv_plain(*ops, tab, **kw)
+            end.record()
+            end.synchronize()
+            if (kind, am, method) == ("call", False, "thomas"):
+                self.plain_thomas_ms = start.elapsed_time(end)
+            dprice = float(abs(prices(k) - prices(p)).max())
+            case = (f"{method} {kind} american={am} {len(self.strikes)} x "
+                    f"{self.N_S - 1} x {self.N_T}")
+            print(f"phase 3 fd_lv {case}: max |price difference| "
+                  f"{dprice:.3e}; plain version {start.elapsed_time(end):.1f}"
+                  f" ms [{self.card}]")
+            if not (torch.isfinite(k).all() and dprice <= RTOL):
+                raise AssertionError(f"fd_lv {case}: max |price difference| "
+                                     f"{dprice:.3e} > {RTOL}")
+            record("fd_lv", (k - p).abs().max().item(), dprice, 0.0, case)
+
+    # -- phase 4 ---------------------------------------------------------
+    def phase4(self):
+        from optpricer_tpu_torch.ops import fd_lv as flv
+
+        for method in ("pcr", "thomas"):
+            ops, tab, kw, _ = self.k8_setup("put", True, method)
+            a = flv.fd_lv(*ops, tab, **kw).clone()
+            b = flv.fd_lv(*ops, tab, **kw).clone()
+            if not torch.equal(a, b):
+                raise AssertionError(f"fd_lv {method} is not bitwise "
+                                     "reproducible")
+
+    # -- phase 5 ---------------------------------------------------------
+    def config4(self, label, fn):
+        """``fn(device=...)`` on the card (timed) and on the CPU: equal to
+        rtol 1e-9."""
+        out, self.wall[label] = timed(lambda: fn(device=self.dev))
+        cpu = fn(device="cpu")
+        pairs = out.items() if isinstance(out, dict) else [("", out)]
+        for key, value in pairs:
+            ref = cpu[key] if key else cpu
+            if not abs(value - ref) <= 1e-9 * abs(ref):
+                raise AssertionError(f"{label} {key}: {value} on "
+                                     f"{self.dev} vs {ref} on the CPU")
+        return out
+
+    def ladder(self, solver, dtype=None):
+        import optpricer_tpu_torch as tp
+
+        S0, T, r, q = self.LV_MARKET
+        return tp.fd_price_local_vol_batch(
+            S0, self.strikes, T, r, q, smile, "call", solver=solver,
+            N_S=self.N_S, N_t=self.N_T, ref_vol=0.3, dtype=dtype,
+            device=self.dev)
+
+    def phase5(self) -> dict:
+        """The PDE path with its launch counts set to 0 just before and
+        read just after; returns them."""
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.ops import fd_lv as flv
+        from optpricer_tpu_torch.ops import thomas as tth
+
+        dev, grid4 = self.dev, self.GRID4
+        pde_fns = {"thomas_kernel": tth.tridiag_solve_kernel,
+                   "fd_lv_kernel": flv.fd_lv}
+        for fn in pde_fns.values():
+            fn.launches = 0
+        print("phase 5 main path, PDE:")
+        t0 = time.perf_counter()
+        spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
+        bs4 = {k: tp.bs_price(spec4, k, device=dev) for k in ("call", "put")}
+        delta4 = float(tp.bs_greeks_vec(100.0, 100.0, 1.0, 0.05, 0.0, 0.2,
+                                        "call", device=dev)["delta"])
+        c4 = self.config4
+        eu = c4("fd_price European call", lambda **k: tp.fd_price(
+            spec4, "call", **grid4, **k))
+        eu_put = c4("fd_price European put", lambda **k: tp.fd_price(
+            spec4, "put", **grid4, **k))
+        am = c4("fd_price American put PSOR", lambda **k: tp.fd_price(
+            spec4, "put", american=True, american_method="psor", **grid4,
+            **k))
+        ko = c4("fd_price_barrier up-and-out 130", lambda **k:
+                tp.fd_price_barrier(spec4, "call", 130.0, "up-and-out",
+                                    **grid4, **k))
+        ki = c4("fd_price_barrier up-and-in 130", lambda **k:
+                tp.fd_price_barrier(spec4, "call", 130.0, "up-and-in",
+                                    **grid4, **k))
+        gk = c4("fd_greeks", lambda **k: tp.fd_greeks(spec4, "call",
+                                                       **grid4, **k))
+        fem = c4("fem_price", lambda **k: tp.fem_price(spec4, "call",
+                                                        **grid4, **k))
+        tree = tp.crr(spec4, "put", N=self.CRR_STEPS, american=True,
+                      device=dev)
+        print(f"  config 4 ({grid4['N_S']} x {grid4['N_t']}): European call "
+              f"{eu:.10f} (BS {bs4['call']:.10f}), put {eu_put:.10f}; "
+              f"American put PSOR {am:.10f} (crr {self.CRR_STEPS} "
+              f"{tree:.10f}); up-and-out {ko:.10f}, up-and-in {ki:.10f}; "
+              f"delta {gk['delta']:.6f} (BS {delta4:.6f}), gamma "
+              f"{gk['gamma']:.6f}, theta {gk['theta']:.6f}; fem {fem:.10f}; "
+              f"every call equals device='cpu' to rtol 1e-9")
+        checks = [
+            ("European call vs BS (rel 1e-3)",
+             abs(eu - bs4["call"]) / eu < 1e-3),
+            ("American put > European put", am > eu_put),
+            ("American put vs crr (rel 0.003)",
+             abs(am - tree) / tree < 0.003),
+            ("0 < KO < European", 0.0 < ko < eu),
+            ("KI + KO = vanilla", abs(ki + ko - eu) <= 1e-12 * eu),
+            ("fd_greeks delta vs BS (0.005)",
+             abs(gk["delta"] - delta4) < 0.005),
+            ("fem_price vs BS (rel 2e-3)",
+             abs(fem - bs4["call"]) / bs4["call"] < 2e-3),
+        ]
+        for what, ok in checks:
+            if not ok:
+                raise AssertionError(f"config 4: {what} failed")
+
+        flat = tp.fd_price_local_vol(100.0, 100.0, 1.0, 0.05, 0.0,
+                                     lambda S, t: 0.2 * torch.ones_like(S),
+                                     "call", N_S=200, N_t=200, ref_vol=0.2,
+                                     device=dev)
+        term = tp.fd_price_local_vol(
+            100.0, 100.0, 1.0, 0.05, 0.0,
+            lambda S, t: torch.sqrt(0.03 + 0.02 * t) * torch.ones_like(S),
+            "call", N_S=300, N_t=300, ref_vol=0.2, device=dev)
+        bs_rms = tp.bs_price(tp.OptionSpec(100.0, 100.0, 1.0, 0.05, 0.2),
+                             "call", device=dev)   # RMS of σ(t) is 0.2
+        print(f"  fd_price_local_vol 200 x 200, σ ≡ 0.2: {flat:.10f} (BS "
+              f"{bs4['call']:.10f}); 300 x 300, σ(t)² = 0.03 + 0.02t: "
+              f"{term:.10f} (BS at the RMS vol 0.2 {bs_rms:.10f})")
+        if abs(flat - bs4["call"]) / bs4["call"] >= 0.002 \
+                or abs(term - bs_rms) / bs_rms >= 0.005:
+            raise AssertionError("fd_price_local_vol off Black-Scholes")
+
+        # "auto" in its float64 default and in float32, the fused kernel's
+        # type: the three float32 ladders agree to atol 2e-4 + rtol 2e-5,
+        # and each to the float64 one within the round-off of a 512-step
+        # float32 march (rtol 1e-4; 6.6e-5 measured on the CPU)
+        ladders = {}
+        for label, solver, dtype in (("auto", "auto", None),
+                                     ("auto f32", "auto", "float32"),
+                                     ("fused", "fused", None),
+                                     ("fused_thomas", "fused_thomas", None)):
+            out, self.wall[f"ladder {label}"] = timed(
+                lambda: self.ladder(solver, dtype))
+            out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+            if out.shape != self.strikes.shape \
+                    or not math.isfinite(float(out.sum())):
+                raise AssertionError(f"ladder {label}: bad output")
+            ladders[label] = out.astype(float)
+        mid = len(self.strikes) // 2
+        f64 = ladders["auto"]
+        for a, b in (("fused", "auto f32"), ("fused_thomas", "auto f32"),
+                     ("fused", "fused_thomas")):
+            gap = abs(ladders[a] - ladders[b])
+            excess = (gap - 2e-4 - 2e-5 * abs(ladders[b])).max()
+            print(f"  ladder {len(self.strikes)} x {self.N_S} x {self.N_T} "
+                  f"{a} vs {b}: max |diff| {gap.max():.3e}, largest excess "
+                  f"over atol 2e-4 + rtol 2e-5 {excess:.3e}; K="
+                  f"{self.strikes[mid]:.4f} {ladders[a][mid]:.8f} vs "
+                  f"{ladders[b][mid]:.8f}")
+            if excess > 0.0:
+                raise AssertionError(f"ladder {a} vs {b}: max gap "
+                                     f"{gap.max():.3e}")
+        for label in ("auto f32", "fused", "fused_thomas"):
+            rel = (abs(ladders[label] - f64) / abs(f64)).max()
+            print(f"  ladder {label} vs float64 auto: max rel diff "
+                  f"{rel:.3e} (rtol 1e-4)")
+            if rel > 1e-4:
+                raise AssertionError(f"ladder {label} vs float64: {rel:.3e}")
+
+        flags = ["--S0", "100", "--K", "100", "--T", "1", "--r", "0.05",
+                 "--sigma", "0.2", "--N-S", str(grid4["N_S"]), "--N-t",
+                 str(grid4["N_t"]), "--american", "--kind", "put"]
+        out_fd = run_cli(["fd", *flags])
+        proj = tp.fd_price(spec4, "put", american=True, **grid4, device=dev)
+        if out_fd != f"{proj:.10f}":
+            raise AssertionError(f"cli fd {out_fd!r} vs {proj:.10f}")
+        print(f"  cli fd American put (projection): {out_fd}")
+        launches = {name: fn.launches for name, fn in pde_fns.items()}
+        print(f"  PDE path {time.perf_counter() - t0:.2f} s; launches in this "
+              f"process: {launches}")
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"{name} was not launched on the PDE "
+                                     "path")
+        return launches
+
+    # -- phase 6 ---------------------------------------------------------
+    def phase6(self, times):
+        """Adds K7's, K8's and the ladder's times to ``times``, prints every
+        entry of ``times``, then the config-4 walls."""
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.ops import fd_lv as flv
+        from optpricer_tpu_torch.ops import thomas as tth
+        from optpricer_tpu_torch.ops import tridiag
+
+        dev = self.dev
+        n, batch = self.K7_SHAPE
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            a, b, c, d = self.k7_system(n, batch, dtype, seed=1)
+            times[("k7", tag)] = cuda_ms(
+                lambda: tth.tridiag_solve_kernel(a, b, c, d))
+            times[("k7plain", tag)] = cuda_ms(
+                lambda: tth._thomas_plain(a, b, c, d))
+            self.k7_bytes[tag] = 5 * n * batch * a.element_size()
+        a, b, c, d = self.k7_system(n, batch, torch.float64, shared=True,
+                                    seed=1)
+        times[("k7 shared columns", "f64")] = cuda_ms(
+            lambda: tth.tridiag_solve_kernel(a, b, c, d))
+        # the library call: a dense batched LU solve of the same systems
+        a, b, c, d = self.k7_system(n, batch, torch.float64, seed=1,
+                                    garbage=False)
+        dense = tridiag.tridiag_dense(a.t(), b.t(), c.t())
+        rhs = d.t().unsqueeze(-1).contiguous()
+        times[("k7 library torch.linalg.solve", "f64")] = cuda_ms(
+            lambda: torch.linalg.solve(dense, rhs), reps=3)
+        gap = (torch.linalg.solve(dense, rhs)[..., 0].t()
+               - tth.tridiag_solve_kernel(a, b, c, d)).abs().max().item()
+        del dense
+        torch.cuda.empty_cache()
+        print(f"phase 6 dense torch.linalg.solve vs K7: max |x difference| "
+              f"{gap:.3e}")
+        for method in ("pcr", "thomas"):
+            ops, tab, kw, _ = self.k8_setup("call", False, method)
+            times[("k8", method)] = cuda_ms(lambda: flv.fd_lv(*ops, tab,
+                                                              **kw))
+            if method == "pcr":
+                times[("k8plain", method)] = cuda_ms(
+                    lambda: flv._fd_lv_plain(*ops, tab, **kw), reps=3)
+        times[("k8plain", "thomas")] = self.plain_thomas_ms
+        times[("ladder auto", "call")] = cuda_ms(
+            lambda: self.ladder("auto"), reps=3)
+        times[("ladder fused", "call")] = cuda_ms(
+            lambda: self.ladder("fused"), reps=3)
+        for (what, size), ms in times.items():
+            print(f"phase 6 time {what} {size}: {ms:.4f} ms [{self.card}]")
+
+        spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
+        g4 = self.GRID4
+        calls = {
+            "fd_price European call": lambda: tp.fd_price(
+                spec4, "call", **g4, device=dev),
+            "fd_price American put PSOR": lambda: tp.fd_price(
+                spec4, "put", american=True, american_method="psor", **g4,
+                device=dev),
+            "fd_price American put projection": lambda: tp.fd_price(
+                spec4, "put", american=True, **g4, device=dev),
+            "fd_price_barrier up-and-out 130": lambda: tp.fd_price_barrier(
+                spec4, "call", 130.0, "up-and-out", **g4, device=dev),
+            "fd_greeks": lambda: tp.fd_greeks(spec4, "call", **g4,
+                                              device=dev),
+            "fem_price": lambda: tp.fem_price(spec4, "call", **g4,
+                                              device=dev),
+        }
+        walls_ms = {}
+        for label, fn in calls.items():
+            walls = [timed(fn)[1] for _ in range(3)]
+            walls_ms[label] = statistics.median(walls) * 1e3
+            first = self.wall.get(label)
+            first = "" if first is None else \
+                f" (first call in phase 5: {first * 1e3:.4f} ms)"
+            print(f"phase 6 wall {label} {g4['N_S']} x {g4['N_t']}: "
+                  f"{statistics.median(walls) * 1e3:.4f} ms, median of 3"
+                  f"{first} [{self.card}]")
+        # device-busy share against the unprofiled wall (the profiler
+        # slows the host)
+        profiled = {
+            "fd_price American put PSOR": (
+                calls["fd_price American put PSOR"],
+                walls_ms["fd_price American put PSOR"]),
+            "fd_price European call": (
+                calls["fd_price European call"],
+                walls_ms["fd_price European call"]),
+            "ladder auto": (lambda: self.ladder("auto"),
+                            times[("ladder auto", "call")]),
+            "ladder fused": (lambda: self.ladder("fused"),
+                             times[("ladder fused", "call")])}
+        for label, (fn, ref_ms) in profiled.items():
+            wall, busy, n_k = device_busy(fn)
+            print(f"phase 6 profile {label}: device busy {busy:.4f} ms "
+                  f"in {n_k} kernels; {wall:.4f} ms wall under the "
+                  f"profiler, {ref_ms:.4f} ms without: busy "
+                  f"{100.0 * busy / ref_ms:.1f}% [{self.card}]")
+        for label in ("auto", "auto f32", "fused", "fused_thomas"):
+            print(f"phase 6 wall ladder {label} {len(self.strikes)} x "
+                  f"{self.N_S} x {self.N_T}, first call in phase 5: "
+                  f"{self.wall[f'ladder {label}'] * 1e3:.4f} ms "
+                  f"[{self.card}]")
+
+    def kernel_entries(self, launches, worst, times):
+        n, batch = self.K7_SHAPE
+        m, B = self.N_S - 1, len(self.strikes)
+        k7_ops = 10 * n * batch
+        return [
+            {"name": "thomas_kernel", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/thomas.cu",
+             "replaces": "optpricer_tpu/ops/pallas_tridiag.py:31",
+             "launches": launches["thomas_kernel"],
+             "max_abs_err": worst["thomas"][1],
+             "ms": times[("k7", "f64")],
+             "plain_ms": times[("k7plain", "f64")],
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(k7_ops, self.k7_bytes["f64"]))),
+             "library_ms": times[("k7 library torch.linalg.solve", "f64")],
+             "shape": f"{n} rows x {batch} systems, f64, full coefficient "
+                      "arrays",
+             "ms_f32": times[("k7", "f32")],
+             "plain_ms_f32": times[("k7plain", "f32")],
+             "bound_ms_f32": bound(k7_ops, self.k7_bytes["f32"])[0],
+             "ms_shared_columns": times[("k7 shared columns", "f64")]},
+            {"name": "fd_lv_kernel", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/fd_lv.cu",
+             "replaces": "optpricer_tpu/ops/pallas_fd_lv.py:63",
+             "launches": launches["fd_lv_kernel"],
+             "max_abs_err": worst["fd_lv"][1],
+             "ms": times[("k8", "pcr")],
+             "plain_ms": times[("k8plain", "pcr")],
+             **dict(zip(("bound_ms", "bound_by"), bound(
+                 ops_k8_ladder(B, m, self.N_T),
+                 4 * (self.N_T * (m + 1) + (m + 1) * B + 2 * B + 6)))),
+             "library_ms": None,
+             "shape": f"PCR, {B} European calls x {m} rows x {self.N_T} "
+                      "steps",
+             "ms_thomas": times[("k8", "thomas")],
+             "plain_ms_thomas": times[("k8plain", "thomas")]},
+        ]
 
 
 def main():
@@ -241,12 +746,15 @@ def main():
     # phase 3: kernels against their plain versions, on the card
     market = (SPEC["S0"], SPEC["K"], SPEC["T"], SPEC["r"], SPEC["q"],
               SPEC["sigma"])
-    # worst[name] = [max rel err of the stats, max |price difference|]
-    worst = {k: [0.0, 0.0] for k in ("terminal", "qmc", "path", "qmc_path")}
+    # worst[name] = [max rel err, max |price difference|, its case]
+    worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
+                                          "qmc_path", "thomas", "fd_lv")}
 
-    def record(name, rel, price_k, price_p):
-        worst[name] = [max(worst[name][0], rel),
-                       max(worst[name][1], abs(price_k - price_p))]
+    def record(name, rel, price_k, price_p, case):
+        diff = abs(price_k - price_p)
+        worst[name][0] = max(worst[name][0], rel)
+        if diff > worst[name][1] or worst[name][2] == "-":
+            worst[name][1:] = [max(worst[name][1], diff), case]
 
     cases = [(n, is_call, anti, inv) for n in (1 << 20, 1_000_003)
              for is_call in (True, False) for anti in (True, False)
@@ -260,10 +768,10 @@ def main():
         kw = dict(n_programs=n_prog, reps=reps, antithetic=anti, invcdf=inv)
         k = tmc.terminal_mc(seed, params, **kw)
         p = tmc._mc_sumstats_plain(seed, params, **kw)
-        rel = compare(k, p, f"terminal n={n} call={is_call} anti={anti} "
-                            f"invcdf={inv}")
+        case = f"n={n} call={is_call} anti={anti} invcdf={inv}"
+        rel = compare(k, p, f"terminal {case}")
         record("terminal", rel, *(tmc.terminal_estimate(
-            s, *market, is_call, True)[0] for s in (k, p)))
+            s, *market, is_call, True)[0] for s in (k, p)), case)
     for (n, R), is_call in [((1 << 20, 16), True), ((1 << 20, 16), False),
                             ((1 << 22, 16), True)]:
         n_rep, reps, ppr = tmc._plan_qmc(n, R)
@@ -272,10 +780,11 @@ def main():
         kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr)
         k = tmc.terminal_qmc(seed, params, **kw)
         p = tmc._mc_qmc_plain(seed, params, **kw)
-        rel = compare(k, p, f"qmc n={n} R={R} call={is_call}")
+        case = f"n={n} R={R} call={is_call}"
+        rel = compare(k, p, f"qmc {case}")
         record("qmc", rel, *(tmc.qmc_estimate(
             rows.double().cpu().numpy().reshape(R, ppr, tmc.NSTAT).sum(1),
-            *market, is_call)[0] for rows in (k, p)))
+            *market, is_call)[0] for rows in (k, p)), case)
 
     def k4_setup(n, n_steps, pay, dyn, anti, greeks, mkt=market):
         """(seed, params, run kwargs, dynamics, geo_ey, market) for K4."""
@@ -303,7 +812,7 @@ def main():
         rel = compare(k, p, what, signed=signed)
         record("path", rel, *(mc_fused._estimate_from_stats(
             s, *mkt, pay.get("is_call", True), dynamics, True,
-            geo_ey=geo)[0] for s in (k, p)))
+            geo_ey=geo)[0] for s in (k, p)), what)
 
     heston = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7)
     sabr = dict(alpha0=0.2, beta=0.6, nu=0.4, rho=-0.3)
@@ -387,12 +896,27 @@ def main():
         tensors, kw, (R, ppr, _) = k5_setup(payoff, n, d)
         k = qmp.qmc_path(*tensors, **kw)
         p = qmp._qmc_path_plain(*tensors, **kw)
-        rel = compare(k, p, f"qmc_path {payoff} {n} x 8 x {d}")
-        record("qmc_path", rel, k5_price(k, R, ppr), k5_price(p, R, ppr))
-    for name, (rel, dprice) in worst.items():
-        print(f"phase 3 {name} kernel vs plain: counts equal, max rel err "
-              f"of the unsigned stats {rel:.3e} (rtol {RTOL}), max |price "
-              f"difference| {dprice:.3e}")
+        case = f"{payoff} {n} x 8 x {d}"
+        rel = compare(k, p, f"qmc_path {case}")
+        record("qmc_path", rel, k5_price(k, R, ppr), k5_price(p, R, ppr),
+               case)
+
+    pde = PdeSlice(dev, card)
+    pde.phase3(record)
+
+    for name, (rel, dprice, case) in worst.items():
+        if name == "thomas":
+            print(f"phase 3 {name} kernel vs plain: max norm-wise rel err "
+                  f"{rel:.3e} (rtol 1e-10 f64, 2e-5 f32), max |x difference| "
+                  f"{dprice:.3e} in case [{case}]")
+        elif name == "fd_lv":
+            print(f"phase 3 {name} kernel vs plain: max |layer difference| "
+                  f"{rel:.3e}, max |price difference| {dprice:.3e} "
+                  f"(limit {RTOL}) in case [{case}]")
+        else:
+            print(f"phase 3 {name} kernel vs plain: counts equal, max rel "
+                  f"err of the unsigned stats {rel:.3e} (rtol {RTOL}), max "
+                  f"|price difference| {dprice:.3e} in case [{case}]")
 
     # phase 4: determinism
     reps, n_prog = tmc._plan_grid(1 << 24, 2 * tmc.TILE)
@@ -407,8 +931,10 @@ def main():
     b = pmc.path_mc(*main_k4[:2], **main_k4[2]).clone()
     if not torch.equal(a, b):
         raise AssertionError("path kernel is not bitwise reproducible")
-    print("phase 4 determinism: terminal kernel at 2^24 and path kernel at "
-          "1M x 252, two runs on one seed each: bitwise equal")
+    pde.phase4()
+    print("phase 4 determinism: terminal kernel at 2^24, path kernel at "
+          "1M x 252, fd_lv PCR and Thomas at 1024 x 511 x 512, two runs on "
+          "one input each: bitwise equal")
 
     # phase 5: the main path through the public API
     spec = tp.OptionSpec(**SPEC)
@@ -419,7 +945,7 @@ def main():
                   "qmc_path_kernel": qmp.qmc_path}
     for fn in launch_fns.values():
         fn.launches = 0
-    print("phase 5 main path:")
+    print("phase 5 main path, Monte Carlo:")
     t0 = time.perf_counter()
     (px_1m, se), secs = timed(lambda: tp.euro_price_mc(
         spec, "call", n_paths=1_000_000, seed=7, device=dev))
@@ -584,6 +1110,8 @@ def main():
         if count == 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
+    launches.update(pde.phase5())
+
     # phase 6: time
     times = {}
     for n in (1 << 30, 1 << 24):
@@ -619,9 +1147,7 @@ def main():
         in_bytes = sum(t.numel() * t.element_size() for t in tensors)
         k5_bounds[shape] = bound(n * R5 * ops_k5_point(d),
                                  in_bytes + kw5["n_programs"] * 6 * 4)
-    for (what, n), ms in times.items():
-        print(f"phase 6 time {what} {n}: {ms:.4f} ms [{card}]")
-
+    pde.phase6(times)
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -670,7 +1196,7 @@ def main():
          "ms_2p20x252": times[("k5", "1048576 x 8 x 252")],
          "plain_ms_2p20x252": times[("k5plain", "1048576 x 8 x 252")],
          "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0]},
-    ]
+    ] + pde.kernel_entries(launches, worst, times)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

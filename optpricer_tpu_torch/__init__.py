@@ -18,6 +18,12 @@ from .models.binomial import crr
 from .models.mc_fused import exotic_greeks_mc, exotic_price_mc
 from .models.analytic import geometric_asian_price
 
+# PDE (finite difference, finite element)
+from .models.pde import (fd_price, fd_price_barrier,
+                         fd_price_double_barrier, fd_greeks,
+                         fd_price_local_vol)
+from .models.fem import fem_price
+
 # Production data model
 from .core import Instrument, MarketData, to_instrument_market
 
@@ -25,6 +31,7 @@ from .core import Instrument, MarketData, to_instrument_market
 from .ops.black_scholes import (bs_price_vec, bs_greeks_vec,
                                 bs_implied_vol_vec, bs_higher_greeks_vec)
 from .models.binomial import crr_vec
+from .models.pde import fd_price_batch, fd_price_local_vol_batch
 
 __all__ = [
     # Legacy
@@ -32,11 +39,13 @@ __all__ = [
     "bs_price", "bs_greeks", "implied_vol",
     "euro_price_mc", "euro_greeks_mc", "crr",
     "exotic_price_mc", "exotic_greeks_mc", "geometric_asian_price",
+    "fd_price", "fd_price_barrier", "fd_price_double_barrier", "fd_greeks",
+    "fd_price_local_vol", "fem_price",
     # Production data model
     "Instrument", "MarketData", "to_instrument_market",
     # Vectorised
     "bs_price_vec", "bs_greeks_vec", "bs_implied_vol_vec", "crr_vec",
-    "bs_higher_greeks_vec",
+    "bs_higher_greeks_vec", "fd_price_batch", "fd_price_local_vol_batch",
 ]
 
 __version__ = "0.1.0"

@@ -23,17 +23,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "optpricer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
-# source -> its own flags. The path kernels are built without FMA
-# contraction, so each per-path operation rounds as in their plain torch
-# versions (see the notes at the top of path_mc.cu and qmc_path.cu).
+# source -> its own flags. The path and PDE kernels are built without FMA
+# contraction, so each operation rounds as in their plain torch versions
+# (see the notes at the top of each source).
 SOURCES = {
     "terminal_mc.cu": (),
     "path_mc.cu": ("-fmad=false",),
     "qmc_path.cu": ("-fmad=false",),
+    "thomas.cu": ("-fmad=false",),
+    "fd_lv.cu": ("-fmad=false",),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> argtypes of the C entry points in csrc/*.cu
 _SIGNATURES = {
     "optpricer_terminal_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -42,6 +46,10 @@ _SIGNATURES = {
                           _P),
     "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _P),
+    "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I,
+                         _I, _I, _P),
+    "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                        _I, _P),
 }
 
 

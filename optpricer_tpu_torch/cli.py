@@ -1,15 +1,17 @@
 """Command-line pricing tool of the PyTorch port.
 
 Counterpart of ``optpricer_tpu/cli.py`` for the engines ported so far:
-``bs``, ``binomial``, ``mc``, ``greeks`` and ``qmc``, with the same flags
-and the same 10-decimal output, plus ``--device`` (default ``cuda``; ``cpu``
-runs the kernels' plain versions). ``fd`` and the other subcommands wait
-for their engines (ROADMAP).
+``bs``, ``binomial``, ``mc``, ``greeks``, ``fd`` and ``qmc``, with the same
+flags and the same 10-decimal output, plus ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions). The other subcommands wait for
+their engines (ROADMAP).
 
     python -m optpricer_tpu_torch.cli mc --S0 100 --K 110 --T 1 --r 0.03 \\
         --sigma 0.2 --n-paths 1000000 --seed 7
     python -m optpricer_tpu_torch.cli qmc --S0 100 --K 100 --T 1 --r 0.03 \\
         --sigma 0.2 --payoff asian --n-paths 65536 --n-steps 64
+    python -m optpricer_tpu_torch.cli fd --S0 100 --K 100 --T 1 --r 0.05 \\
+        --sigma 0.2 --N-S 512 --N-t 256 --american --kind put
 """
 from __future__ import annotations
 
@@ -67,6 +69,23 @@ def _run_mc(ns) -> str:
     return f"{value:.10f}  (stderr {stderr:.10f})"
 
 
+def _run_fd(ns) -> str:
+    from .models.pde import fd_price
+
+    value = fd_price(_spec_of(ns), ns.kind, N_S=ns.N_S, N_t=ns.N_t,
+                     american=ns.american,
+                     dividends=_parse_dividends(ns.dividends),
+                     device=ns.device)
+    return f"{value:.10f}"
+
+
+def _parse_dividends(cell: str):
+    if not cell:
+        return None
+    return [(float(t), float(d)) for t, d in
+            (pair.split(":") for pair in cell.split(","))]
+
+
 def _run_greeks(ns) -> str:
     from .models.monte_carlo import euro_greeks_mc
 
@@ -102,6 +121,14 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
         ("--no-cv", dict(action="store_true",
                          help="disable control variate")),
     ), _run_mc),
+    "fd": ("theta-scheme PDE price", (
+        ("--N-S", dict(dest="N_S", type=int, default=200)),
+        ("--N-t", dict(dest="N_t", type=int, default=200)),
+        ("--american", dict(action="store_true")),
+        ("--dividends", dict(default="",
+                             help="discrete cash dividends 't:amt,t:amt' "
+                                  "(piecewise-GBM jump conditions)")),
+    ), _run_fd),
     "greeks": ("MC Greek ladder from one kernel run", (
         ("--n-paths", dict(dest="n_paths", type=int, default=1_000_000)),
         ("--seed", dict(type=int, default=None)),

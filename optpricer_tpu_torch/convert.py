@@ -22,7 +22,12 @@ host vectors through ``numpy.asarray``, so this module never imports
   path-QMC kernel's direction numbers ``V`` and digital shifts (int32 views
   of uint32 words), bridge matrix ``B`` and drift row (f32). The path
   kernel's ``svi`` table (f32) converts the same way; only its lv/lsv
-  branches, not yet ported, read it.
+  branches, not yet ported, read it;
+* ``fd_lv_params``, ``fd_lv_lanes`` and ``fd_lv_sigma_table`` convert the
+  operands of ``optpricer_tpu.ops.pallas_fd_lv._run_fd_lv`` into the
+  layout of ``ops/fd_lv.fd_lv``: the f32[6] (x_min, dx, dt, r, q, T), the
+  (1, B_pad) ``K_pad`` / ``sign_pad`` lane rows as f32[B_pad], and the
+  (m_pad, n_t_pad) σ table as the port's (n_t, m_pad).
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from .core import Instrument, MarketData, OptionSpec
 
 __all__ = ["option_spec", "instrument", "market_data", "terminal_params",
            "seed_pair", "path_params", "qmc_path_params", "int32_table",
-           "float32_table"]
+           "float32_table", "fd_lv_params", "fd_lv_lanes",
+           "fd_lv_sigma_table"]
 
 
 def _field(value):
@@ -105,3 +111,25 @@ def seed_pair(seed, device="cpu") -> torch.Tensor:
     if arr.shape != (2,):
         raise ValueError(f"seed pair must have shape (2,), got {arr.shape}")
     return torch.as_tensor(arr).to(device)
+
+
+def fd_lv_params(params, device="cpu") -> torch.Tensor:
+    return _vector(params, 6, "fd_lv", device)
+
+
+def fd_lv_lanes(row, device="cpu") -> torch.Tensor:
+    """A (1, B_pad) lane row (``K_pad``, ``sign_pad``) as f32[B_pad]."""
+    arr = np.array(row, np.float32)
+    if arr.ndim != 2 or arr.shape[0] != 1:
+        raise ValueError(f"lane rows are (1, B), got shape {arr.shape}")
+    return torch.as_tensor(arr[0].copy()).to(device)
+
+
+def fd_lv_sigma_table(sig_tab, n_t: int, device="cpu") -> torch.Tensor:
+    """The (m_pad, n_t_pad) σ table as f32[n_t, m_pad], row n the σ column
+    of step n."""
+    arr = np.array(sig_tab, np.float32)
+    if arr.ndim != 2 or arr.shape[1] < n_t:
+        raise ValueError(f"sigma table must be (m_pad, >= {n_t}), got "
+                         f"{arr.shape}")
+    return torch.as_tensor(np.ascontiguousarray(arr[:, :n_t].T)).to(device)

@@ -1,6 +1,6 @@
 """Port CLI vs reference CLI.
 
-``bs`` and ``binomial`` are deterministic f64 engines: the printed
+``bs``, ``binomial`` and ``fd`` are deterministic f64 engines: the printed
 10-decimal strings must be identical. ``mc`` and ``greeks`` draw from
 different generators in the two CLIs on the CPU (the reference takes its
 ``fold_in`` chunk scan there, the port its terminal kernel), so they agree
@@ -84,3 +84,16 @@ def test_qmc_line_equals_port_entry_point(extra, payoff, kw, capsys):
                                 sigma=0.2, backend="qmc", device="cpu",
                                 **(defaults | kw))
     assert got == f"{px:.10f}  (stderr {se:.10f})"
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--american", "--kind", "put", "--N-S", "96", "--N-t", "48"],
+    ["--dividends", "0.3:1.5,0.7:2", "--N-S", "80", "--N-t", "40"],
+    ["--american", "--dividends", "0.5:3", "--N-S", "64", "--N-t", "32"],
+])
+def test_fd_line_identical(extra, capsys):
+    argv = ["fd", *MARKET, *extra]
+    ref = _run(jcli.main, argv, capsys)
+    got = _run(tcli.main, argv + ["--device", "cpu"], capsys)
+    assert got == ref

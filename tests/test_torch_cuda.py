@@ -9,14 +9,20 @@ without one. On a machine with a card (jax not needed there):
 Tolerances as in ``chip_smoke.py``: counts equal, every other stat within
 rtol 2e-5 (the kernel sums per thread, then a fixed block tree; the plain
 version per tile; the terminal kernel's Box-Muller angle is sincospi(2u)),
-and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²).
+and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²). The PDE
+kernels: the batched Thomas solve (K7) to rtol 1e-10 in f64 and 2e-5 in
+f32, the fused local-vol march (K8) within 2e-5 of its plain version.
 """
+import numpy as np
 import pytest
 import torch
 
+from optpricer_tpu_torch import OptionSpec, fd_price, fd_price_local_vol_batch
+from optpricer_tpu_torch.ops import fd_lv as tlv
 from optpricer_tpu_torch.ops import path_mc as tpm
 from optpricer_tpu_torch.ops import qmc_path as tqp
 from optpricer_tpu_torch.ops import terminal_mc as tmc
+from optpricer_tpu_torch.ops import thomas as tth
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +157,76 @@ def test_path_launch_counters_count_kernel_launches(cuda_device):
                                  device=cuda_device)
     assert (tpm.path_mc.launches, tqp.qmc_path.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+# K7 and K8: f64 solves to rtol 1e-10, f32 to 2e-5; the fused march's
+# prices within 2e-5 of the plain version's (both built without FMA
+# contraction, so they round alike).
+def _tridiag(n, batch, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a, b, c, d = (torch.randn(n, batch, generator=g, dtype=torch.float64)
+                  for _ in range(4))
+    return [x.to(dtype=dtype, device=device) for x in (a, b + 4.0, c, d)]
+
+
+@pytest.mark.parametrize("n, batch, dtype, rtol", [
+    (511, 1024, torch.float64, 1e-10), (511, 1024, torch.float32, 2e-5),
+    (511, 511, torch.float64, 1e-10), (37, 3, torch.float64, 1e-10)])
+def test_thomas_kernel_matches_plain(cuda_device, n, batch, dtype, rtol):
+    a, b, c, d = _tridiag(n, batch, dtype, cuda_device)
+    a[0] = 1e30           # unused corners hold garbage
+    c[-1] = float("nan")
+    x = tth.tridiag_solve_kernel(a, b, c, d)
+    torch.cuda.synchronize()
+    ref = tth._thomas_plain(a, b, c, d)
+    assert torch.isfinite(x).all()
+    torch.testing.assert_close(x, ref, rtol=rtol, atol=0.0)
+
+
+def test_thomas_lastdim_with_row_coefficients(cuda_device):
+    a, b, c, d = _tridiag(37, 3, torch.float64, cuda_device, seed=2)
+    rows = [t[:, 0] for t in (a, b, c)]
+    before = tth.tridiag_solve_kernel.launches
+    got = tth.tridiag_solve_kernel_lastdim(*rows, d.t())
+    assert tth.tridiag_solve_kernel.launches == before + 1
+    ref = tth._thomas_plain(*(r[:, None] for r in rows), d)
+    torch.testing.assert_close(got, ref.t(), rtol=1e-10, atol=0.0)
+
+
+def _smile(S, t):
+    return 0.2 + 0.1 * torch.exp(-((torch.log(S / 100.0)) ** 2)) + 0.05 * t
+
+
+@pytest.mark.parametrize("method", ["pcr", "thomas"])
+@pytest.mark.parametrize("kind, american", [("call", False), ("put", True)])
+def test_fd_lv_kernel_matches_plain(cuda_device, method, kind, american):
+    N_S, N_t = 512, 32
+    (x_np, dt, _, _, params, K, sign, m, m_pad) = tlv._kernel_inputs(
+        100.0, np.linspace(70.0, 130.0, 200), 1.0, 0.04, 0.01, kind,
+        N_S=N_S, N_t=N_t, S_max_mult=4.0, ref_vol=0.3)
+    tab = tlv._sigma_table(_smile, x_np, dt, N_S, N_t, m_pad, cuda_device)
+    ops = [torch.from_numpy(t).to(cuda_device) for t in (params, K, sign)]
+    kw = dict(n_t=N_t, m=m, m_pad=m_pad, theta=0.5, american=american,
+              method=method)
+    before = tlv.fd_lv.launches
+    got = tlv.fd_lv(*ops, tab, **kw)
+    torch.cuda.synchronize()
+    assert tlv.fd_lv.launches == before + 1
+    ref = tlv._fd_lv_plain(*ops, tab, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=2e-5)
+
+
+def test_pde_entry_points_launch_the_kernels(cuda_device):
+    spec = OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
+    before = (tth.tridiag_solve_kernel.launches, tlv.fd_lv.launches)
+    cuda = fd_price(spec, "put", N_S=64, N_t=16, american=True,
+                    american_method="psor", device=cuda_device)
+    cpu = fd_price(spec, "put", N_S=64, N_t=16, american=True,
+                   american_method="psor", device="cpu")
+    assert abs(cuda - cpu) <= 1e-9 * abs(cpu)
+    fd_price_local_vol_batch(100.0, np.array([90.0, 110.0]), 1.0, 0.04, 0.0,
+                             _smile, "call", N_S=64, N_t=16, solver="fused",
+                             device=cuda_device)
+    assert tth.tridiag_solve_kernel.launches == before[0] + 16
+    assert tlv.fd_lv.launches == before[1] + 1

@@ -32,8 +32,10 @@ def test_import_never_pulls_in_jax():
     names = set(proc.stdout.split())
     for module in ("cli", "convert", "core", "dtypes", "_build",
                    "models.monte_carlo", "models.binomial", "models.mc_fused",
-                   "models.analytic", "ops.terminal_mc", "ops.path_mc",
-                   "ops.qmc_path", "ops.sobol", "ops.swprng"):
+                   "models.analytic", "models.pde", "models.fem",
+                   "ops.terminal_mc", "ops.path_mc", "ops.qmc_path",
+                   "ops.sobol", "ops.swprng", "ops.tridiag", "ops.thomas",
+                   "ops.fd_lv", "ops.grid"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
