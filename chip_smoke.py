@@ -35,15 +35,23 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    * the fused local-vol march (K8) on the full ladder (1 024 strikes x 511
      rows x 512 steps): PCR for calls and puts, with and without the
      American projection; Thomas for a call and an American put (the plain
-     Thomas march, ~5·10^6 small launches, is timed once here).
+     Thomas march, ~5·10^6 small launches, is timed once here);
+   * K4's Dupire branches (lv_euler, lv_milstein) at 2^18 + 123 paths x 16
+     steps on a 3-slice SVI table for every payoff variant x antithetic
+     on/off, and at the desk workflow's fused call (its calibrated surface,
+     Milstein, up-and-out 130, 200 000 x 500);
+   * the book kernel (K3) on a 1 000-contract book (calls and puts, K
+     70..130, S0 95..105, T 0.5..2, σ 0.2..0.4) at 2^20 and 1 000 003 paths
+     per contract, antithetic on/off.
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
    2e-5 (f32); K8's ladder prices within 2e-5. Each kernel's line names the
    case that carries its largest price (K7: solution) difference.
 4. determinism — the terminal kernel at 2^24, the path kernel at the main
-   path's shape and K8 (PCR and Thomas at 512 steps), each twice on one
-   input: bitwise equal.
+   path's shape and at the desk's lv_milstein call, K8 (PCR and Thomas at
+   512 steps) and K3 on the book at 2^20, each twice on one input: bitwise
+   equal.
 5. main paths — the public API on ``device="cuda"``; each path's launch
    counts are set to 0 just before it and read just after.
    The Monte-Carlo path:
@@ -83,6 +91,23 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      steps);
    * the CLI's fd as a subprocess, equal to the same call in-process.
    K7 and K8 must have been launched.
+   Config 5 (the desk workflow, ``optpricer_tpu_torch/scripts/
+   desk_workflow_localvol_barrier.py``):
+   * fit_svi_surface on the desk market equal to the same call on
+     device="cpu" (fitted w at rtol 1e-8); dupire_local_vol_func on the
+     golden surface against the six ``dupire_probe`` values of
+     tests/goldens.json at rtol 1e-6;
+   * tests/test_baseline_configs.py:64-91 on the card (Milstein, 50 000 x
+     100, seeds 21 and 22): |fd_lv − mc_lv| < 5 se + 0.15, 0 < KO < fd_lv;
+   * the desk workflow end to end at 200 000 x 500: the fused barrier on K4
+     within 5·hypot(se_fused, se_matrix) + 1e-3 of the path-matrix barrier,
+     fd_greeks' delta within 0.005 of numerical_greeks'; every stage-4
+     number printed;
+   * exotic_price_mc_dupire on a flat 0.2 SVI surface, log-Euler, 1M x 100,
+     within 4 se + 0.01 of Black-Scholes.
+   K4 must have been launched on it. The book: euro_price_mc_batch on the
+   1 000 contracts at 1M paths each with the dual CV, every price within
+   5 se + 1e-4 of Black-Scholes; K3 must have been launched.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30 and 2^24 base draws and
    its plain version at 2^24; K2 and its plain version at 2^22 points; K4
@@ -93,7 +118,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    and Thomas on the full ladder with the plain PCR (the plain Thomas is
    phase 3's one run); the "auto" ladder call; the host-clock wall time of
    each config-4 call; and, under torch.profiler, the device-busy share of
-   the PSOR put, the European call and the "auto" and "fused" ladders.
+   the PSOR put, the European call and the "auto" and "fused" ladders; K4
+   lv_milstein at the desk's call and its plain version (median of 3); K3
+   at 1 000 contracts x 2^20 and its plain version (median of 3); the
+   host-clock wall of fit_svi_surface and of each desk stage.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -102,10 +130,12 @@ stats − price from the plain version's| in phase 3, in price units),
 least time the card could take for that work: the operations on these
 inputs over the H100's float32 peak, or the bytes over the memory rate,
 whichever is larger; K1/K2 count their source's operations, K4/K5/K8 the
-least their function needs, K7 its bytes) and ``library_ms`` (K7: the
-dense batched ``torch.linalg.solve``; null for the others, which no single
+least their function needs, K7 its bytes; K3 like K1, per base draw;
+K4 lv_milstein three σ evaluations a step over every SVI slice with their
+derivatives and the two w of ∂w/∂T) and ``library_ms`` (K7: the dense
+batched ``torch.linalg.solve``; null for the others, which no single
 PyTorch call computes). K7's ``max_abs_err`` is in solution units, K8's in
-price units. The last line is ``{"ok": true, "device": {...}}``.
+price units, K3's the largest over the book's contracts. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -231,6 +261,17 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def event_ms(fn):
+    """(fn(), milliseconds of that one call) by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def timed(fn):
@@ -711,6 +752,435 @@ class PdeSlice:
         ]
 
 
+# the 3-slice SVI table of phase 3's Dupire cases: rows a, b, ρ, m, σ, T
+SVI3 = ((0.01, 0.02, 0.035), (0.12, 0.14, 0.15), (-0.4, -0.3, -0.25),
+        (0.0, 0.02, 0.03), (0.1, 0.12, 0.15), (0.25, 0.5, 1.0))
+# K3 per base draw, antithetic, counted like K1: half a Threefry block
+# (40), half a Box-Muller pair (a log32, a sqrt, a cos and a sin: 22), two
+# exp32 (44), the two payoffs and their average (12), and the 10 moments
+# with their Kahan steps, shared by the two draws of an element (32)
+OPS_K3_DRAW = 150
+
+
+def ops_k4_lv_path(svi, dt: float, n_steps: int) -> float:
+    """K4 lv_milstein per path over its ``n_steps`` steps, antithetic, by
+    the least work of its function. Per step: half a Threefry block and
+    half a Box-Muller pair (65); per state three σ_loc evaluations, each
+    the log-moneyness (a division and a log32, 21), the blends in T (15),
+    Gatheral's formula with its floors and clip (15) and the SVI slices
+    this step reads: the select chain picks one slice or two for each of
+    t, t + dT and t − dT, a slice's w at k does not depend on t, so each
+    slice read is counted once, with ∂w/∂k and ∂²w/∂k² for those of t (a
+    sqrt and two divisions among 14 operations) and w alone for the others
+    (7); then the bump, the difference quotient of σ·S and the Milstein
+    update with its floor (21) and the barrier compare (2). The step times
+    and plans are the kernel's (``ops/path_mc._blend_plan``)."""
+    import numpy as np
+
+    from optpricer_tpu_torch.ops import path_mc as pmc
+
+    f32 = np.float32
+    Ts = [f32(T) for T in np.asarray(svi, f32)[5]]
+    dt, dT, t_min = f32(dt), f32(1e-4), f32(1e-8)
+    total = 0.0
+    for step in range(n_steps):
+        t = f32(f32(2 * (step // 2)) * dt)
+        if step % 2:
+            t = f32(t + dt)
+        t = max(t, t_min)
+        centre = set(pmc._blend_plan(Ts, t)[:2])
+        read = centre.union(pmc._blend_plan(Ts, f32(t + dT))[:2],
+                            pmc._blend_plan(Ts, max(f32(t - dT), t_min))[:2])
+        sigma = 21 + 15 + 15 + 14 * len(centre) + 7 * len(read - centre)
+        total += 65 + 2 * (3 * sigma + 23)
+    return total
+
+
+class Config5Slice:
+    """BASELINE config 5 (SVI calibration → Dupire σ(S, t) → local-vol
+    Milstein MC against the local-vol FDM barrier cross-check) on K4's
+    Dupire branches, and the heterogeneous-book pricer on K3: kernel checks,
+    determinism, main paths and timings at the main paths' sizes."""
+
+    LV_SHAPE = ((1 << 18) + 123, 16)      # phase-3 K4-lv cases
+    DESK = dict(n_paths=200_000, n_steps=500)
+    BOOK_SIZE = 1000
+    DEEP = 8                                  # deep in-the-money contracts
+    MARKET = (100.0, 100.0, 1.0, 0.05, 0.02)   # S0, K, T, r, q
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+        self.plain_ms = {}
+
+    # -- inputs ----------------------------------------------------------
+    def desk_surface(self, device=None):
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.scripts import \
+            desk_workflow_localvol_barrier as desk
+
+        _, _, _, _, fwd, strikes, ivs = desk.synth_market()
+        return tp.fit_svi_surface(strikes, fwd, ivs,
+                                  device=device or self.dev)
+
+    def k4_lv(self, n, n_steps, pay, scheme, anti, svi, market=None,
+              seed=11):
+        """(seed, params, run kwargs) of one K4 Dupire call."""
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+        params, static = pmc._resolve_config(
+            n, n_steps, *(market or self.MARKET), None,
+            pay.get("is_call", True), pay["payoff"], anti,
+            pay.get("barrier", 0.0), pay.get("barrier_type", "up-and-out"),
+            pay.get("rebate", 0.0), pay.get("average_type", "arithmetic"),
+            pay.get("strike_type", "fixed"), 1.0, svi, scheme, 0.01, None)
+        static["svi"] = static["svi"].to(self.dev)
+        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+        return (tmc._seed_pair(seed, self.dev), params.to(self.dev),
+                dict(n_programs=n_prog, reps=reps, **static))
+
+    def main_k4(self, surface):
+        """The K4 call of the desk workflow's fused row."""
+        from optpricer_tpu_torch.scripts import \
+            desk_workflow_localvol_barrier as desk
+
+        return self.k4_lv(self.DESK["n_paths"], self.DESK["n_steps"],
+                          dict(payoff="barrier", barrier=130.0), "milstein",
+                          True, surface.svi_table(), seed=desk.SEED)
+
+    def book(self):
+        """1 000 contracts: 992 calls and puts, K 70..130, S0 95..105, T
+        0.5..2, σ 0.2..0.4, then ``DEEP`` calls K 48..54 and puts K 178..184
+        at S0 100, T 0.5, σ 0.2, in the money on all but ~1e-5 of paths."""
+        import numpy as np
+
+        rng = np.random.default_rng(0)
+        B = self.BOOK_SIZE - self.DEEP
+        half = self.DEEP // 2
+        deep_K = np.concatenate([np.linspace(48.0, 54.0, half),
+                                 np.linspace(178.0, 184.0, half)])
+        return (np.concatenate([rng.uniform(95.0, 105.0, B),
+                                np.full(self.DEEP, 100.0)]),
+                np.concatenate([np.linspace(70.0, 130.0, B), deep_K]),
+                np.concatenate([rng.uniform(0.5, 2.0, B),
+                                np.full(self.DEEP, 0.5)]), 0.03, 0.01,
+                np.concatenate([rng.uniform(0.2, 0.4, B),
+                                np.full(self.DEEP, 0.2)]),
+                np.concatenate([np.where(np.arange(B) % 2 == 0, "call",
+                                         "put"),
+                                ["call"] * half + ["put"] * half]))
+
+    def book_prices(self, s, book):
+        """Per-contract prices from the (10, B) sums: the dual-CV estimate,
+        and the plain mean for the ``DEEP`` contracts. On those the
+        reference's dual-CV estimator, kept as it is, takes Var(Y2) as a
+        difference of f32 moments of ~1: a change of the sums within the
+        kernel's round-off moves their CV price by tens of stderr (ROADMAP
+        §C)."""
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+
+        cv, plain = (tmb._book_estimate(s, book, c)[0] for c in (True,
+                                                                  False))
+        cv[-self.DEEP:] = plain[-self.DEEP:]
+        return cv
+
+    def k3(self, n_paths, antithetic):
+        """(operands, kwargs, book columns) of one K3 call on the book."""
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+
+        kparams, book = tmb.batch_kparams(*self.book())
+        reps, n_prog = tmb._plan(n_paths)
+        ops = (torch.tensor([7], dtype=torch.int32, device=self.dev),
+               torch.tensor([float(n_paths)], device=self.dev),
+               torch.from_numpy(kparams).to(self.dev))
+        return ops, dict(n_programs=n_prog, reps=reps,
+                         antithetic=antithetic), book
+
+    # -- phase 3 ---------------------------------------------------------
+    def phase3(self, record, payoffs):
+        from optpricer_tpu_torch.models import mc_fused
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        def k4_check(what, setup, pay):
+            """Kernel vs plain; returns the plain call's milliseconds."""
+            seed, params, run = setup
+            k = pmc.path_mc(seed, params, **run)
+            p, ms = event_ms(lambda: pmc._path_mc_plain(seed, params, **run))
+            rel = compare(k, p, what)
+            record("path_lv", rel, *(mc_fused._estimate_from_stats(
+                s, *self.MARKET, 0.0, pay.get("is_call", True), "local_vol",
+                True)[0] for s in (k, p)), what)
+            return ms
+
+        for name, pay in payoffs.items():
+            if pay.get("geo_cv"):               # the geometric CV is GBM's
+                name, pay = "asian-arithmetic", dict(pay, geo_cv=False)
+            for scheme in ("log_euler", "milstein"):
+                for anti in (True, False):
+                    k4_check(f"path lv {scheme} {name} anti={anti} "
+                             f"{self.LV_SHAPE[0]} x {self.LV_SHAPE[1]}",
+                             self.k4_lv(*self.LV_SHAPE, pay, scheme, anti,
+                                        SVI3), pay)
+        self.surface = self.desk_surface()
+        setup = self.main_k4(self.surface)
+        # the plain version at the main shape takes seconds: timed here once
+        self.plain_ms["k4 lv"] = k4_check(
+            "path lv main shape: desk surface, milstein up-and-out 130, "
+            "200000 x 500", setup, dict(payoff="barrier", barrier=130.0))
+
+        for n_paths in (1 << 20, 1_000_003):
+            for anti in (True, False):
+                ops, kw, book = self.k3(n_paths, anti)
+                k = tmb.mc_batch(*ops, **kw)
+                p = tmb._mc_batch_plain(*ops, **kw)
+                case = (f"book {self.BOOK_SIZE} contracts x {n_paths} paths "
+                        f"anti={anti}")
+                rows = [t.transpose(1, 2).reshape(-1, tmb.NSTAT)
+                        [:self.BOOK_SIZE] for t in (k, p)]
+                rel = compare(*rows, f"mc_batch {case}")
+                prices = [self.book_prices(t.cpu().numpy().astype(float).T,
+                                           book) for t in rows]
+                i = int(abs(prices[0] - prices[1]).argmax())
+                record("mc_batch", rel, prices[0][i], prices[1][i],
+                       f"{case}, contract {i}")
+
+    # -- phase 4 ---------------------------------------------------------
+    def phase4(self):
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        seed, params, run = self.main_k4(self.surface)
+        a = pmc.path_mc(seed, params, **run).clone()
+        b = pmc.path_mc(seed, params, **run).clone()
+        if not torch.equal(a, b):
+            raise AssertionError("path kernel (lv_milstein) is not bitwise "
+                                 "reproducible")
+        ops, kw, _ = self.k3(1 << 20, True)
+        if not torch.equal(tmb.mc_batch(*ops, **kw).clone(),
+                           tmb.mc_batch(*ops, **kw).clone()):
+            raise AssertionError("book kernel is not bitwise reproducible")
+
+    # -- phase 5 ---------------------------------------------------------
+    def phase5(self) -> dict:
+        """Config 5 and the book, each with its launch count set to 0 just
+        before it and read just after; returns them."""
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.scripts import \
+            desk_workflow_localvol_barrier as desk
+
+        dev = self.dev
+        print("phase 5 main path, config 5 (desk workflow):")
+        pmc.path_mc.launches = 0
+        t0 = time.perf_counter()
+        # the calibration on the card equals the same call on the CPU
+        _, _, _, _, fwd, strikes, ivs = desk.synth_market()
+        cpu = self.desk_surface("cpu")
+        worst_w = 0.0
+        for T_, sl in self.surface.slices.items():
+            k = torch.log(torch.as_tensor(strikes[T_] / fwd[T_]))
+            w_dev = sl.total_var(k, device="cpu")
+            w_cpu = cpu.slices[T_].total_var(k, device="cpu")
+            worst_w = max(worst_w, float(((w_dev - w_cpu) / w_cpu).abs()
+                                         .max()))
+        print(f"  fit_svi_surface on {dev} vs cpu: max rel |Δw| on the "
+              f"quotes {worst_w:.3e} (rtol 1e-8)")
+        if worst_w > 1e-8:
+            raise AssertionError(f"fit_svi_surface: {worst_w:.3e}")
+        # the golden Dupire probes (tests/goldens.json, rtol 1e-6)
+        goldens = json.loads((ROOT / "tests" / "goldens.json").read_text())
+        sl = {T_: tp.SVIParams(a=0.02 * T_ + 0.02, b=0.15, rho=-0.3, m=0.02,
+                               sigma=0.12, expiry=T_) for T_ in (0.25, 0.5,
+                                                                 1.0)}
+        fn = tp.dupire_local_vol_func(tp.VolSurface(
+            sl, forward_curve={T_: 100 * math.exp(0.03 * T_) for T_ in sl},
+            device=dev), 0.03, 0.0)
+        for key, want in goldens["dupire_probe"].items():
+            S_, t_ = key[1:].split("_t")
+            got = float(fn(torch.tensor([float(S_)], dtype=torch.float64,
+                                        device=dev), float(t_))[0])
+            if abs(got - want) > 1e-6 * abs(want):
+                raise AssertionError(f"dupire_probe {key}: {got} vs {want}")
+        print("  dupire_local_vol_func on the golden surface: the six "
+              "dupire_probe goldens to rtol 1e-6")
+
+        # tests/test_baseline_configs.py:64-91 on the card
+        S0, r, q = 100.0, 0.05, 0.02
+        bfwd = {T_: S0 * np.exp((r - q) * T_) for T_ in (0.25, 0.5, 1.0)}
+        bstrikes, bivs = {}, {}
+        for T_, F in bfwd.items():
+            bstrikes[T_] = np.linspace(0.8 * F, 1.2 * F, 15)
+            k = np.log(bstrikes[T_] / F)
+            bivs[T_] = 0.2 + 0.05 * k ** 2 - 0.02 * k + 0.005 * np.sqrt(T_)
+        bsurf = tp.fit_svi_surface(bstrikes, bfwd, bivs, device=dev)
+        fd_lv = tp.fd_price_local_vol(
+            S0, 100.0, 1.0, r, q, tp.dupire_local_vol_func(bsurf, r, q),
+            "call", N_S=200, N_t=200, device=dev)
+        mc_lv, mc_se = tp.exotic_price_mc_dupire(
+            "vanilla", bsurf, S0, 100.0, 1.0, r, q, scheme="milstein",
+            n_steps=100, n_paths=50_000, seed=21, device=dev)
+        ko, ko_se = tp.exotic_price_mc_dupire(
+            "barrier", bsurf, S0, 100.0, 1.0, r, q, scheme="milstein",
+            barrier=130.0, barrier_type="up-and-out", n_steps=100,
+            n_paths=50_000, seed=22, device=dev)
+        print(f"  config-5 test on the card: fd_lv {fd_lv:.10f}, Milstein "
+              f"50000 x 100 vanilla {mc_lv:.10f} (se {mc_se:.3e}), up-and-out "
+              f"130 {ko:.10f} (se {ko_se:.3e})")
+        if not (abs(fd_lv - mc_lv) < 5 * mc_se + 0.15 and 0 < ko < fd_lv):
+            raise AssertionError("config 5: |fd_lv - mc_lv| >= 5 se + 0.15 "
+                                 "or KO out of (0, fd_lv)")
+
+        # the desk workflow end to end at its full size
+        out = desk.run(**self.DESK, device=dev)
+        self.desk_times = out["times"]
+        gap = abs(out["fused_barrier"] - out["mc_barrier"])
+        band = 5.0 * math.hypot(out["fused_se"], out["mc_se"]) + 1e-3
+        dgap = abs(out["grid_greeks"]["delta"] - out["bump_greeks"]["delta"])
+        print(f"  desk stage 4 ({self.DESK['n_paths']} x "
+              f"{self.DESK['n_steps']}): BS vanilla {out['bs_vanilla']:.10f}; "
+              f"FDM const σ vanilla {out['fdm_vanilla']:.10f}, barrier "
+              f"{out['fdm_barrier']:.10f}; FDM local vol vanilla "
+              f"{out['fdm_lv_vanilla']:.10f}; MC+Milstein path matrix vanilla "
+              f"{out['mc_vanilla']:.10f}, barrier {out['mc_barrier']:.10f} "
+              f"(se {out['mc_se']:.3e}); fused kernel barrier "
+              f"{out['fused_barrier']:.10f} (se {out['fused_se']:.3e}); "
+              f"|fused - matrix| {gap:.3e} (limit {band:.3e})")
+        print(f"  desk stage 5: fd_greeks delta "
+              f"{out['grid_greeks']['delta']:.6f} vs bump "
+              f"{out['bump_greeks']['delta']:.6f} (|diff| {dgap:.2e}, limit "
+              "0.005); Dupire probes " + ", ".join(
+                  f"σ({S_:g}, {t_:g}) {s_:.4f}" for S_, t_, s_ in
+                  out["dupire"]))
+        if not (gap <= band and dgap < 0.005):
+            raise AssertionError("desk workflow: fused vs path-matrix barrier "
+                                 "or FD vs bump delta out of bounds")
+
+        # a flat 0.2 surface prices Black-Scholes through the kernel route
+        flat = tp.VolSurface({T_: tp.SVIParams(a=0.04 * T_, b=1e-8, rho=0.0,
+                                               m=0.0, sigma=0.1, expiry=T_)
+                              for T_ in (0.25, 0.5, 1.0)}, device=dev)
+        px, se = tp.exotic_price_mc_dupire(
+            "vanilla", flat, 100.0, 110.0, 1.0, 0.03, 0.0,
+            scheme="log_euler", n_steps=100, n_paths=1_000_000, seed=5,
+            device=dev)
+        check_price("exotic_price_mc_dupire flat 0.2 surface log-Euler 1M x "
+                    "100", px, se, tp.bs_price(tp.OptionSpec(**SPEC), "call",
+                                               device=dev), slack=0.01)
+        lv_launches = pmc.path_mc.launches
+        print(f"  config 5 {time.perf_counter() - t0:.2f} s; path_mc_kernel "
+              f"launches in it: {lv_launches}")
+        if lv_launches == 0:
+            raise AssertionError("path_mc_kernel was not launched on the "
+                                 "config-5 path")
+
+        print("phase 5 main path, the book (euro_price_mc_batch):")
+        tmb.mc_batch.launches = 0
+        t0 = time.perf_counter()
+        args = self.book()
+        bs = tp.bs_price_vec(*args, device=dev).cpu().numpy()
+        deep = np.arange(self.BOOK_SIZE) >= self.BOOK_SIZE - self.DEEP
+        excess = {}
+        for cv in (True, False):
+            prices, ses = tmb.euro_price_mc_batch(
+                *args, n_paths=1_000_000, seed=3, control_variate=cv,
+                device=dev)
+            # the CV price of every contract but the deep ones; the plain
+            # mean of every contract
+            held = ~deep if cv else np.ones_like(deep)
+            gap = np.where(held, abs(prices - bs), 0.0)
+            excess[cv] = (gap - 5 * ses - 1e-4)[held].max()
+            i = int(gap.argmax())
+            print(f"  {self.BOOK_SIZE} contracts x 1M paths, "
+                  f"{'dual CV' if cv else 'no CV'}: max |price - BS| "
+                  f"{gap.max():.3e} (contract {i}: {prices[i]:.8f} vs "
+                  f"{bs[i]:.8f}, se {ses[i]:.3e}); largest excess over 5 se "
+                  f"+ 1e-4: {excess[cv]:.3e}")
+            if cv:
+                print("  the deep contracts' CV prices, not held (ROADMAP "
+                      "§C): |price - BS| / se " + ", ".join(
+                          f"{d:.1f}" for d in (abs(prices - bs)
+                                               / ses)[deep]))
+            if not np.isfinite(prices).all():
+                raise AssertionError("euro_price_mc_batch: a price is not "
+                                     "finite")
+        if max(excess.values()) > 0.0:
+            raise AssertionError("euro_price_mc_batch off Black-Scholes")
+        book_launches = tmb.mc_batch.launches
+        print(f"  book {time.perf_counter() - t0:.2f} s; mc_batch_kernel "
+              f"launches in it: {book_launches}")
+        if book_launches == 0:
+            raise AssertionError("mc_batch_kernel was not launched on the "
+                                 "book path")
+        return {"path_mc_kernel lv": lv_launches,
+                "mc_batch_kernel": book_launches}
+
+    # -- phase 6 ---------------------------------------------------------
+    def phase6(self, times):
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        seed, params, run = self.main_k4(self.surface)
+        times[("k4 lv_milstein", "200000 x 500")] = cuda_ms(
+            lambda: pmc.path_mc(seed, params, **run))
+        # one call, in phase 3 (it takes seconds)
+        times[("k4plain lv_milstein", "200000 x 500")] = \
+            self.plain_ms["k4 lv"]
+        ops, kw, _ = self.k3(1 << 20, True)
+        times[("k3", "1000 x 2^20")] = cuda_ms(lambda: tmb.mc_batch(*ops,
+                                                                     **kw))
+        times[("k3plain", "1000 x 2^20")] = cuda_ms(
+            lambda: tmb._mc_batch_plain(*ops, **kw), reps=3)
+        for what in ("k4 lv_milstein", "k4plain lv_milstein"):
+            print(f"phase 6 time {what} 200000 x 500: "
+                  f"{times[(what, '200000 x 500')]:.4f} ms [{self.card}]")
+        for what in ("k3", "k3plain"):
+            print(f"phase 6 time {what} 1000 contracts x 2^20: "
+                  f"{times[(what, '1000 x 2^20')]:.4f} ms [{self.card}]")
+        _, secs = timed(lambda: self.desk_surface())
+        print(f"phase 6 wall fit_svi_surface (3 x 21 quotes, batched LM): "
+              f"{secs * 1e3:.4f} ms [{self.card}]")
+        for stage, secs in self.desk_times.items():
+            print(f"phase 6 wall desk stage {stage} (phase 5's run): "
+                  f"{secs * 1e3:.4f} ms [{self.card}]")
+
+    def kernel_entries(self, launches, worst, times):
+        n, steps = self.DESK["n_paths"], self.DESK["n_steps"]
+        n_slices = len(self.surface.expiries)
+        _, params, run = self.main_k4(self.surface)
+        B = self.BOOK_SIZE
+        return [
+            {"name": "path_mc_kernel lv_milstein", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/path_mc.cu",
+             "replaces": "optpricer_tpu/ops/pallas_path_mc.py:68",
+             "launches": launches["path_mc_kernel lv"],
+             "max_abs_err": worst["path_lv"][1],
+             "ms": times[("k4 lv_milstein", "200000 x 500")],
+             "plain_ms": times[("k4plain lv_milstein", "200000 x 500")],
+             **dict(zip(("bound_ms", "bound_by"), bound(
+                 n * ops_k4_lv_path(run["svi"].cpu(), float(params[10]),
+                                    steps),
+                 8 + 96 + 4 * 6 * n_slices + 84))),
+             "library_ms": None,
+             "shape": f"Dupire Milstein up-and-out barrier, {n_slices} SVI "
+                      f"slices, {n} paths x {steps} steps, antithetic"},
+            {"name": "mc_batch_kernel", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/mc_batch.cu",
+             "replaces": "optpricer_tpu/ops/pallas_mc_batch.py:32",
+             "launches": launches["mc_batch_kernel"],
+             "max_abs_err": worst["mc_batch"][1],
+             "ms": times[("k3", "1000 x 2^20")],
+             "plain_ms": times[("k3plain", "1000 x 2^20")],
+             **dict(zip(("bound_ms", "bound_by"), bound(
+                 B * (1 << 20) * OPS_K3_DRAW, 8 + 4 * 8 * B + 4 * 10 * B))),
+             "library_ms": None,
+             "shape": f"{B} contracts x 2^20 base draws each, antithetic"},
+        ]
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -748,7 +1218,8 @@ def main():
               SPEC["sigma"])
     # worst[name] = [max rel err, max |price difference|, its case]
     worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
-                                          "qmc_path", "thomas", "fd_lv")}
+                                          "qmc_path", "thomas", "fd_lv",
+                                          "path_lv", "mc_batch")}
 
     def record(name, rel, price_k, price_p, case):
         diff = abs(price_k - price_p)
@@ -903,6 +1374,8 @@ def main():
 
     pde = PdeSlice(dev, card)
     pde.phase3(record)
+    desk = Config5Slice(dev, card)
+    desk.phase3(record, payoffs)
 
     for name, (rel, dprice, case) in worst.items():
         if name == "thomas":
@@ -932,9 +1405,11 @@ def main():
     if not torch.equal(a, b):
         raise AssertionError("path kernel is not bitwise reproducible")
     pde.phase4()
+    desk.phase4()
     print("phase 4 determinism: terminal kernel at 2^24, path kernel at "
-          "1M x 252, fd_lv PCR and Thomas at 1024 x 511 x 512, two runs on "
-          "one input each: bitwise equal")
+          "1M x 252 and lv_milstein at 200000 x 500, fd_lv PCR and Thomas at "
+          "1024 x 511 x 512, the book kernel at 1000 contracts x 2^20, two "
+          "runs on one input each: bitwise equal")
 
     # phase 5: the main path through the public API
     spec = tp.OptionSpec(**SPEC)
@@ -1111,6 +1586,7 @@ def main():
             raise AssertionError(f"{name} was not launched on the main path")
 
     launches.update(pde.phase5())
+    launches.update(desk.phase5())
 
     # phase 6: time
     times = {}
@@ -1148,6 +1624,7 @@ def main():
         k5_bounds[shape] = bound(n * R5 * ops_k5_point(d),
                                  in_bytes + kw5["n_programs"] * 6 * 4)
     pde.phase6(times)
+    desk.phase6(times)
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -1196,7 +1673,8 @@ def main():
          "ms_2p20x252": times[("k5", "1048576 x 8 x 252")],
          "plain_ms_2p20x252": times[("k5plain", "1048576 x 8 x 252")],
          "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0]},
-    ] + pde.kernel_entries(launches, worst, times)
+    ] + pde.kernel_entries(launches, worst, times) \
+        + desk.kernel_entries(launches, worst, times)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,30 @@ from .ops.black_scholes import (
 )
 from .models.monte_carlo import euro_greeks_mc, euro_price_mc
 from .models.binomial import crr
-from .models.mc_fused import exotic_greeks_mc, exotic_price_mc
+from .models.mc_fused import (exotic_greeks_mc, exotic_price_mc,
+                              exotic_price_mc_dupire)
 from .models.analytic import geometric_asian_price
+
+# Exotic payoffs on a path matrix
+from .models.exotics import (barrier_price, asian_price, digital_price,
+                             lookback_price, double_barrier_price)
+
+# Calibration & Dupire
+from .models.calibration import (SVIParams, VolSurface, fit_svi,
+                                 fit_svi_surface, dupire_local_vol,
+                                 dupire_local_vol_func, fit_essvi,
+                                 svi_butterfly_g, svi_density,
+                                 check_butterfly, check_calendar,
+                                 arbitrage_report)
+
+# Stochastic processes
+from .models.processes import (gbm_paths, merton_jump_paths, heston_paths,
+                               bates_paths, sabr_paths, local_vol_paths,
+                               gbm_milstein_paths, milstein_local_vol_paths)
+
+# Risk engine
+from .risk import (numerical_greeks, scenario_grid, portfolio_risk,
+                   var_historical, cvar_historical)
 
 # PDE (finite difference, finite element)
 from .models.pde import (fd_price, fd_price_barrier,
@@ -38,7 +60,19 @@ __all__ = [
     "OptionSpec", "CALL", "PUT",
     "bs_price", "bs_greeks", "implied_vol",
     "euro_price_mc", "euro_greeks_mc", "crr",
-    "exotic_price_mc", "exotic_greeks_mc", "geometric_asian_price",
+    "exotic_price_mc", "exotic_price_mc_dupire", "exotic_greeks_mc",
+    "geometric_asian_price",
+    "barrier_price", "asian_price", "digital_price", "lookback_price",
+    "double_barrier_price",
+    "SVIParams", "VolSurface", "fit_svi", "fit_svi_surface",
+    "dupire_local_vol", "dupire_local_vol_func", "fit_essvi",
+    "svi_butterfly_g", "svi_density", "check_butterfly", "check_calendar",
+    "arbitrage_report",
+    "gbm_paths", "merton_jump_paths", "heston_paths", "bates_paths",
+    "sabr_paths", "local_vol_paths", "gbm_milstein_paths",
+    "milstein_local_vol_paths",
+    "numerical_greeks", "scenario_grid", "portfolio_risk", "var_historical",
+    "cvar_historical",
     "fd_price", "fd_price_barrier", "fd_price_double_barrier", "fd_greeks",
     "fd_price_local_vol", "fem_price",
     # Production data model

@@ -23,11 +23,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "optpricer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
-# source -> its own flags. The path and PDE kernels are built without FMA
-# contraction, so each operation rounds as in their plain torch versions
+# source -> its own flags. The book, path and PDE kernels are built without
+# FMA contraction, so each operation rounds as in their plain torch versions
 # (see the notes at the top of each source).
 SOURCES = {
     "terminal_mc.cu": (),
+    "mc_batch.cu": ("-fmad=false",),
     "path_mc.cu": ("-fmad=false",),
     "qmc_path.cu": ("-fmad=false",),
     "thomas.cu": ("-fmad=false",),
@@ -42,8 +43,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "optpricer_terminal_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_terminal_qmc": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "optpricer_path_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P),
+    "optpricer_mc_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "optpricer_path_mc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P),
     "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _P),
     "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P, _P, _I,

@@ -21,13 +21,17 @@ host vectors through ``numpy.asarray``, so this module never imports
 * ``int32_table`` / ``float32_table`` convert the 2-D kernel operands: the
   path-QMC kernel's direction numbers ``V`` and digital shifts (int32 views
   of uint32 words), bridge matrix ``B`` and drift row (f32). The path
-  kernel's ``svi`` table (f32) converts the same way; only its lv/lsv
-  branches, not yet ported, read it;
+  kernel's ``svi`` table (f32) converts the same way;
 * ``fd_lv_params``, ``fd_lv_lanes`` and ``fd_lv_sigma_table`` convert the
   operands of ``optpricer_tpu.ops.pallas_fd_lv._run_fd_lv`` into the
   layout of ``ops/fd_lv.fd_lv``: the f32[6] (x_min, dx, dt, r, q, T), the
   (1, B_pad) ``K_pad`` / ``sign_pad`` lane rows as f32[B_pad], and the
-  (m_pad, n_t_pad) σ table as the port's (n_t, m_pad).
+  (m_pad, n_t_pad) σ table as the port's (n_t, m_pad);
+* ``vol_surface`` rebuilds an ``optpricer_tpu.models.calibration.
+  VolSurface`` as the port's, from its ``.slices`` (every SVI field read as
+  a float) and its ``._forward_curve``;
+* ``mc_batch_kparams`` converts the (n_ktiles, 8, 128) f32 contract tiles
+  of ``optpricer_tpu.ops.pallas_mc_batch`` (K, sign, S0, μT, σ√T, df).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from .core import Instrument, MarketData, OptionSpec
 __all__ = ["option_spec", "instrument", "market_data", "terminal_params",
            "seed_pair", "path_params", "qmc_path_params", "int32_table",
            "float32_table", "fd_lv_params", "fd_lv_lanes",
-           "fd_lv_sigma_table"]
+           "fd_lv_sigma_table", "vol_surface", "mc_batch_kparams"]
 
 
 def _field(value):
@@ -110,6 +114,29 @@ def seed_pair(seed, device="cpu") -> torch.Tensor:
     arr = np.array(seed, np.int32)
     if arr.shape != (2,):
         raise ValueError(f"seed pair must have shape (2,), got {arr.shape}")
+    return torch.as_tensor(arr).to(device)
+
+
+def vol_surface(obj, device="cpu"):
+    """The port's ``VolSurface`` with the slices and forward curve of a
+    JAX one."""
+    from .models.calibration import SVIParams, VolSurface
+
+    slices = {float(T): SVIParams(**{f: float(getattr(p, f))
+                                     for f in ("a", "b", "rho", "m", "sigma",
+                                               "expiry")})
+              for T, p in obj.slices.items()}
+    forwards = {float(T): float(F)
+                for T, F in (obj._forward_curve or {}).items()}
+    return VolSurface(slices, forward_curve=forwards or None, device=device)
+
+
+def mc_batch_kparams(kparams, device="cpu") -> torch.Tensor:
+    """The book kernel's (n_ktiles, 8, 128) contract tiles as f32."""
+    arr = np.array(kparams, np.float32)
+    if arr.ndim != 3 or arr.shape[1:] != (8, 128):
+        raise ValueError(f"kparams must be (n_ktiles, 8, 128), got "
+                         f"{arr.shape}")
     return torch.as_tensor(arr).to(device)
 
 

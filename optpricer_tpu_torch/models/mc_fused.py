@@ -1,5 +1,5 @@
-"""Fused path-dependent Monte-Carlo pricing: ``exotic_price_mc`` and
-``exotic_greeks_mc``.
+"""Fused path-dependent Monte-Carlo pricing: ``exotic_price_mc``,
+``exotic_price_mc_dupire`` and ``exotic_greeks_mc``.
 
 Counterpart of ``optpricer_tpu/models/mc_fused.py``. Every price comes from
 sufficient statistics reduced on the device and a float64 estimator on the
@@ -15,7 +15,10 @@ host:
 * ``backend="qmc"`` runs the fused path-QMC kernel (``ops/qmc_path``,
   Sobol + Brownian bridge, 8 digitally shifted replicates) under GBM;
 * ``exotic_greeks_mc`` under GBM runs the path kernel with its Greek
-  moments and reads price, delta, gamma, vega, rho and theta from one run.
+  moments and reads price, delta, gamma, vega, rho and theta from one run;
+* ``exotic_price_mc_dupire`` ships a calibrated surface's SVI slices into
+  the path kernel, which evaluates the Dupire σ(S, t) in registers
+  (log-Euler or Milstein), with the spot control variate.
 
 **Seed semantics.** The path kernel is bit-reproducible given
 ``(seed, n_paths, n_steps, antithetic)`` and draws exactly the JAX path
@@ -28,7 +31,8 @@ backend randomises the reference's Sobol point set with the reference's
 digital shifts, so a seed gives the JAX path-QMC kernel's replicates.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``sigma_loc=`` (Dupire), ``merton=``, ``vg=``, ``nig=``,
+item: ``sigma_loc=`` (a Dupire closure, which the reference prices on its
+XLA scan only; ``exotic_price_mc_dupire`` is the kernel route), ``merton=``, ``vg=``, ``nig=``,
 ``scheme="exact"``, ``dividends=``, ``mesh=``, ``backend="xla"``, an odd
 ``n_steps`` (the reference sends it to the XLA scan), a ``dtype`` other
 than float32 (the f64 XLA engine), and ``exotic_greeks_mc`` under non-GBM
@@ -52,7 +56,7 @@ from ..ops.terminal_mc import terminal_estimate
 from .analytic import geometric_asian_price_f64
 from .monte_carlo import resolve_seed
 
-__all__ = ["exotic_price_mc", "exotic_greeks_mc"]
+__all__ = ["exotic_price_mc", "exotic_price_mc_dupire", "exotic_greeks_mc"]
 
 _PAYOFFS = ("vanilla", "barrier", "asian", "digital", "lookback")
 # payoffs whose pathwise delta the homogeneity argument covers; barrier and
@@ -178,8 +182,9 @@ def exotic_price_mc(
             "provide exactly one of sigma / sigma_loc / heston / merton"
             " / sabr / vg / nig")
     for given, what, item in (
-            (sigma_loc is not None, "sigma_loc= (Dupire local vol)",
-             "A.9, B.3.2"),
+            (sigma_loc is not None, "sigma_loc= (a Dupire closure, which "
+             "the reference prices on its XLA scan engine; the kernel route "
+             "of A.9 is exotic_price_mc_dupire)", "A.10"),
             (merton is not None, "merton= (jump diffusion)", "A.10"),
             (vg is not None, "vg= (variance gamma)", "A.10, A.13"),
             (nig is not None, "nig= (normal inverse Gaussian)",
@@ -232,6 +237,48 @@ def exotic_price_mc(
     return _estimate_from_stats(stats_vec, S0, K, T, r, q, sigma,
                                 kind == "call", dynamics, control_variate,
                                 geo_ey=geo_ey)
+
+
+def exotic_price_mc_dupire(payoff: str, surface, S0, K, T, r, q=0.0, *,
+                           scheme: str = "milstein", backend: str = "auto",
+                           control_variate: bool = False, **kwargs):
+    """Path-dependent pricing under Dupire local vol from a calibrated
+    :class:`~optpricer_tpu_torch.models.calibration.VolSurface`.
+
+    The surface's SVI slices ship into the path kernel as its f32
+    (6, n_slices) table and σ(S, t) is Gatheral's formula evaluated in
+    registers, with the analytic forward S0·e^{(r−q)t}; ``scheme`` is
+    ``"milstein"`` (σ′ by a central bump ``dS_bump``) or anything else for
+    log-Euler. ``backend`` "auto" and "pallas" take the kernel; the
+    reference's other routes (its XLA scan with a traced closure) raise
+    ``NotImplementedError``, as does an odd ``n_steps``. Accepts
+    :func:`exotic_price_mc`'s payoff kwargs and ``device=``. The control
+    variate is the spot one, E[e^{−rT}S_T] = S0·e^{−qT}, which holds under
+    any risk-neutral dynamics.
+    """
+    if payoff not in _PAYOFFS:
+        raise ValueError(f"payoff must be one of {_PAYOFFS}, got {payoff!r}")
+    n_steps = int(kwargs.get("n_steps", 252))
+    _check_kernel_route("xla" if backend == "qmc" else backend, n_steps,
+                        kwargs.get("mesh"))
+    _check_dtype(kwargs.get("dtype"))
+    kind = kwargs.get("kind", "call")
+    if kind not in ("call", "put"):
+        raise ValueError("kind must be 'call' or 'put'")
+    stats_vec = path_mc_sumstats_kernel(
+        resolve_seed(kwargs.get("seed")), int(kwargs.get("n_paths", 100_000)),
+        n_steps, S0, K, T, r, q, None, kind == "call", payoff=payoff,
+        antithetic=bool(kwargs.get("antithetic", True)),
+        barrier=kwargs.get("barrier", 0.0),
+        barrier_type=kwargs.get("barrier_type", "up-and-out"),
+        rebate=kwargs.get("rebate", 0.0),
+        average_type=kwargs.get("average_type", "arithmetic"),
+        strike_type=kwargs.get("strike_type", "fixed"),
+        payout=kwargs.get("payout", 1.0), svi_slices=surface.svi_table(),
+        scheme=scheme,
+        dS_bump=kwargs.get("dS_bump", 0.01), device=kwargs.get("device"))
+    return _estimate_from_stats(stats_vec, S0, K, T, r, q, 0.0,
+                                kind == "call", "local_vol", control_variate)
 
 
 def exotic_greeks_mc(payoff: str, S0, K, T, r, q=0.0, *, kind: str = "call",

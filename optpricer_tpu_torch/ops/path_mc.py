@@ -10,9 +10,18 @@ id) with counter (element, draw index), so a seed gives the reference's
 sample and the statistics agree with it to f32 round-off.
 
 Dynamics ported: ``gbm``, ``heston`` (full-truncation Euler), ``heston_qe``
-(Andersen QE), ``sabr_ln`` (β = 1) and ``sabr_cev`` (β < 1, Euler). The
-Dupire (``svi_slices=``) and LSV (``lsv=``) branches need host modules that
-are not ported yet and raise ``NotImplementedError``.
+(Andersen QE), ``sabr_ln`` (β = 1), ``sabr_cev`` (β < 1, Euler) and the
+Dupire local vol of an SVI table (``svi_slices=``, (6, n_slices) rows a, b,
+ρ, m, σ, T; at most ``MAX_SLICES`` slices): ``lv_euler`` (log-Euler) and
+``lv_milstein`` (Milstein with the σ′ bump ``dS_bump``). σ_loc(S, t) is the
+TPU kernel's: Gatheral's formula on the t-interpolated surface, the forward
+S0·e^{(r−q)t} (one ``exp32`` here and in the kernel, where the TPU kernel
+takes a scalar ``jnp.exp``: the two differ by an ulp of F at most), the
+blend in T a select chain (``t > T[i−1]``, then ``t ≥ T[n−1]``) and ∂w/∂T
+a centred difference at dT = 1e-4 of the un-floored blend. The chain's
+branch depends on t alone, so both versions evaluate only the slices the
+chosen branch reads. The LSV branches (``lsv=``) need ``models/lsv.py``,
+not ported yet, and raise ``NotImplementedError``.
 
 Stats layout (``NSTAT = 21``): the dual-CV layout of ``ops/stats.py``
 [n, ΣX, ΣX², ΣY1, ΣY1², ΣXY1, ΣY2, ΣY2², ΣXY2, ΣY1Y2], then ΣY3 (the
@@ -48,7 +57,7 @@ from .swprng import threefry2x32
 from .terminal_mc import _MAX_TILE_INDEX, _plan_grid, _seed_pair, _stream
 
 __all__ = ["path_mc_sumstats_kernel", "path_mc", "TILE", "NSTAT",
-           "PAYOFF_IDS", "DYNAMICS"]
+           "PAYOFF_IDS", "DYNAMICS", "MAX_SLICES"]
 
 BLOCK_R = 32            # rows of a path tile
 LANES = 128
@@ -60,8 +69,10 @@ PAYOFF_IDS = {"vanilla": 0, "barrier": 1, "asian": 2, "digital": 3,
               "lookback": 4}
 # dynamics name -> kernel id (csrc/path_mc.cu Dyn)
 DYNAMICS = {"gbm": 0, "heston": 1, "heston_qe": 2, "sabr_ln": 3,
-            "sabr_cev": 4}
+            "sabr_cev": 4, "lv_euler": 5, "lv_milstein": 6}
 _SV = ("heston", "heston_qe", "sabr_ln", "sabr_cev")
+_LV = ("lv_euler", "lv_milstein")
+MAX_SLICES = 16         # csrc/path_mc.cu MAX_SLICES: the SVI table's bound
 
 _ROW = 24               # kernel stats rows are padded to 24 floats
 _THREADS = 128          # csrc/path_mc.cu THREADS
@@ -105,8 +116,9 @@ def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
                     dS_bump, heston, sabr=None, geo_cv=False, lsv=None):
     """(params, static_kwargs) for ``path_mc``; n_steps must be even
     (two Box-Muller normals advance two steps per loop iteration). The
-    reference's third result, its Dupire/LSV ``svi`` operand, is read by
-    the lv/lsv branches only and is left out until they are ported."""
+    reference's third result, its ``svi`` operand, rides in
+    ``static_kwargs["svi"]``: the f32 (6, n_slices) Dupire table, or None
+    for the other dynamics."""
     if n_steps % 2:
         raise ValueError("pallas path engine requires even n_steps")
     if geo_cv and not (payoff == "asian" and average_type == "arithmetic"
@@ -119,15 +131,16 @@ def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
         raise NotImplementedError(
             "the path kernel's lsv/lsv_qe branches are not ported yet "
             "(ROADMAP B.3.5, with A.14 lsv.py)")
-    if svi_slices is not None:
-        raise NotImplementedError(
-            "the path kernel's Dupire lv_euler/lv_milstein branches are not "
-            "ported yet (ROADMAP B.3.2, with A.9 calibration.py)")
     params = _common_params(n_paths, n_steps, S0, K, T, r, q,
                             sigma if sigma is not None else 0.0,
                             is_call, barrier, rebate, payout, dS_bump,
                             heston, sabr)
-    if heston is not None:
+    svi = None
+    if svi_slices is not None:
+        dynamics = "lv_milstein" if scheme == "milstein" else "lv_euler"
+        svi = torch.as_tensor(np.array(svi_slices, np.float32))
+        _check_svi(svi)
+    elif heston is not None:
         dynamics = "heston_qe" if scheme == "qe" else "heston"
     elif sabr is not None:
         dynamics = "sabr_ln" if float(sabr["beta"]) == 1.0 else "sabr_cev"
@@ -140,12 +153,23 @@ def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
         knock_out=barrier_type.endswith("out"),
         average_geo=(average_type == "geometric"),
         strike_floating=(strike_type == "floating"),
-        is_call=bool(is_call), dynamics=dynamics, geo_cv=bool(geo_cv))
+        is_call=bool(is_call), dynamics=dynamics, geo_cv=bool(geo_cv),
+        svi=svi)
     return params, static
 
 
+def _check_svi(svi: torch.Tensor):
+    if svi.dtype != MC_DTYPE or svi.ndim != 2 or svi.shape[0] != 6 \
+            or svi.shape[1] < 1:
+        raise ValueError(f"svi_slices must be a float32 (6, n_slices) table, "
+                         f"got {tuple(svi.shape)} {svi.dtype}")
+    if svi.shape[1] > MAX_SLICES:
+        raise ValueError(f"svi_slices has {svi.shape[1]} slices; the path "
+                         f"kernel takes at most MAX_SLICES = {MAX_SLICES}")
+
+
 def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
-                  with_greeks, payoff_id, geo_cv):
+                  with_greeks, payoff_id, geo_cv, svi):
     if geo_cv and payoff_id != PAYOFF_IDS["asian"]:
         raise ValueError("geo_cv needs the asian payoff")
     if n_programs < 1 or reps < 1:
@@ -157,7 +181,7 @@ def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
         raise ValueError("n_paths must stay below 2**24 tiles of TILE paths")
     if dynamics not in DYNAMICS:
         raise NotImplementedError(
-            f"dynamics {dynamics!r} is not ported (ROADMAP B.3.2, B.3.5)")
+            f"dynamics {dynamics!r} is not ported (ROADMAP B.3.5)")
     if with_greeks and dynamics != "gbm":
         raise ValueError("greek_stats requires GBM dynamics")
     if seed.dtype != torch.int32 or seed.shape != (2,):
@@ -171,6 +195,13 @@ def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
         raise ValueError(f"seed on {seed.device}, params on {params.device}")
     if params.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {params.device}")
+    if dynamics in _LV:
+        if svi is None:
+            raise ValueError(f"dynamics {dynamics!r} needs the svi table")
+        _check_svi(svi)
+        if not svi.is_contiguous() or svi.device != params.device:
+            raise ValueError("svi must be contiguous and on the params' "
+                             "device")
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +212,7 @@ class _Scalars:
     scalar-only terms of the step, each rounded to f32 in the kernel's
     order (so the kernel and this version round alike)."""
 
-    def __init__(self, params: torch.Tensor, dynamics: str):
+    def __init__(self, params: torch.Tensor, dynamics: str, svi=None):
         names = ("S0", "K", "mu", "sig", "df", "n_paths", "sign", "barrier",
                  "rebate", "payout", "dt", "rq", "sqrt_dt", "bump", "h_v0",
                  "h_kappa", "h_theta", "h_xi", "h_rho", "s_alpha0", "s_beta",
@@ -204,12 +235,120 @@ class _Scalars:
             self.K2c = half_dt * (kap * self.h_rho / xi - 0.5) \
                 + self.h_rho / xi
             self.K34 = half_dt * (1.0 - self.h_rho * self.h_rho)
+        if dynamics in _LV:
+            # per slice (a, b, ρ, m, σ², bσ², T) as f32 values; σ² and bσ²
+            # rounded as the kernel rounds sg*sg and (b*sg)*sg. The
+            # divisors bσ², T and the ∂w/∂T step are 0-d tensors on the
+            # device: a CUDA tensor divided by a Python number is multiplied
+            # by its reciprocal, which rounds twice
+            f = np.float32
+            self.slices = [
+                (float(a), float(b), float(rho), float(m), float(sg * sg),
+                 self._dev(f((b * sg) * sg)), f(T))
+                for a, b, rho, m, sg, T in svi.cpu().numpy().T.astype(f)]
+            self.T_list = [sl[6] for sl in self.slices]
+            self.T_dev = [self._dev(T) for T in self.T_list]
+
+    def _dev(self, value) -> torch.Tensor:
+        return torch.tensor(float(value), dtype=MC_DTYPE,
+                            device=self.S0.device)
 
 
-def _move(p: _Scalars, dynamics, S, v, z, zv):
+_F32 = np.float32
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (the kernel's ``sqrtf``):
+    torch's vectorised CPU ``sqrt`` may miss by an ulp, which the f32
+    difference quotient ∂w/∂T amplifies ~10⁴-fold. The f64 root of an f32
+    value rounds to the f32 root exactly."""
+    return torch.sqrt(x.to(torch.float64)).to(MC_DTYPE)
+
+
+def _blend_plan(Ts, tau):
+    """The branch the TPU kernel's select chain over the slices takes at
+    time ``tau`` (f32): ``(lo, hi, alpha)`` for the interpolation between
+    slices lo and hi, ``(lo, lo, None)`` for slice lo scaled by tau/T."""
+    n = len(Ts)
+    lo = hi = 0
+    mid = False
+    for i in range(1, n):
+        if tau > Ts[i - 1]:
+            lo, hi, mid = i - 1, i, True
+    if tau >= Ts[n - 1]:
+        lo = hi = n - 1
+        mid = False
+    if not mid:
+        return lo, lo, None
+    return lo, hi, (tau - Ts[lo]) / (Ts[hi] - Ts[lo])
+
+
+def _blend(plan, T_dev, tau, v_lo, v_hi):
+    lo, _, alpha = plan
+    if alpha is None:
+        return v_lo / T_dev[lo] * float(tau)
+    return float(_F32(1.0) - alpha) * v_lo + float(alpha) * v_hi
+
+
+def _sigma_loc(p: _Scalars, S, t):
+    """σ_loc(S, t) of the path kernel's Dupire branches, in its f32 order
+    (``pallas_path_mc.py:sigma_loc``); ``t`` is an f32 value."""
+    Ts, Td = p.T_list, p.T_dev
+    t = max(_F32(t), _F32(1e-8))
+    F = p.S0 * exp32(p.rq * float(t))
+    k = log32(S / F)
+    vals = {}
+
+    def slice_vals(i):
+        if i not in vals:
+            a, b, rho, m, sg2, bsg2, _ = p.slices[i]
+            km = k - m
+            root = _sqrt32(km * km + sg2)
+            vals[i] = (a + b * (rho * km + root), b * (rho + km / root),
+                       torch.div(bsg2, root * root * root))
+        return vals[i]
+
+    pt = _blend_plan(Ts, t)
+    lo, hi = slice_vals(pt[0]), slice_vals(pt[1])
+    w = torch.clamp(_blend(pt, Td, t, lo[0], hi[0]), min=1e-12)
+    dw = _blend(pt, Td, t, lo[1], hi[1])
+    d2w = _blend(pt, Td, t, lo[2], hi[2])
+    t_up = t + _F32(1e-4)
+    t_dn = max(t - _F32(1e-4), _F32(1e-8))
+    pu, pd = _blend_plan(Ts, t_up), _blend_plan(Ts, t_dn)
+    w_up = _blend(pu, Td, t_up, slice_vals(pu[0])[0], slice_vals(pu[1])[0])
+    w_dn = _blend(pd, Td, t_dn, slice_vals(pd[0])[0], slice_vals(pd[1])[0])
+    dwdT = (w_up - w_dn) / p._dev(t_up - t_dn)
+    kw = k / w
+    denom = (1.0 - kw * dw
+             + 0.25 * (-0.25 - 1.0 / w + kw * kw) * dw * dw
+             + 0.5 * d2w)
+    s2 = torch.clamp(dwdT, min=1e-12) / torch.clamp(denom, min=1e-8)
+    return torch.clamp(_sqrt32(torch.clamp(s2, min=0.0)), 0.01, 5.0)
+
+
+def _move(p: _Scalars, dynamics, S, v, z, zv, t_now=0.0):
     """One step of the asset (and variance / σ) dynamics."""
     if dynamics == "gbm":
         return S * exp32(p.mu + p.sig * z), v
+    if dynamics == "lv_euler":
+        s = _sigma_loc(p, S, t_now)
+        return S * exp32((p.rq - 0.5 * s * s) * p.dt
+                         + s * p.sqrt_dt * z), v
+    if dynamics == "lv_milstein":
+        # σ′ of a(S) = σ(S, t)·S by a central difference; only the centre
+        # σ is clipped (processes.milstein_local_vol_paths)
+        s = torch.clamp(_sigma_loc(p, S, t_now), 1e-8, 10.0)
+        eps = p.bump * S
+        S_up = S + eps
+        S_dn = torch.clamp(S - eps, min=1e-10)
+        s_up = _sigma_loc(p, S_up, t_now)
+        s_dn = _sigma_loc(p, S_dn, t_now)
+        da = (s_up * S_up - s_dn * S_dn) / (S_up - S_dn)
+        a_t = s * S
+        S_new = (S + p.rq * S * p.dt + a_t * p.sqrt_dt * z
+                 + 0.5 * a_t * da * (z * z - 1.0) * p.dt)
+        return torch.clamp(S_new, min=1e-10), v
     if dynamics == "heston":
         v_eff = torch.clamp(v, min=0.0)
         z1 = p.rho_sv * zv + p.rho_c * z
@@ -259,7 +398,7 @@ def _move(p: _Scalars, dynamics, S, v, z, zv):
 def _advance(p, st, z, zv, t_now, *, dynamics, payoff_id, barrier_up,
              average_geo, geo_cv, with_greeks):
     prev_max, prev_min = st["rmax"], st["rmin"]
-    S, v = _move(p, dynamics, st["S"], st["v"], z, zv)
+    S, v = _move(p, dynamics, st["S"], st["v"], z, zv, t_now)
     st = dict(st, S=S, v=v)
     if with_greeks:
         W = st["W"] + p.sqrt_dt * z
@@ -301,6 +440,7 @@ def _payoff_obs(p, st, *, n_steps, payoff_id, knock_out, average_geo,
     S, rsum, rlog, rmax, rmin = (st[k] for k in ("S", "rsum", "rlog",
                                                  "rmax", "rmin"))
     sign, K, df = p.sign, p.K, p.df
+    nsf = p._dev(n_steps)   # a 0-d divisor: true division on the card
     vanilla = torch.clamp(sign * (S - K), min=0.0)
     if payoff_id == 0:
         pay = vanilla
@@ -309,7 +449,7 @@ def _payoff_obs(p, st, *, n_steps, payoff_id, knock_out, average_geo,
         pay = torch.where(hit, p.rebate, vanilla) if knock_out \
             else torch.where(hit, vanilla, p.rebate)
     elif payoff_id == 2:
-        avg = exp32(rlog / n_steps) if average_geo else rsum / n_steps
+        avg = exp32(rlog / nsf) if average_geo else rsum / nsf
         pay = torch.clamp(sign * (S - avg), min=0.0) if strike_floating \
             else torch.clamp(sign * (avg - K), min=0.0)
     elif payoff_id == 3:
@@ -321,7 +461,7 @@ def _payoff_obs(p, st, *, n_steps, payoff_id, knock_out, average_geo,
             else torch.clamp(K - rmin, min=0.0)
     X = df * pay
     if geo_cv:
-        Y1 = df * torch.clamp(sign * (exp32(rlog / n_steps) - K), min=0.0)
+        Y1 = df * torch.clamp(sign * (exp32(rlog / nsf) - K), min=0.0)
     else:
         Y1 = df * S
     Y2 = df * (sign * (S - K) > 0.0).to(MC_DTYPE)
@@ -356,7 +496,7 @@ def _payoff_obs(p, st, *, n_steps, payoff_id, knock_out, average_geo,
         dinner = tuple(sign * d for d in d_terminal())
     elif payoff_id == 2:
         if average_geo:
-            avg_v = exp32(rlog / n_steps)
+            avg_v = exp32(rlog / nsf)
             tsum = p.dt * (m_f * (m_f + 1.0) / 2.0)
             davg = (avg_v * (g1 - sig_ann * tsum) / m_f,
                     avg_v * tsum / m_f,
@@ -407,14 +547,14 @@ def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
                    antithetic: bool, payoff_id: int, barrier_up: bool,
                    knock_out: bool, average_geo: bool, strike_floating: bool,
                    is_call: bool, dynamics: str = "gbm",
-                   with_greeks: bool = False, geo_cv: bool = False
-                   ) -> torch.Tensor:
+                   with_greeks: bool = False, geo_cv: bool = False,
+                   svi=None) -> torch.Tensor:
     """Plain version of ``path_mc``: every (program, rep, element) path at
     once as a (n_programs, reps, TILE) tensor, one step pair at a time;
     tile sums, Kahan over reps, then the programs combined in order."""
     dev = params.device
     key0, offset = (int(v) for v in seed.tolist())
-    p = _Scalars(params, dynamics)
+    p = _Scalars(params, dynamics, svi)
     n_half = n_steps // 2
     shape = (n_programs, reps, TILE)
     pid = (offset + torch.arange(n_programs, dtype=torch.int64,
@@ -510,7 +650,7 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
             payoff_id: int, barrier_up: bool, knock_out: bool,
             average_geo: bool, strike_floating: bool, is_call: bool,
             dynamics: str = "gbm", with_greeks: bool = False,
-            geo_cv: bool = False) -> torch.Tensor:
+            geo_cv: bool = False, svi=None) -> torch.Tensor:
     """f32[21] path-dependent sums over the (n_programs, reps) grid.
 
     Kernel ``path_mc_kernel`` in ``csrc/path_mc.cu``; it replaces
@@ -519,19 +659,27 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     loops over reps and step pairs with its state in registers; it is
     bound by integer and SFU issue (a Threefry block per step pair, one or
     two per pair under stochastic volatility, an exp32 per step and
-    state).
+    state). The Dupire branches (``svi``: the f32 (6, n_slices) table)
+    add three σ_loc evaluations a step under Milstein, one under
+    log-Euler: a log32, an exp32 and one or two SVI slices with their
+    derivatives each, IEEE divisions and square roots; the table sits in
+    shared memory.
     """
     _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
-                  with_greeks, payoff_id, geo_cv)
+                  with_greeks, payoff_id, geo_cv, svi)
     kw = dict(n_programs=n_programs, reps=reps, n_steps=n_steps,
               antithetic=antithetic, payoff_id=payoff_id,
               barrier_up=barrier_up, knock_out=knock_out,
               average_geo=average_geo, strike_floating=strike_floating,
               is_call=is_call, dynamics=dynamics, with_greeks=with_greeks,
               geo_cv=geo_cv)
+    if dynamics not in _LV:
+        svi = None
     if params.device.type == "cpu":
-        return _path_mc_plain(seed, params, **kw)
+        return _path_mc_plain(seed, params, svi=svi, **kw)
     dev = params.device
+    if svi is None:
+        svi = torch.zeros((6, 1), dtype=MC_DTYPE, device=dev)
     flags = sum(bit for name, bit in _FLAG_BITS.items() if kw[name])
     block_rows = torch.empty((n_programs * _BLOCKS_PER_PROGRAM, _ROW),
                              dtype=MC_DTYPE, device=dev)
@@ -540,8 +688,9 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.optpricer_path_mc(
-            seed.data_ptr(), params.data_ptr(), block_rows.data_ptr(),
-            prog_rows.data_ptr(), out.data_ptr(), n_programs, reps, n_steps,
+            seed.data_ptr(), params.data_ptr(), svi.data_ptr(),
+            block_rows.data_ptr(), prog_rows.data_ptr(), out.data_ptr(),
+            n_programs, reps, n_steps, int(svi.shape[1]),
             DYNAMICS[dynamics], int(payoff_id), flags,
             int(bool(with_greeks)), int(bool(antithetic)), _stream(dev))
     if err != 0:
@@ -572,8 +721,9 @@ def path_mc_sumstats_kernel(
     the vega/rho/theta/LR-delta/gamma observables — pathwise for the
     continuous payoffs, likelihood-ratio for barrier and digital.
     Dynamics: GBM by default, Heston with a ``heston`` dict (Euler, or
-    Andersen QE under ``scheme="qe"``), SABR with a ``sabr`` dict.
-    n_steps must be even.
+    Andersen QE under ``scheme="qe"``), SABR with a ``sabr`` dict, Dupire
+    local vol with ``svi_slices`` (log-Euler, or Milstein under
+    ``scheme="milstein"``). n_steps must be even.
     """
     dev = resolve_device(device)
     params, static = _resolve_config(
@@ -581,5 +731,8 @@ def path_mc_sumstats_kernel(
         barrier, barrier_type, rebate, average_type, strike_type, payout,
         svi_slices, scheme, dS_bump, heston, sabr, geo_cv, lsv)
     reps, n_programs = _plan_grid(int(n_paths), TILE)
-    return path_mc(_seed_pair(seed, dev), params.to(dev), n_programs=n_programs, reps=reps,
+    if static["svi"] is not None:
+        static["svi"] = static["svi"].to(dev)
+    return path_mc(_seed_pair(seed, dev), params.to(dev),
+                   n_programs=n_programs, reps=reps,
                    with_greeks=bool(greek_stats), **static)

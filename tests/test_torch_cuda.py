@@ -11,7 +11,8 @@ rtol 2e-5 (the kernel sums per thread, then a fixed block tree; the plain
 version per tile; the terminal kernel's Box-Muller angle is sincospi(2u)),
 and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²). The PDE
 kernels: the batched Thomas solve (K7) to rtol 1e-10 in f64 and 2e-5 in
-f32, the fused local-vol march (K8) within 2e-5 of its plain version.
+f32, the fused local-vol march (K8) within 2e-5 of its plain version. The
+path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5 too.
 """
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 
 from optpricer_tpu_torch import OptionSpec, fd_price, fd_price_local_vol_batch
 from optpricer_tpu_torch.ops import fd_lv as tlv
+from optpricer_tpu_torch.ops import mc_batch as tmb
 from optpricer_tpu_torch.ops import path_mc as tpm
 from optpricer_tpu_torch.ops import qmc_path as tqp
 from optpricer_tpu_torch.ops import terminal_mc as tmc
@@ -230,3 +232,67 @@ def test_pde_entry_points_launch_the_kernels(cuda_device):
                              device=cuda_device)
     assert tth.tridiag_solve_kernel.launches == before[0] + 16
     assert tlv.fd_lv.launches == before[1] + 1
+
+
+# K4's Dupire branches on a 3-slice SVI table (rows a, b, ρ, m, σ, T)
+_SVI = np.array([[0.01, 0.02, 0.035], [0.12, 0.14, 0.15],
+                 [-0.4, -0.3, -0.25], [0.0, 0.02, 0.03],
+                 [0.1, 0.12, 0.15], [0.25, 0.5, 1.0]], np.float32)
+
+
+@pytest.mark.parametrize("payoff, kw", [
+    ("vanilla", {}), ("barrier", dict(barrier=120.0)), ("asian", {}),
+    ("digital", {}), ("lookback", dict(strike_type="floating"))])
+@pytest.mark.parametrize("scheme", ["log_euler", "milstein"])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_path_kernel_local_vol_matches_plain(cuda_device, payoff, kw, scheme,
+                                             antithetic):
+    n, n_steps = (1 << 18) + 123, 16
+    params, static = tpm._resolve_config(
+        n, n_steps, *MARKET[:5], None, True, payoff, antithetic,
+        kw.get("barrier", 0.0), "up-and-out", 0.0, "arithmetic",
+        kw.get("strike_type", "fixed"), 1.0, _SVI, scheme, 0.01, None)
+    reps, n_programs = tmc._plan_grid(n, tpm.TILE)
+    seed = tmc._seed_pair(5, cuda_device)
+    static["svi"] = static["svi"].to(cuda_device)
+    run = dict(n_programs=n_programs, reps=reps, **static)
+    params = params.to(cuda_device)
+    _assert_close(tpm.path_mc(seed, params, **run),
+                  tpm._path_mc_plain(seed, params, **run))
+
+
+def _book(B=1000, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(90.0, 110.0, B), np.linspace(70.0, 130.0, B),
+            rng.uniform(0.1, 2.0, B), 0.03, 0.01, rng.uniform(0.1, 0.4, B),
+            np.where(np.arange(B) % 2 == 0, "call", "put"))
+
+
+@pytest.mark.parametrize("n_paths", [1 << 20, 1_000_003])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_book_kernel_matches_plain(cuda_device, n_paths, antithetic):
+    kparams, _ = tmb.batch_kparams(*_book())
+    reps, n_programs = tmb._plan(n_paths)
+    ops = (torch.tensor([7], dtype=torch.int32, device=cuda_device),
+           torch.tensor([float(n_paths)], device=cuda_device),
+           torch.from_numpy(kparams).to(cuda_device))
+    kw = dict(n_programs=n_programs, reps=reps, antithetic=antithetic)
+    before = tmb.mc_batch.launches
+    got = tmb.mc_batch(*ops, **kw)
+    assert tmb.mc_batch.launches == before + 1
+    ref = tmb._mc_batch_plain(*ops, **kw)
+    assert torch.equal(got[:, 0], torch.full_like(got[:, 0], n_paths))
+    # (n_ktiles, 10, 128) → one row of 10 sums per lane
+    _assert_close(got.transpose(1, 2).reshape(-1, 10),
+                  ref.transpose(1, 2).reshape(-1, 10))
+
+
+def test_book_kernel_is_deterministic(cuda_device):
+    kparams, _ = tmb.batch_kparams(*_book(300))
+    reps, n_programs = tmb._plan(1 << 18)
+    ops = (torch.tensor([3], dtype=torch.int32, device=cuda_device),
+           torch.tensor([float(1 << 18)], device=cuda_device),
+           torch.from_numpy(kparams).to(cuda_device))
+    kw = dict(n_programs=n_programs, reps=reps, antithetic=True)
+    assert torch.equal(tmb.mc_batch(*ops, **kw).clone(),
+                       tmb.mc_batch(*ops, **kw).clone())

@@ -219,3 +219,116 @@ def test_validation_matches_reference():
         with pytest.raises(ValueError) as got:
             tp.exotic_greeks_mc(payoff, *MARKET, device="cpu", **kw)
         assert str(got.value) == str(ref.value)
+
+
+# ---------------------------------------------------------------------------
+# exotic_price_mc_dupire: the path kernel's Dupire branches
+# ---------------------------------------------------------------------------
+def _desk_surface():
+    """The desk workflow's calibrated surface in both packages."""
+    from optpricer_tpu.models import calibration as jcal
+    from optpricer_tpu_torch import convert
+
+    S0, r, q = 100.0, 0.05, 0.02
+    fwd = {T: S0 * np.exp((r - q) * T) for T in (0.25, 0.5, 1.0)}
+    strikes = {T: np.linspace(0.75, 1.25, 21) * F for T, F in fwd.items()}
+    ivs = {T: 0.2 + 0.05 * np.log(strikes[T] / F) ** 2
+           - 0.02 * np.log(strikes[T] / F) + 0.005 * np.sqrt(T)
+           for T, F in fwd.items()}
+    ref = jcal.fit_svi_surface(strikes, fwd, ivs)
+    return ref, convert.vol_surface(ref)
+
+
+DUPIRE = dict(n_steps=8, n_paths=6000, seed=4)
+ARGS = (100.0, 100.0, 1.0, 0.05, 0.02)       # S0, K, T, r, q
+
+
+def _reference_svi(surface) -> np.ndarray:
+    """The SVI table the reference's route builds (``mc_fused.py:475-477``)."""
+    svi = np.zeros((6, surface._T_arr.shape[0]), np.float32)
+    svi[:5, :] = np.asarray(surface._P_arr).T
+    svi[5, :] = np.asarray(surface._T_arr)
+    return svi
+
+
+def _reference_route(surface, payoff, kw):
+    """The reference's kernel route of ``exotic_price_mc_dupire``
+    (``mc_fused.py:471-499``) with the path kernel in interpret mode, which
+    its CPU entry point does not request: (stats, (price, stderr))."""
+    from optpricer_tpu.ops import pallas_path_mc as jpm
+
+    svi = _reference_svi(surface)
+    kind = kw.get("kind", "call")
+    stats = np.asarray(jpm.path_mc_sumstats_pallas(
+        DUPIRE["seed"], DUPIRE["n_paths"], DUPIRE["n_steps"], *ARGS, None,
+        kind == "call", payoff=payoff,
+        antithetic=kw.get("antithetic", True),
+        barrier=kw.get("barrier", 0.0), svi_slices=svi, scheme=kw["scheme"],
+        interpret=True, sw_prng=True))
+    return stats, jmf._estimate_from_stats(
+        stats, *ARGS, 0.0, kind == "call", "local_vol",
+        kw.get("control_variate", False))
+
+
+@pytest.mark.parametrize("payoff, kw", [
+    ("barrier", dict(scheme="milstein", barrier=125.0, control_variate=True)),
+    ("vanilla", dict(scheme="log_euler", kind="put", control_variate=True)),
+    ("asian", dict(scheme="milstein", antithetic=False)),
+], ids=["barrier-milstein-cv", "vanilla-log_euler-cv", "asian-milstein"])
+def test_dupire_matches_reference_kernel_route(monkeypatch, payoff, kw):
+    """On the reference kernel's statistics the port prices exactly as the
+    reference's route, from the same SVI table bit for bit; its own kernel
+    run prices within 2e-3 of the reference's: the interpreted kernel runs
+    in this process, where XLA:CPU contracts FMAs, which moves the Dupire
+    sums by up to 8.2e-4 (tests/test_torch_path_mc.py)."""
+    ref_s, got_s = _desk_surface()
+    stats, ref = _reference_route(ref_s, payoff, kw)
+    own = tp.exotic_price_mc_dupire(payoff, got_s, *ARGS, device="cpu",
+                                    **DUPIRE, **kw)
+    assert abs(own[0] - ref[0]) <= 2e-3 * abs(ref[0])
+    # a control-variate stderr is the root of a difference of near-equal
+    # variances: rtol 1e-2, as for _close_price
+    assert own[1] == pytest.approx(ref[1], rel=1e-2)
+    calls = []
+
+    def reference_stats(*a, **k):
+        calls.append(k)
+        return stats
+
+    monkeypatch.setattr(tmf, "path_mc_sumstats_kernel", reference_stats)
+    got = tmf.exotic_price_mc_dupire(payoff, got_s, *ARGS, device="cpu",
+                                     **DUPIRE, **kw)
+    assert got == pytest.approx(ref, rel=1e-12, abs=1e-14)
+    svi = calls[0]["svi_slices"]
+    assert svi.dtype == np.float32 and svi.shape == (6, 3)
+    np.testing.assert_array_equal(svi, _reference_svi(ref_s))
+    np.testing.assert_array_equal(svi[5], [0.25, 0.5, 1.0])
+    assert calls[0]["scheme"] == kw["scheme"]
+
+
+def test_dupire_flat_surface_prices_black_scholes():
+    """A flat 0.2 SVI surface (w = 0.04·T, b → 0) gives σ_loc = 0.2: the
+    log-Euler kernel route prices the vanilla within 4 se of BS."""
+    sl = {T: tp.SVIParams(a=0.04 * T, b=1e-8, rho=0.0, m=0.0, sigma=0.1,
+                          expiry=T) for T in (0.25, 0.5, 1.0)}
+    surf = tp.VolSurface(sl, device="cpu")
+    p, se = tp.exotic_price_mc_dupire("vanilla", surf, 100.0, 105.0, 1.0,
+                                      0.03, 0.01, scheme="log_euler",
+                                      n_steps=8, n_paths=40_000, seed=2,
+                                      device="cpu")
+    bs = tp.bs_price(tp.OptionSpec(S0=100.0, K=105.0, T=1.0, r=0.03,
+                                   sigma=0.2, q=0.01), "call", device="cpu")
+    assert abs(p - bs) < 4 * se + 0.01, (p, bs, se)
+
+
+@pytest.mark.parametrize("kw, item", [
+    (dict(backend="xla"), "A.10"), (dict(backend="qmc"), "A.10"),
+    (dict(n_steps=7), "A.10"), (dict(mesh=object()), "A.15")])
+def test_dupire_unported_routes_raise(kw, item):
+    _, surf = _desk_surface()
+    with pytest.raises(NotImplementedError, match=item):
+        tp.exotic_price_mc_dupire("vanilla", surf, 100.0, 100.0, 1.0, 0.05,
+                                  0.02, device="cpu", **dict(DUPIRE, **kw))
+    with pytest.raises(ValueError):
+        tp.exotic_price_mc_dupire("straddle", surf, 100.0, 100.0, 1.0, 0.05,
+                                  0.02, device="cpu", **DUPIRE)

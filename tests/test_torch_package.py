@@ -35,7 +35,10 @@ def test_import_never_pulls_in_jax():
                    "models.analytic", "models.pde", "models.fem",
                    "ops.terminal_mc", "ops.path_mc", "ops.qmc_path",
                    "ops.sobol", "ops.swprng", "ops.tridiag", "ops.thomas",
-                   "ops.fd_lv", "ops.grid"):
+                   "ops.fd_lv", "ops.grid", "ops.mc_batch",
+                   "models.calibration", "models.processes",
+                   "models.exotics", "risk",
+                   "scripts.desk_workflow_localvol_barrier"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
