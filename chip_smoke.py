@@ -42,7 +42,14 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      Milstein, up-and-out 130, 200 000 x 500);
    * the book kernel (K3) on a 1 000-contract book (calls and puts, K
      70..130, S0 95..105, T 0.5..2, σ 0.2..0.4) at 2^20 and 1 000 003 paths
-     per contract, antithetic on/off.
+     per contract, antithetic on/off;
+   * the basket kernel (K6) at the `[basket-path]` shape (10 assets, 2^18
+     pairs x 64 steps, Asian) and for 1, 3 and 16 assets x the Asian, the
+     worst-of and basket barriers up/down x in/out (with a rebate) at
+     2^16 + 123 pairs x 16 steps, antithetic on and off for 3 assets;
+   * K4's lsv and lsv_qe branches on the calibrated tables at 2^20 x 96
+     (up-and-out 130), and on a fixed 16-step table for the five payoffs x
+     antithetic on/off at 2^16 + 123 paths.
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
@@ -50,8 +57,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    case that carries its largest price (K7: solution) difference.
 4. determinism — the terminal kernel at 2^24, the path kernel at the main
    path's shape and at the desk's lv_milstein call, K8 (PCR and Thomas at
-   512 steps) and K3 on the book at 2^20, each twice on one input: bitwise
-   equal.
+   512 steps), K3 on the book at 2^20, K6 at 16 assets x 2^18 x 64 and
+   K4-lsv / lsv_qe at 2^20 x 96, each twice on one input: bitwise equal;
+   the LSV calibration twice on one seed: equal leverage tables (its binned
+   sums are sequential per bin, no float atomics).
 5. main paths — the public API on ``device="cuda"``; each path's launch
    counts are set to 0 just before it and read just after.
    The Monte-Carlo path:
@@ -108,6 +117,22 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    K4 must have been launched on it. The book: euro_price_mc_batch on the
    1 000 contracts at 1M paths each with the dual CV, every price within
    5 se + 1e-4 of Black-Scholes; K3 must have been launched.
+   The multi-asset path: the `[basket-path]` book on K6 within 5·(se + se)
+   + 1e-3 of the float64 torch scan; a 16-asset basket barrier's up-in +
+   up-out ΣX equal to the no-barrier ΣX to 1e-3; a 1-asset worst-of barrier
+   within 5·hypot + 1e-3 of exotic_price_mc; the 100-asset basket_price_mc
+   with the geometric CV within 4 se of no CV; the (1, −1) spread at K = 0
+   and the 2-asset min/max rainbow calls within 4 se + 1e-4 of Margrabe and
+   Stulz; basket_greeks_mc's 1-asset delta/vega within the BS bands; the
+   CLI's basket as a subprocess equal to the same call. K6 must have been
+   launched. The LSV path: lsv_calibrate (euler and qe, f32, 96 x 128 x
+   131 072) equal to phase 3's; up-and-out 130 and the ATM vanilla at 2^20
+   x 96 on K4-lsv within 4·(se + se) of the float64 scan on the kernel's
+   own leverage polynomials (the scan on the raw table printed beside);
+   the ATM vanilla within max(4 se, 0.25) of the surface's Black-Scholes;
+   lsv_greeks_mc's delta within 2% + 4 se of a CRN bump; the CLI's lsv
+   (surface file, saved model) equal to the same calls. K4 must have been
+   launched on it.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30 and 2^24 base draws and
    its plain version at 2^24; K2 and its plain version at 2^22 points; K4
@@ -121,7 +146,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    the PSOR put, the European call and the "auto" and "fused" ladders; K4
    lv_milstein at the desk's call and its plain version (median of 3); K3
    at 1 000 contracts x 2^20 and its plain version (median of 3); the
-   host-clock wall of fit_svi_surface and of each desk stage.
+   host-clock wall of fit_svi_surface and of each desk stage; K6 at the
+   `[basket-path]` shape and K4-lsv / lsv_qe at 2^20 x 96 (their plain
+   versions timed once, in phase 3); the wall of lsv_calibrate, of the
+   100-asset basket_price_mc and of lsv_greeks_mc (phase 5's runs).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -132,7 +160,8 @@ inputs over the H100's float32 peak, or the bytes over the memory rate,
 whichever is larger; K1/K2 count their source's operations, K4/K5/K8 the
 least their function needs, K7 its bytes; K3 like K1, per base draw;
 K4 lv_milstein three σ evaluations a step over every SVI slice with their
-derivatives and the two w of ∂w/∂T) and ``library_ms`` (K7: the dense
+derivatives and the two w of ∂w/∂T; K6 and K4-lsv per path-step by
+``ops_k6_path_step`` / ``ops_k4_lsv_path_step``) and ``library_ms`` (K7: the dense
 batched ``torch.linalg.solve``; null for the others, which no single
 PyTorch call computes). K7's ``max_abs_err`` is in solution units, K8's in
 price units, K3's the largest over the book's contracts. The last line is ``{"ok": true, "device": {...}}``.
@@ -1181,6 +1210,531 @@ class Config5Slice:
         ]
 
 
+
+def ops_k6_path_step(a: int, antithetic: bool, barrier: bool) -> float:
+    """K6 per path pair and step, by the least work of its function: the
+    draws, ⌈a/2⌉ Threefry blocks (80) and Box-Muller pairs (a log32, a sqrt,
+    a cos and a sin: 50), and the correlation chain, a(a+1)/2 FMAs (2
+    each), once (the mirrored leg's shocks are their negation); per leg the
+    a exp32 (22) with their argument's FMA and the spot product (3), a FMAs
+    for the basket sum (2), and the Asian add or the barrier compare (1)."""
+    legs = 2 if antithetic else 1
+    per_leg = a * (22 + 3) + 2 * a + 1
+    return -(-a // 2) * 130 + a * (a + 1) + legs * per_leg
+
+
+def ops_k4_lsv_path_step(deg: int, qe: bool, antithetic: bool) -> float:
+    """K4's LSV branches per path and step, by the least work of their
+    function: one Threefry block (80) for the two shocks, and a Box-Muller
+    pair (50; under QE half a pair, 25, and the uniform's norminv32, 45);
+    per leg the leverage (S/S0, a log32, the forward drift, the scale and
+    two clips: 28) with its deg-FMA Horner polynomial, one exp32 (22) with
+    its argument (8), the variance step (Euler: the correlated shock, a
+    sqrt and the truncated update, 12; QE: the quadratic branch and the
+    ρ-coupling, 30) and the payoff's running compare (2)."""
+    legs = 2 if antithetic else 1
+    draws = 80 + (25 + 45 if qe else 50)
+    per_leg = 28 + 2 * deg + 22 + 8 + (30 if qe else 12) + 2
+    return draws + legs * per_leg
+
+
+class MultiAssetLsvSlice:
+    """The multi-asset stack on the basket kernel (K6) and the LSV engine on
+    K4's lsv / lsv_qe branches, at the sizes of the reference's own
+    ``bench.py`` diagnostics: kernel checks, determinism, main paths and
+    timings."""
+
+    BASKET = dict(a=10, corr=0.35, n_steps=64, n_paths=1 << 18, seed=3)
+    SMALL = ((1 << 16) + 123, 16)          # phase-3 K6 and K4-lsv cases
+    LSV_CAL = dict(n_steps=96, n_paths=131_072, n_bins=128, seed=0)
+    LSV_PRICE = dict(n_paths=1 << 20, seed=7)
+    HESTON = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6)
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+        self.times = {}
+        self.models = {}
+
+    # -- inputs ----------------------------------------------------------
+    def book(self, a=None):
+        """bench.py:360-388's [basket-path] book (10 assets, corr 0.35,
+        default_rng(2) spots U(60, 140) and vols U(0.15, 0.4), equal
+        weights, K = mean spot), or its first ``a`` assets."""
+        import numpy as np
+
+        a_full = self.BASKET["a"] if a is None or a <= 10 else a
+        rng = np.random.default_rng(2)
+        S0s = rng.uniform(60, 140, a_full)
+        sig = rng.uniform(0.15, 0.4, a_full)
+        a = a or a_full
+        S0s, sig = S0s[:a], sig[:a]
+        corr = self.BASKET["corr"] * np.ones((a, a)) \
+            + (1 - self.BASKET["corr"]) * np.eye(a)
+        return S0s, np.ones(a) / a, float(S0s.mean()), sig, corr
+
+    def k6(self, a, payoff, btype="up-and-out", frac=1.0, anti=True,
+           shape=None, rebate=0.0, seed=3):
+        """(seed, params, run kwargs) of one K6 call on ``book(a)``; the
+        barrier at ``frac`` times the level at t = 0."""
+        import numpy as np
+
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+        n, n_steps = shape or (self.BASKET["n_paths"],
+                               self.BASKET["n_steps"])
+        S0s, w, K, sig, corr = self.book(a)
+        lvl = float(S0s.min()) if payoff == "worstof_barrier" \
+            else float(S0s @ w)
+        up = btype.startswith("up")
+        params = tbk._build_params(n, n_steps, list(S0s), list(w), K, 1.0,
+                                   0.03, [0.0] * a, list(sig),
+                                   np.linalg.cholesky(corr), frac * lvl,
+                                   rebate, True, payoff, up)
+        reps, n_prog = tmc._plan_grid(n, tbk.TILE)
+        return (tmc._seed_pair(seed, self.dev), params.to(self.dev),
+                dict(n_programs=n_prog, reps=reps, n_assets=a,
+                     n_steps=n_steps, antithetic=anti,
+                     payoff_id=tbk.PAYOFF_IDS[payoff], barrier_up=up,
+                     knock_in=btype.endswith("in")))
+
+    def surface(self, device=None):
+        """bench.py:400-403's 3-slice SVI surface."""
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+
+        sl = {T: tp.SVIParams(a=0.03 * T, b=0.12 * T, rho=-0.4, m=0.0,
+                              sigma=0.25, expiry=T) for T in (0.25, 0.5, 1.0)}
+        return tp.VolSurface(sl, forward_curve={
+            T: 100 * np.exp(0.03 * T) for T in sl},
+            device=device or self.dev)
+
+    def calibrate(self, scheme):
+        import optpricer_tpu_torch as tp
+
+        return tp.lsv_calibrate(self.surface(), self.HESTON, 100.0, 0.03,
+                                T=1.0, scheme=scheme, dtype="float32",
+                                device=self.dev, **self.LSV_CAL)
+
+    @staticmethod
+    def poly_model(model):
+        """``model`` with its leverage rows replaced by the path kernel's
+        degree-12 polynomials (``lsv._leverage_poly``) sampled on 2 049
+        bins: the function K4-lsv prices, for the torch scan."""
+        import dataclasses
+
+        import numpy as np
+
+        from optpricer_tpu_torch.models import lsv as tl
+
+        coeffs, x_width = tl._leverage_poly(model)
+        x = np.linspace(-x_width, x_width, 2049)
+        u = np.clip(x / x_width, -1.0, 1.0)
+        rows = np.stack([np.clip(np.polyval(c.astype(np.float64), u), 0.05,
+                                 20.0) for c in coeffs])
+        dev = model.leverage.device
+        return dataclasses.replace(
+            model, x_bins=torch.as_tensor(x, device=dev),
+            leverage=torch.as_tensor(rows, device=dev))
+
+    def k4_lsv(self, model, n, pay, anti=True, seed=7):
+        """(seed, params, run kwargs) of one K4-lsv call on ``model``."""
+        from optpricer_tpu_torch.models import lsv as tl
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+        coeffs, x_width = tl._leverage_poly(model)
+        lsv = dict(model.heston, coeffs=coeffs, x_width=x_width,
+                   scheme=model.scheme)
+        params, static = pmc._resolve_config(
+            n, model.n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None, True,
+            pay["payoff"], anti, pay.get("barrier", 0.0), "up-and-out", 0.0,
+            "arithmetic", pay.get("strike_type", "fixed"), 1.0, None,
+            "log_euler", 0.01, None, lsv=lsv)
+        static["svi"] = static["svi"].to(self.dev)
+        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+        return (tmc._seed_pair(seed, self.dev), params.to(self.dev),
+                dict(n_programs=n_prog, reps=reps, **static))
+
+    # -- phase 3 ---------------------------------------------------------
+    def phase3(self, record):
+        import numpy as np
+
+        from optpricer_tpu_torch.models import lsv as tl
+        from optpricer_tpu_torch.models import mc_fused
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        def k6_check(what, setup):
+            seed, params, run = setup
+            k = tbk.basket_mc(seed, params, **run)
+            p, ms = event_ms(lambda: tbk._basket_mc_plain(seed, params,
+                                                          **run))
+            rel = compare(k, p, what)
+            # price units: the plain mean ΣX / n of each
+            record("basket", rel, *(float(s[1] / s[0]) for s in (k, p)),
+                   what)
+            return ms
+
+        self.times[("k6plain", "main")] = k6_check(
+            "basket main shape: [basket-path] book asian 2^18 x 64",
+            self.k6(10, "asian_basket"))
+        cases = [("asian_basket", "up-and-out", 1.0, 0.0),
+                 ("worstof_barrier", "down-and-out", 0.9, 0.0),
+                 ("worstof_barrier", "up-and-in", 1.1, 0.0),
+                 ("basket_barrier", "up-and-out", 1.1, 1.5),
+                 ("basket_barrier", "down-and-in", 0.9, 0.0)]
+        for a in (1, 3, 16):
+            for payoff, btype, frac, rebate in cases:
+                for anti in (True, False) if a == 3 else (True,):
+                    k6_check(f"basket a={a} {payoff} {btype} anti={anti} "
+                             f"{self.SMALL[0]} x {self.SMALL[1]}",
+                             self.k6(a, payoff, btype, frac, anti,
+                                     self.SMALL, rebate))
+
+        def k4_check(what, setup):
+            seed, params, run = setup
+            k = pmc.path_mc(seed, params, **run)
+            p, ms = event_ms(lambda: pmc._path_mc_plain(seed, params, **run))
+            rel = compare(k, p, what)
+            record("path_lsv", rel, *(mc_fused._estimate_from_stats(
+                s, 100.0, 100.0, 1.0, 0.03, 0.0, 0.0, True, "lsv",
+                True)[0] for s in (k, p)), what)
+            return ms
+
+        for scheme in ("euler", "qe"):
+            self.models[scheme] = model = self.calibrate(scheme)
+            ms = k4_check(f"path {model.scheme} main shape: calibrated "
+                          f"table, up-and-out 130, 2^20 x 96",
+                          self.k4_lsv(model, self.LSV_PRICE["n_paths"],
+                                      dict(payoff="barrier", barrier=130.0)))
+            self.times[("k4plain lsv", scheme)] = ms
+        x_bins = np.linspace(-1.0, 1.0, 64)
+        lev = np.stack([1.0 + 0.3 * x_bins ** 2 * np.exp(-0.5 * k / 8)
+                        for k in range(self.SMALL[1])])
+        pays = {"vanilla": dict(payoff="vanilla"),
+                "barrier": dict(payoff="barrier", barrier=125.0),
+                "asian": dict(payoff="asian"),
+                "digital": dict(payoff="digital"),
+                "lookback-floating": dict(payoff="lookback",
+                                          strike_type="floating")}
+        for scheme in ("euler", "qe"):
+            model = tl.LSVModel(100.0, 0.03, 0.0, 1.0, scheme=scheme,
+                                x_bins=torch.as_tensor(x_bins),
+                                leverage=torch.as_tensor(lev), **self.HESTON)
+            for name, pay in pays.items():
+                for anti in (True, False):
+                    k4_check(f"path {scheme} table model {name} anti={anti} "
+                             f"{self.SMALL[0]} x {self.SMALL[1]}",
+                             self.k4_lsv(model, self.SMALL[0], pay, anti))
+
+    # -- phase 4 ---------------------------------------------------------
+    def phase4(self):
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        seed, params, run = self.k6(16, "basket_barrier", "up-and-in", 1.1)
+        if not torch.equal(tbk.basket_mc(seed, params, **run).clone(),
+                           tbk.basket_mc(seed, params, **run).clone()):
+            raise AssertionError("basket kernel is not bitwise reproducible")
+        for scheme, model in self.models.items():
+            seed, params, run = self.k4_lsv(
+                model, self.LSV_PRICE["n_paths"],
+                dict(payoff="barrier", barrier=130.0))
+            if not torch.equal(pmc.path_mc(seed, params, **run).clone(),
+                               pmc.path_mc(seed, params, **run).clone()):
+                raise AssertionError(f"path kernel ({model.scheme}) is not "
+                                     "bitwise reproducible")
+            again = self.calibrate(scheme)
+            if not torch.equal(again.leverage, model.leverage):
+                spread = float((again.leverage - model.leverage).abs().max())
+                raise AssertionError(f"lsv_calibrate ({scheme}) is not "
+                                     f"reproducible: max |dL| {spread:.3e}")
+
+    # -- phase 5 ---------------------------------------------------------
+    def phase5(self) -> dict:
+        """The multi-asset path and the LSV path, each with its launch
+        count set to 0 just before it and read just after; returns them."""
+        import dataclasses
+        import tempfile
+
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.utils import serialization as sz
+
+        dev = self.dev
+        print("phase 5 main path, multi-asset (basket_exotic_mc on K6, "
+              "basket_price_mc):")
+        tbk.basket_mc.launches = 0
+        t0 = time.perf_counter()
+        S0s, w, K, sig, corr = self.book()
+        kw = dict(sigmas=sig, corr=corr, payoff="asian_basket",
+                  n_steps=self.BASKET["n_steps"],
+                  n_paths=self.BASKET["n_paths"], seed=self.BASKET["seed"],
+                  device=dev)
+        (px, se), secs = timed(lambda: tp.basket_exotic_mc(S0s, w, K, 1.0,
+                                                           0.03, **kw))
+        (px_x, se_x), secs_x = timed(lambda: tp.basket_exotic_mc(
+            S0s, w, K, 1.0, 0.03, backend="xla", **kw))
+        band = 5 * (se + se_x) + 1e-3
+        print(f"  [basket-path] 10-asset asian 2^18 pairs x 64: K6 "
+              f"{px:.10f} (se {se:.3e}, {secs * 1e3:.3f} ms wall) vs the f64 "
+              f"torch scan {px_x:.10f} (se {se_x:.3e}, {secs_x * 1e3:.3f} ms "
+              f"wall): |diff| {abs(px - px_x):.3e} (limit {band:.3e})")
+        if not abs(px - px_x) <= band:
+            raise AssertionError("[basket-path]: K6 off the torch scan")
+        S16, w16, K16, sig16, corr16 = self.book(16)
+        chol16 = np.linalg.cholesky(corr16)
+        call = (11, self.BASKET["n_paths"], self.BASKET["n_steps"], S16, w16,
+                K16, 1.0, 0.03, None, sig16, chol16, True)
+        bar = float(S16 @ w16) * 1.1
+        sums = {t: tbk.basket_path_sumstats_kernel(
+            *call, payoff="basket_barrier", barrier=b, barrier_type=t,
+            device=dev).double().cpu()
+            for t, b in (("up-and-in", bar), ("up-and-out", bar),
+                         ("up-and-out ", 1e12))}
+        gap = abs(float(sums["up-and-in"][1] + sums["up-and-out"][1]
+                        - sums["up-and-out "][1]))
+        rel = gap / abs(float(sums["up-and-out "][1]))
+        print(f"  16-asset basket barrier 110%: in + out - no barrier, ΣX "
+              f"rel {rel:.3e} (limit 1e-3)")
+        if not rel <= 1e-3:
+            raise AssertionError(f"16-asset in + out != vanilla ({rel:.3e})")
+        one = dict(barrier=130.0, barrier_type="up-and-out", n_steps=64,
+                   n_paths=1 << 20, seed=5, device=dev)
+        p1, s1 = tp.basket_exotic_mc([100.0], [1.0], 100.0, 1.0, 0.03,
+                                     sigmas=[0.2], corr=[[1.0]],
+                                     payoff="worstof_barrier", **one)
+        pe, sse = tp.exotic_price_mc("barrier", 100.0, 100.0, 1.0, 0.03,
+                                     sigma=0.2, **dict(one, seed=6))
+        band = 5 * math.hypot(s1, sse) + 1e-3
+        print(f"  1-asset worst-of up-and-out 130: {p1:.10f} (se {s1:.3e}) "
+              f"vs exotic_price_mc {pe:.10f} (se {sse:.3e}), |diff| "
+              f"{abs(p1 - pe):.3e} (limit {band:.3e})")
+        if not abs(p1 - pe) <= band:
+            raise AssertionError("1-asset worst-of barrier off "
+                                 "exotic_price_mc")
+        # bench.py:341-357's 100-asset basket
+        rng = np.random.default_rng(0)
+        a = 100
+        S100, sig100 = rng.uniform(50, 150, a), rng.uniform(0.15, 0.4, a)
+        corr100 = 0.3 * np.ones((a, a)) + 0.7 * np.eye(a)
+        kw100 = dict(sigmas=sig100, corr=corr100, n_paths=1 << 19, seed=1,
+                     device=dev)
+        (p_cv, se_cv), self.wall_100 = timed(lambda: tp.basket_price_mc(
+            S100, np.ones(a) / a, float(S100.mean()), 1.0, 0.03, **kw100))
+        p_raw, se_raw = tp.basket_price_mc(
+            S100, np.ones(a) / a, float(S100.mean()), 1.0, 0.03,
+            control_variate=False, **kw100)
+        check_price("100-asset basket 2^19 pairs, geometric CV", p_cv, se_raw,
+                    p_raw, self.wall_100, slack=0.0, what="no-CV")
+        print(f"    (CV se {se_cv:.3e}, no CV {se_raw:.3e})")
+        two = dict(sigmas=[0.2, 0.3], corr=[[1.0, 0.4], [0.4, 1.0]],
+                   n_paths=1 << 20, seed=2, device=dev)
+        px, se = tp.basket_price_mc([100.0, 95.0], [1.0, -1.0], 0.0, 1.0,
+                                    0.03, payoff="spread", **two)
+        check_price("2-asset spread (1, -1), K = 0", px, se, float(
+            tp.margrabe_price(100.0, 95.0, 1.0, sigma1=0.2, sigma2=0.3,
+                              rho=0.4, device=dev)), what="Margrabe")
+        for mode in ("min", "max"):
+            px, se = tp.basket_price_mc([100.0, 95.0], [0.5, 0.5], 98.0, 1.0,
+                                        0.03, payoff=f"rainbow_{mode}", **two)
+            check_price(f"2-asset rainbow {mode} call K = 98", px, se,
+                        tp.rainbow_price_stulz(100.0, 95.0, 98.0, 1.0, 0.03,
+                                               sigma1=0.2, sigma2=0.3,
+                                               rho=0.4, mode=mode,
+                                               device=dev), what="Stulz")
+        g = tp.basket_greeks_mc([100.0], [1.0], 110.0, 1.0, 0.03,
+                                sigmas=[0.2], corr=[[1.0]],
+                                n_paths=1_000_000, seed=7, device=dev)
+        ref = {k: float(v) for k, v in tp.bs_greeks_vec(
+            100.0, 110.0, 1.0, 0.03, 0.0, 0.2, "call", device=dev).items()}
+        print(f"  basket_greeks_mc 1 asset 1M: delta {g['delta'][0]:.6f} "
+              f"(BS {ref['delta']:.6f}), vega {g['vega'][0]:.6f} (BS "
+              f"{ref['vega']:.6f})")
+        if abs(g["delta"][0] - ref["delta"]) > 3e-3 \
+                or abs(g["vega"][0] - ref["vega"]) > 0.3:
+            raise AssertionError("basket_greeks_mc off the BS bands")
+        flags = ["--S0s", ",".join(repr(float(v)) for v in S0s), "--sigmas",
+                 ",".join(repr(float(v)) for v in sig), "--rho", "0.35", "--K",
+                 repr(K), "--T", "1", "--r", "0.03", "--payoff",
+                 "asian_basket", "--n-steps", str(self.BASKET["n_steps"]),
+                 "--n-paths", str(self.BASKET["n_paths"]), "--seed",
+                 str(self.BASKET["seed"])]
+        out = run_cli(["basket", *flags])
+        px, se = tp.basket_exotic_mc(S0s, w, K, 1.0, 0.03, **kw)
+        if out != f"{px:.10f}  (stderr {se:.10f})":
+            raise AssertionError(f"cli basket {out!r} vs {px:.10f} {se:.10f}")
+        print(f"  cli basket (asian, the [basket-path] book): {out}")
+        basket_launches = tbk.basket_mc.launches
+        print(f"  multi-asset {time.perf_counter() - t0:.2f} s; "
+              f"basket_mc_kernel launches in it: {basket_launches}")
+        if basket_launches == 0:
+            raise AssertionError("basket_mc_kernel was not launched on the "
+                                 "multi-asset path")
+
+        print("phase 5 main path, LSV (lsv_calibrate, lsv_price_mc on "
+              "K4-lsv, lsv_greeks_mc):")
+        pmc.path_mc.launches = 0
+        t0 = time.perf_counter()
+        surf = self.surface()
+        iv = float(surf.iv_from_logm(math.log(100.0 / (100.0 * math.exp(
+            0.03))), 1.0))
+        bs = tp.bs_price(tp.OptionSpec(100.0, 100.0, 1.0, 0.03, iv), "call",
+                         device=dev)
+        for scheme in ("euler", "qe"):
+            model, self.times[("cal", scheme)] = timed(
+                lambda: self.calibrate(scheme))
+            if not torch.equal(model.leverage, self.models[scheme].leverage):
+                raise AssertionError("lsv_calibrate differs from phase 3's")
+            poly = self.poly_model(model)
+            for payoff, extra in (("barrier", dict(barrier=130.0)),
+                                  ("vanilla", {})):
+                (pk, sk), secs = timed(lambda: tp.lsv_price_mc(
+                    payoff, model, 100.0, **self.LSV_PRICE, device=dev,
+                    **extra))
+                scan = dict(backend="xla", n_paths=1 << 18, seed=8,
+                            device=dev, **extra)
+                ps, ss = tp.lsv_price_mc(payoff, poly, 100.0, **scan)
+                check_price(f"lsv {scheme} {payoff} 2^20 x 96 on K4-lsv vs "
+                            "the f64 scan at 2^18 on the kernel's leverage "
+                            "polynomials", pk, sk + ss, ps, secs, slack=0.0,
+                            what="scan")
+                pt, st = tp.lsv_price_mc(payoff, model, 100.0, **scan)
+                print(f"    the scan on the calibrated table itself: "
+                      f"{pt:.10f} (se {st:.3e}); the degree-12 compression "
+                      f"moves the price by {ps - pt:+.3e} (not held)")
+            gap = abs(pk - bs)
+            print(f"  lsv {scheme} ATM vanilla {pk:.10f} (se {sk:.3e}) vs "
+                  f"the surface's BS {bs:.10f}: |err| {gap:.3e} (limit "
+                  f"{max(4 * sk, 0.25):.3e}); calibration "
+                  f"{self.times[('cal', scheme)] * 1e3:.3f} ms wall")
+            if not gap < max(4 * sk, 0.25):
+                raise AssertionError(f"lsv {scheme}: ATM off the surface")
+        model = self.models["euler"]
+        gkw = dict(n_paths=1 << 16, seed=4, device=dev)
+        g, self.times[("greeks", "euler")] = timed(
+            lambda: tp.lsv_greeks_mc("vanilla", model, 100.0, **gkw))
+        h = 0.5
+        up, _ = tp.lsv_price_mc("vanilla", dataclasses.replace(
+            model, S0=100.0 + h), 100.0, backend="xla", **gkw)
+        dn, _ = tp.lsv_price_mc("vanilla", dataclasses.replace(
+            model, S0=100.0 - h), 100.0, backend="xla", **gkw)
+        fd = (up - dn) / (2 * h)
+        band = 0.02 * max(1.0, abs(fd)) + 4 * g["delta_stderr"]
+        print(f"  lsv_greeks_mc delta {g['delta']:.6f} (se "
+              f"{g['delta_stderr']:.3e}) vs CRN bump {fd:.6f}: |diff| "
+              f"{abs(g['delta'] - fd):.3e} (limit {band:.3e}); d_v0 "
+              f"{g['d_v0']:.6f}")
+        if not abs(g["delta"] - fd) <= band:
+            raise AssertionError("lsv_greeks_mc delta off the CRN bump")
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            surf_path = str(Path(tmp) / "surface.json")
+            model_path = str(Path(tmp) / "lsv.json")
+            sz.save_surface(surf, surf_path)
+            flags = ["--S0", "100", "--K", "100", "--T", "1", "--r", "0.03",
+                     "--sigma", "0.2", "--n-steps", "64", "--n-paths",
+                     "262144", "--seed", "0"]
+            out = run_cli(["lsv", *flags, "--surface", surf_path,
+                           "--save-model", model_path])
+            cli_model = tp.lsv_calibrate(
+                surf, self.HESTON, 100.0, 0.03, 0.0, T=1.0, n_steps=64,
+                n_paths=65_536, n_bins=128, seed=0, device=dev)
+            if not torch.equal(sz.load_lsv(model_path, device=dev).leverage,
+                               cli_model.leverage):
+                raise AssertionError("cli lsv: saved table differs")
+            px, se = tp.lsv_price_mc("vanilla", cli_model, 100.0,
+                                     n_paths=262_144, seed=0, device=dev)
+            if out != f"{px:.10f}  (stderr {se:.10f})":
+                raise AssertionError(f"cli lsv {out!r} vs {px:.10f} "
+                                     f"{se:.10f}")
+        print(f"  cli lsv (surface file, 64 steps, saved model): {out}")
+        lsv_launches = pmc.path_mc.launches
+        print(f"  LSV {time.perf_counter() - t0:.2f} s; path_mc_kernel "
+              f"launches in it: {lsv_launches}")
+        if lsv_launches == 0:
+            raise AssertionError("path_mc_kernel (lsv) was not launched on "
+                                 "the LSV path")
+        return {"basket_mc_kernel": basket_launches,
+                "path_mc_kernel lsv": lsv_launches}
+
+    # -- phase 6 ---------------------------------------------------------
+    def phase6(self):
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+
+        seed, params, run = self.k6(10, "asian_basket")
+        self.times[("k6", "main")] = cuda_ms(
+            lambda: tbk.basket_mc(seed, params, **run))
+        for scheme, model in self.models.items():
+            seed, params, run = self.k4_lsv(
+                model, self.LSV_PRICE["n_paths"],
+                dict(payoff="barrier", barrier=130.0))
+            self.times[("k4 lsv", scheme)] = cuda_ms(
+                lambda: pmc.path_mc(seed, params, **run))
+        print(f"phase 6 time K6 [basket-path] 2^18 pairs x 64 x 10 assets: "
+              f"{self.times[('k6', 'main')]:.4f} ms, plain (one call, phase "
+              f"3) {self.times[('k6plain', 'main')]:.4f} ms [{self.card}]")
+        for scheme in self.models:
+            print(f"phase 6 time K4-lsv {scheme} up-and-out 2^20 x 96: "
+                  f"{self.times[('k4 lsv', scheme)]:.4f} ms, plain (one call,"
+                  f" phase 3) {self.times[('k4plain lsv', scheme)]:.4f} ms "
+                  f"[{self.card}]")
+        for key, label in ((("cal", "euler"), "lsv_calibrate euler 96 x 128 "
+                            "bins x 131072 particles f32"),
+                           (("cal", "qe"), "lsv_calibrate qe (same size)"),
+                           (("greeks", "euler"), "lsv_greeks_mc vanilla "
+                            "2^16 x 96 f64 (jacfwd, 8 parameters)")):
+            print(f"phase 6 wall {label} (phase 5's run): "
+                  f"{self.times[key] * 1e3:.4f} ms [{self.card}]")
+        print(f"phase 6 wall basket_price_mc 100 assets 2^19 pairs f64 "
+              f"(phase 5's run): {self.wall_100 * 1e3:.4f} ms [{self.card}]")
+
+    def kernel_entries(self, launches, worst):
+        n, steps = self.BASKET["n_paths"], self.BASKET["n_steps"]
+        a = self.BASKET["a"]
+        deg = 12
+        n4 = self.LSV_PRICE["n_paths"]
+        steps4 = self.models["euler"].n_steps
+        return [
+            {"name": "basket_mc_kernel", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/basket_mc.cu",
+             "replaces": "optpricer_tpu/ops/pallas_basket_mc.py:58",
+             "launches": launches["basket_mc_kernel"],
+             "max_abs_err": worst["basket"][1],
+             "ms": self.times[("k6", "main")],
+             "plain_ms": self.times[("k6plain", "main")],
+             **dict(zip(("bound_ms", "bound_by"), bound(
+                 n * steps * ops_k6_path_step(a, True, False),
+                 8 + 4 * (7 + 4 * a + a * a) + 4 * 6))),
+             "library_ms": None,
+             "shape": f"[basket-path] asian, {a} assets, {n} pairs x "
+                      f"{steps} steps, antithetic"},
+            {"name": "path_mc_kernel lsv", "route": "cuda",
+             "source": "optpricer_tpu_torch/csrc/path_mc.cu",
+             "replaces": "optpricer_tpu/ops/pallas_path_mc.py:68",
+             "launches": launches["path_mc_kernel lsv"],
+             "max_abs_err": worst["path_lsv"][1],
+             "ms": self.times[("k4 lsv", "euler")],
+             "plain_ms": self.times[("k4plain lsv", "euler")],
+             **dict(zip(("bound_ms", "bound_by"), bound(
+                 n4 * steps4 * ops_k4_lsv_path_step(deg, False, True),
+                 8 + 96 + 4 * steps4 * (deg + 1) + 84))),
+             "library_ms": None,
+             "shape": f"lsv euler up-and-out 130, calibrated table, {n4} "
+                      f"paths x {steps4} steps, antithetic",
+             "ms_qe": self.times[("k4 lsv", "qe")],
+             "plain_ms_qe": self.times[("k4plain lsv", "qe")],
+             "bound_ms_qe": bound(
+                 n4 * steps4 * ops_k4_lsv_path_step(deg, True, True),
+                 0)[0]},
+        ]
+
+
 def main():
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1219,7 +1773,8 @@ def main():
     # worst[name] = [max rel err, max |price difference|, its case]
     worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
                                           "qmc_path", "thomas", "fd_lv",
-                                          "path_lv", "mc_batch")}
+                                          "path_lv", "mc_batch", "basket",
+                                          "path_lsv")}
 
     def record(name, rel, price_k, price_p, case):
         diff = abs(price_k - price_p)
@@ -1376,6 +1931,8 @@ def main():
     pde.phase3(record)
     desk = Config5Slice(dev, card)
     desk.phase3(record, payoffs)
+    multi = MultiAssetLsvSlice(dev, card)
+    multi.phase3(record)
 
     for name, (rel, dprice, case) in worst.items():
         if name == "thomas":
@@ -1406,10 +1963,14 @@ def main():
         raise AssertionError("path kernel is not bitwise reproducible")
     pde.phase4()
     desk.phase4()
+    multi.phase4()
     print("phase 4 determinism: terminal kernel at 2^24, path kernel at "
           "1M x 252 and lv_milstein at 200000 x 500, fd_lv PCR and Thomas at "
-          "1024 x 511 x 512, the book kernel at 1000 contracts x 2^20, two "
-          "runs on one input each: bitwise equal")
+          "1024 x 511 x 512, the book kernel at 1000 contracts x 2^20, the "
+          "basket kernel at 16 assets x 2^18 x 64, lsv and lsv_qe at 2^20 x "
+          "96, two runs on one input each: bitwise equal; lsv_calibrate "
+          "(euler, qe; 96 x 128 x 131072, f32, one seed) twice: equal "
+          "leverage tables")
 
     # phase 5: the main path through the public API
     spec = tp.OptionSpec(**SPEC)
@@ -1587,6 +2148,7 @@ def main():
 
     launches.update(pde.phase5())
     launches.update(desk.phase5())
+    launches.update(multi.phase5())
 
     # phase 6: time
     times = {}
@@ -1625,6 +2187,7 @@ def main():
                                  in_bytes + kw5["n_programs"] * 6 * 4)
     pde.phase6(times)
     desk.phase6(times)
+    multi.phase6()
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -1674,7 +2237,8 @@ def main():
          "plain_ms_2p20x252": times[("k5plain", "1048576 x 8 x 252")],
          "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0]},
     ] + pde.kernel_entries(launches, worst, times) \
-        + desk.kernel_entries(launches, worst, times)
+        + desk.kernel_entries(launches, worst, times) \
+        + multi.kernel_entries(launches, worst)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

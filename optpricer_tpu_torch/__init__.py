@@ -55,6 +55,14 @@ from .ops.black_scholes import (bs_price_vec, bs_greeks_vec,
 from .models.binomial import crr_vec
 from .models.pde import fd_price_batch, fd_price_local_vol_batch
 
+# Multi-asset and LSV
+from .models.basket import (basket_price_mc, basket_greeks_mc,
+                            basket_exotic_mc, geometric_basket_price,
+                            margrabe_price, rainbow_price_stulz)
+from .ops.bvn import bvn_cdf
+from .models.lsv import (LSVModel, lsv_calibrate, lsv_greeks_mc,
+                         lsv_path_matrix, lsv_price_mc)
+
 __all__ = [
     # Legacy
     "OptionSpec", "CALL", "PUT",
@@ -80,6 +88,12 @@ __all__ = [
     # Vectorised
     "bs_price_vec", "bs_greeks_vec", "bs_implied_vol_vec", "crr_vec",
     "bs_higher_greeks_vec", "fd_price_batch", "fd_price_local_vol_batch",
+    # Multi-asset and LSV
+    "basket_price_mc", "basket_greeks_mc", "basket_exotic_mc",
+    "geometric_basket_price", "margrabe_price", "rainbow_price_stulz",
+    "bvn_cdf",
+    "LSVModel", "lsv_calibrate", "lsv_greeks_mc", "lsv_path_matrix",
+    "lsv_price_mc",
 ]
 
 __version__ = "0.1.0"

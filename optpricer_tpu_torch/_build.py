@@ -23,9 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "optpricer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
-# source -> its own flags. The book, path and PDE kernels are built without
-# FMA contraction, so each operation rounds as in their plain torch versions
-# (see the notes at the top of each source).
+# source -> its own flags. The book, path, basket and PDE kernels are built
+# without FMA contraction, so each operation rounds as in their plain torch
+# versions (see the notes at the top of each source).
 SOURCES = {
     "terminal_mc.cu": (),
     "mc_batch.cu": ("-fmad=false",),
@@ -33,6 +33,7 @@ SOURCES = {
     "qmc_path.cu": ("-fmad=false",),
     "thomas.cu": ("-fmad=false",),
     "fd_lv.cu": ("-fmad=false",),
+    "basket_mc.cu": ("-fmad=false",),
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +53,8 @@ _SIGNATURES = {
                          _I, _I, _P),
     "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                         _I, _P),
+    "optpricer_basket_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
 }
 
 

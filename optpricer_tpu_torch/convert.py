@@ -31,7 +31,13 @@ host vectors through ``numpy.asarray``, so this module never imports
   VolSurface`` as the port's, from its ``.slices`` (every SVI field read as
   a float) and its ``._forward_curve``;
 * ``mc_batch_kparams`` converts the (n_ktiles, 8, 128) f32 contract tiles
-  of ``optpricer_tpu.ops.pallas_mc_batch`` (K, sign, S0, μT, σ√T, df).
+  of ``optpricer_tpu.ops.pallas_mc_batch`` (K, sign, S0, μT, σ√T, df);
+* ``basket_params`` converts the f32[7 + 4a + a²] operand of
+  ``optpricer_tpu.ops.pallas_basket_mc._build_params`` into the basket
+  kernel's params (``ops/basket_mc``);
+* ``lsv_model`` rebuilds an ``optpricer_tpu.models.lsv.LSVModel`` as the
+  port's, its ``x_bins`` and ``leverage`` read through numpy in their own
+  float dtype.
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from .core import Instrument, MarketData, OptionSpec
 __all__ = ["option_spec", "instrument", "market_data", "terminal_params",
            "seed_pair", "path_params", "qmc_path_params", "int32_table",
            "float32_table", "fd_lv_params", "fd_lv_lanes",
-           "fd_lv_sigma_table", "vol_surface", "mc_batch_kparams"]
+           "fd_lv_sigma_table", "vol_surface", "mc_batch_kparams",
+           "basket_params", "lsv_model"]
 
 
 def _field(value):
@@ -160,3 +167,30 @@ def fd_lv_sigma_table(sig_tab, n_t: int, device="cpu") -> torch.Tensor:
         raise ValueError(f"sigma table must be (m_pad, >= {n_t}), got "
                          f"{arr.shape}")
     return torch.as_tensor(np.ascontiguousarray(arr[:, :n_t].T)).to(device)
+
+
+def basket_params(params, device="cpu") -> torch.Tensor:
+    """The basket kernel's f32[7 + 4a + a²] params (K, df, n_paths, sign,
+    barrier, rebate, crossed0, then S0, drift, voldt, w per asset, then the
+    Cholesky factor row-major)."""
+    arr = np.array(params, np.float32)
+    a = int(round((-4 + np.sqrt(16 + 4 * max(arr.size - 7, 0))) / 2))
+    if arr.ndim != 1 or a < 1 or arr.size != 7 + 4 * a + a * a:
+        raise ValueError(f"basket params must have 7 + 4a + a^2 entries, "
+                         f"got shape {arr.shape}")
+    return torch.as_tensor(arr).to(device)
+
+
+def lsv_model(obj, device="cpu"):
+    """The port's ``LSVModel`` with the fields of a JAX one."""
+    from .models.lsv import LSVModel
+
+    def table(values):
+        return torch.as_tensor(np.array(values)).to(device)
+
+    return LSVModel(S0=float(obj.S0), r=float(obj.r), q=float(obj.q),
+                    T=float(obj.T), v0=float(obj.v0),
+                    kappa=float(obj.kappa), theta=float(obj.theta),
+                    xi=float(obj.xi), rho=float(obj.rho),
+                    x_bins=table(obj.x_bins), leverage=table(obj.leverage),
+                    scheme=str(obj.scheme))

@@ -50,6 +50,7 @@ import torch
 
 from ..dtypes import canonical
 from ..ops import stats as stats_ops
+from ..ops.fastmath import exp32, log32
 from ..ops.path_mc import path_mc_sumstats_kernel
 from ..ops.qmc_path import path_qmc_sumstats_kernel, qmc_path_estimate
 from ..ops.terminal_mc import terminal_estimate
@@ -64,6 +65,97 @@ _PAYOFFS = ("vanilla", "barrier", "asian", "digital", "lookback")
 _PATHWISE_OK = ("vanilla", "asian", "lookback")
 _LR_OK = ("barrier", "digital")
 _BACKENDS = ("auto", "pallas", "qmc")
+
+
+def _exp_for(dtype):
+    """exp for the engine dtype: the bias-free ``exp32`` in float32 (the
+    kernels' and the reference's f32 choice), ``torch.exp`` otherwise."""
+    return exp32 if dtype == torch.float32 else torch.exp
+
+
+def _log_for(dtype):
+    return log32 if dtype == torch.float32 else torch.log
+
+
+class _Sqrt0(torch.autograd.Function):
+    """sqrt with subgradient 0 at x == 0.
+
+    Full-truncation Heston parks variance exactly at 0 with positive
+    probability; there the chain rule meets sqrt'(0) = ∞ against a zero
+    tangent and pathwise AD returns NaN. The one-sided derivative from the
+    truncated region is 0, the reference's custom JVP. Forward mode
+    (``jvp``) serves ``torch.func.jacfwd``, which vmaps it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.sqrt(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        (x,) = inputs
+        ctx.save_for_backward(x, output)
+        ctx.save_for_forward(x, output)
+
+    @staticmethod
+    def _slope(x, y):
+        return torch.where(x > 0, 0.5 / torch.where(y > 0, y, 1.0), 0.0)
+
+    @staticmethod
+    def jvp(ctx, t):
+        x, y = ctx.saved_tensors
+        return _Sqrt0._slope(x, y) * t
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return _Sqrt0._slope(x, y) * g
+
+
+def _sqrt0(x):
+    return _Sqrt0.apply(x)
+
+
+def _terminal_payoff(payoff, carry, *, K, kind, n_steps, barrier_type,
+                     rebate, average_type, strike_type, payout):
+    """The payoff of a scan's terminal carry (S, running sum, running
+    log-sum, running max, running min, crossed)."""
+    S, run_sum, run_logsum, run_max, run_min, crossed = carry
+    is_call = kind == "call"
+
+    def vanilla(ST):
+        return torch.clamp(ST - K, min=0.0) if is_call \
+            else torch.clamp(K - ST, min=0.0)
+
+    def full(value):
+        return torch.as_tensor(value, dtype=S.dtype,
+                               device=S.device).expand_as(S)
+
+    if payoff == "vanilla":
+        return vanilla(S)
+    if payoff == "digital":
+        itm = (S > K) if is_call else (S < K)
+        return torch.where(itm, full(payout), full(0.0))
+    if payoff == "barrier":
+        if barrier_type.endswith("out"):
+            return torch.where(crossed, full(rebate), vanilla(S))
+        return torch.where(crossed, vanilla(S), full(rebate))
+    if payoff == "asian":
+        if average_type == "arithmetic":
+            avg = run_sum / n_steps
+        else:
+            avg = _exp_for(S.dtype)(run_logsum / n_steps)
+        if strike_type == "fixed":
+            return vanilla(avg)
+        return (torch.clamp(S - avg, min=0.0) if is_call
+                else torch.clamp(avg - S, min=0.0))
+    if payoff == "lookback":
+        if strike_type == "floating":
+            return (S - run_min) if is_call else (run_max - S)
+        return (torch.clamp(run_max - K, min=0.0) if is_call
+                else torch.clamp(K - run_min, min=0.0))
+    raise ValueError(f"unknown payoff {payoff!r}")
 
 
 def _not_ported(what: str, item: str):

@@ -20,8 +20,14 @@ takes a scalar ``jnp.exp``: the two differ by an ulp of F at most), the
 blend in T a select chain (``t > T[i−1]``, then ``t ≥ T[n−1]``) and ∂w/∂T
 a centred difference at dT = 1e-4 of the un-floored blend. The chain's
 branch depends on t alone, so both versions evaluate only the slices the
-chosen branch reads. The LSV branches (``lsv=``) need ``models/lsv.py``,
-not ported yet, and raise ``NotImplementedError``.
+chosen branch reads. LSV (``lsv=``, the consumer ``models/lsv.py``):
+``lsv`` (full-truncation Euler variance, log-Euler asset) and ``lsv_qe``
+(Andersen QE variance, the leverage-scaled central asset step with the
+ρ-coupling on the variance increment) under a leverage L = clip(Horner(
+coeffs[k], clip(x/x_width, −1, 1)), 0.05, 20), x = log32(S/S0) − (r−q)t,
+from the f32 (n_steps, deg+1) table of per-step polynomial coefficients
+(deg ≤ 12, descending) that rides in the Dupire table's operand slot; k is
+the step's row, two steps per Box-Muller pair.
 
 Stats layout (``NSTAT = 21``): the dual-CV layout of ``ops/stats.py``
 [n, ΣX, ΣX², ΣY1, ΣY1², ΣXY1, ΣY2, ΣY2², ΣXY2, ΣY1Y2], then ΣY3 (the
@@ -69,10 +75,14 @@ PAYOFF_IDS = {"vanilla": 0, "barrier": 1, "asian": 2, "digital": 3,
               "lookback": 4}
 # dynamics name -> kernel id (csrc/path_mc.cu Dyn)
 DYNAMICS = {"gbm": 0, "heston": 1, "heston_qe": 2, "sabr_ln": 3,
-            "sabr_cev": 4, "lv_euler": 5, "lv_milstein": 6}
-_SV = ("heston", "heston_qe", "sabr_ln", "sabr_cev")
+            "sabr_cev": 4, "lv_euler": 5, "lv_milstein": 6, "lsv": 7,
+            "lsv_qe": 8}
+_SV = ("heston", "heston_qe", "sabr_ln", "sabr_cev", "lsv", "lsv_qe")
 _LV = ("lv_euler", "lv_milstein")
+_LSV = ("lsv", "lsv_qe")
+_QE = ("heston_qe", "lsv_qe")       # raw uniforms for the variance
 MAX_SLICES = 16         # csrc/path_mc.cu MAX_SLICES: the SVI table's bound
+MAX_COEFFS = 13         # csrc/path_mc.cu MAX_COEFFS: deg <= 12 leverage rows
 
 _ROW = 24               # kernel stats rows are padded to 24 floats
 _THREADS = 128          # csrc/path_mc.cu THREADS
@@ -117,8 +127,11 @@ def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
     """(params, static_kwargs) for ``path_mc``; n_steps must be even
     (two Box-Muller normals advance two steps per loop iteration). The
     reference's third result, its ``svi`` operand, rides in
-    ``static_kwargs["svi"]``: the f32 (6, n_slices) Dupire table, or None
-    for the other dynamics."""
+    ``static_kwargs["svi"]``: the f32 (6, n_slices) Dupire table, the f32
+    (n_steps, deg+1) leverage coefficients under ``lsv``, or None for the
+    other dynamics. ``lsv`` is a dict with the Heston parameters
+    (v0/kappa/theta/xi/rho), ``coeffs``, ``x_width`` and the ``scheme``
+    the table was calibrated under ("qe" selects ``lsv_qe``)."""
     if n_steps % 2:
         raise ValueError("pallas path engine requires even n_steps")
     if geo_cv and not (payoff == "asian" and average_type == "arithmetic"
@@ -127,16 +140,26 @@ def _resolve_config(n_paths, n_steps, S0, K, T, r, q, sigma, is_call,
                        and lsv is None):
         raise ValueError("geo_cv requires a fixed-strike arithmetic asian "
                          "payoff under GBM dynamics")
+    inv_xw = 0.0
     if lsv is not None:
-        raise NotImplementedError(
-            "the path kernel's lsv/lsv_qe branches are not ported yet "
-            "(ROADMAP B.3.5, with A.14 lsv.py)")
+        missing = [k for k in ("v0", "kappa", "theta", "xi", "rho", "coeffs",
+                               "x_width") if k not in lsv]
+        if missing:
+            raise ValueError(f"lsv dict misses {missing}")
+        heston = {k: float(lsv[k])
+                  for k in ("v0", "kappa", "theta", "xi", "rho")}
+        inv_xw = 1.0 / float(lsv["x_width"])
     params = _common_params(n_paths, n_steps, S0, K, T, r, q,
                             sigma if sigma is not None else 0.0,
                             is_call, barrier, rebate, payout, dS_bump,
-                            heston, sabr)
+                            heston, sabr, inv_xw)
     svi = None
-    if svi_slices is not None:
+    if lsv is not None:
+        # the scheme the table was calibrated under selects the stepping
+        dynamics = "lsv_qe" if lsv.get("scheme") == "qe" else "lsv"
+        svi = torch.as_tensor(np.array(lsv["coeffs"], np.float32))
+        _check_coeffs(svi, n_steps)
+    elif svi_slices is not None:
         dynamics = "lv_milstein" if scheme == "milstein" else "lv_euler"
         svi = torch.as_tensor(np.array(svi_slices, np.float32))
         _check_svi(svi)
@@ -168,6 +191,15 @@ def _check_svi(svi: torch.Tensor):
                          f"kernel takes at most MAX_SLICES = {MAX_SLICES}")
 
 
+def _check_coeffs(coeffs: torch.Tensor, n_steps: int):
+    if coeffs.dtype != MC_DTYPE or coeffs.ndim != 2 \
+            or coeffs.shape[0] != n_steps \
+            or not 1 <= coeffs.shape[1] <= MAX_COEFFS:
+        raise ValueError(f"lsv coeffs must be a float32 ({n_steps}, deg+1) "
+                         f"table with deg <= {MAX_COEFFS - 1}, got "
+                         f"{tuple(coeffs.shape)} {coeffs.dtype}")
+
+
 def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
                   with_greeks, payoff_id, geo_cv, svi):
     if geo_cv and payoff_id != PAYOFF_IDS["asian"]:
@@ -195,10 +227,14 @@ def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
         raise ValueError(f"seed on {seed.device}, params on {params.device}")
     if params.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {params.device}")
-    if dynamics in _LV:
+    if dynamics in _LV + _LSV:
         if svi is None:
-            raise ValueError(f"dynamics {dynamics!r} needs the svi table")
-        _check_svi(svi)
+            raise ValueError(f"dynamics {dynamics!r} needs its table "
+                             "(the svi operand)")
+        if dynamics in _LV:
+            _check_svi(svi)
+        else:
+            _check_coeffs(svi, n_steps)
         if not svi.is_contiguous() or svi.device != params.device:
             raise ValueError("svi must be contiguous and on the params' "
                              "device")
@@ -222,7 +258,7 @@ class _Scalars:
         rho = self.s_rho if dynamics.startswith("sabr") else self.h_rho
         self.rho_sv = rho
         self.rho_c = torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0))
-        if dynamics == "heston_qe":
+        if dynamics in _QE:
             kap, th, xi, dt = self.h_kappa, self.h_theta, self.h_xi, self.dt
             self.emkt = torch.exp(-kap * dt)
             om = 1.0 - self.emkt
@@ -248,6 +284,10 @@ class _Scalars:
                 for a, b, rho, m, sg, T in svi.cpu().numpy().T.astype(f)]
             self.T_list = [sl[6] for sl in self.slices]
             self.T_dev = [self._dev(T) for T in self.T_list]
+        if dynamics in _LSV:
+            # the leverage coefficients, row k for step k, as f32 values
+            self.coef = [[float(c) for c in row]
+                         for row in svi.cpu().numpy().astype(np.float32)]
 
     def _dev(self, value) -> torch.Tensor:
         return torch.tensor(float(value), dtype=MC_DTYPE,
@@ -327,8 +367,43 @@ def _sigma_loc(p: _Scalars, S, t):
     return torch.clamp(_sqrt32(torch.clamp(s2, min=0.0)), 0.01, 5.0)
 
 
-def _move(p: _Scalars, dynamics, S, v, z, zv, t_now=0.0):
-    """One step of the asset (and variance / σ) dynamics."""
+def _qe_variance(p: _Scalars, v, u):
+    """Andersen QE variance step on the raw uniform ``u`` (the quadratic
+    branch's normal is Φ⁻¹(u))."""
+    zq = norminv32(u)
+    eps = 1e-12
+    m = p.h_theta + (v - p.h_theta) * p.emkt
+    s2 = v * p.c1 + p.c2
+    psi = s2 / torch.clamp(m * m, min=eps)
+    two_over = 2.0 / torch.clamp(torch.clamp(psi, max=1.5), min=eps)
+    b2 = two_over - 1.0 + torch.sqrt(two_over) * torch.sqrt(
+        torch.clamp(two_over - 1.0, min=0.0))
+    a = m / (1.0 + b2)
+    bz = torch.sqrt(torch.clamp(b2, min=0.0)) + zq
+    psi_e = torch.clamp(psi, min=1.5)
+    pe = (psi_e - 1.0) / (psi_e + 1.0)
+    beta_e = (1.0 - pe) / torch.clamp(m, min=eps)
+    v_exp = torch.where(
+        u <= pe, 0.0,
+        log32((1.0 - pe) / torch.clamp(1.0 - u, min=eps)) / beta_e)
+    return torch.where(psi <= 1.5, a * bz * bz, v_exp)
+
+
+def _leverage(p: _Scalars, S, t_now, k_idx):
+    """L = clip(Horner(coeffs[k], clip(x/x_width, −1, 1)), 0.05, 20) at
+    x = log32(S/S0) − (r−q)·t."""
+    x = log32(S / p.S0) - p.rq * t_now
+    u = torch.clamp(x * p.inv_xw, -1.0, 1.0)
+    row = p.coef[k_idx]
+    L = torch.full_like(S, row[0])
+    for c in row[1:]:
+        L = L * u + c
+    return torch.clamp(L, 0.05, 20.0)   # the calibration's own clip
+
+
+def _move(p: _Scalars, dynamics, S, v, z, zv, t_now=0.0, k_idx=0):
+    """One step of the asset (and variance / σ) dynamics; ``k_idx`` is
+    the step's row of the LSV leverage table."""
     if dynamics == "gbm":
         return S * exp32(p.mu + p.sig * z), v
     if dynamics == "lv_euler":
@@ -359,25 +434,34 @@ def _move(p: _Scalars, dynamics, S, v, z, zv, t_now=0.0):
             v + p.h_kappa * (p.h_theta - v_eff) * p.dt
             + p.h_xi * sq * p.sqrt_dt * zv, min=0.0)
         return S_new, v_new
+    if dynamics == "lsv":
+        # Heston variance under the leverage function
+        v_eff = torch.clamp(v, min=0.0)
+        z1 = p.rho_sv * zv + p.rho_c * z
+        sq = _sqrt32(v_eff)
+        sig_e = _leverage(p, S, t_now, k_idx) * sq
+        S_new = S * exp32((p.rq - 0.5 * sig_e * sig_e) * p.dt
+                          + sig_e * p.sqrt_dt * z1)
+        v_new = torch.clamp(
+            v + p.h_kappa * (p.h_theta - v_eff) * p.dt
+            + p.h_xi * sq * p.sqrt_dt * zv, min=0.0)
+        return S_new, v_new
+    if dynamics == "lsv_qe":
+        # QE variance on the raw uniform zv; the leverage-scaled central
+        # asset step, the ρ-coupling riding the variance increment
+        v_new = _qe_variance(p, v, zv)
+        L = _leverage(p, S, t_now, k_idx)
+        vbar = 0.5 * (v + v_new)
+        inc = v_new - v - p.h_kappa * (p.h_theta - vbar) * p.dt
+        coup = torch.where(p.h_xi > 1e-8,
+                           p.h_rho * inc / torch.clamp(p.h_xi, min=1e-8), 0.0)
+        rp2 = 1.0 - p.h_rho * p.h_rho
+        S_new = S * exp32(
+            p.rq * p.dt - 0.5 * L * L * vbar * p.dt + L * coup
+            + L * _sqrt32(torch.clamp(rp2 * vbar * p.dt, min=0.0)) * z)
+        return S_new, v_new
     if dynamics == "heston_qe":
-        u = zv  # the raw uniform; the quadratic branch's normal is Φ⁻¹(u)
-        zq = norminv32(u)
-        eps = 1e-12
-        m = p.h_theta + (v - p.h_theta) * p.emkt
-        s2 = v * p.c1 + p.c2
-        psi = s2 / torch.clamp(m * m, min=eps)
-        two_over = 2.0 / torch.clamp(torch.clamp(psi, max=1.5), min=eps)
-        b2 = two_over - 1.0 + torch.sqrt(two_over) * torch.sqrt(
-            torch.clamp(two_over - 1.0, min=0.0))
-        a = m / (1.0 + b2)
-        bz = torch.sqrt(torch.clamp(b2, min=0.0)) + zq
-        psi_e = torch.clamp(psi, min=1.5)
-        pe = (psi_e - 1.0) / (psi_e + 1.0)
-        beta_e = (1.0 - pe) / torch.clamp(m, min=eps)
-        v_exp = torch.where(
-            u <= pe, 0.0,
-            log32((1.0 - pe) / torch.clamp(1.0 - u, min=eps)) / beta_e)
-        v_new = torch.where(psi <= 1.5, a * bz * bz, v_exp)
+        v_new = _qe_variance(p, v, zv)
         S_new = S * exp32(
             p.rq * p.dt + p.K0c + p.K1c * v + p.K2c * v_new
             + torch.sqrt(torch.clamp(p.K34 * (v + v_new), min=0.0)) * z)
@@ -395,10 +479,10 @@ def _move(p: _Scalars, dynamics, S, v, z, zv, t_now=0.0):
     return S_new, sig_n
 
 
-def _advance(p, st, z, zv, t_now, *, dynamics, payoff_id, barrier_up,
-             average_geo, geo_cv, with_greeks):
+def _advance(p, st, z, zv, t_now, k_idx, *, dynamics, payoff_id,
+             barrier_up, average_geo, geo_cv, with_greeks):
     prev_max, prev_min = st["rmax"], st["rmin"]
-    S, v = _move(p, dynamics, st["S"], st["v"], z, zv, t_now)
+    S, v = _move(p, dynamics, st["S"], st["v"], z, zv, t_now, k_idx)
     st = dict(st, S=S, v=v)
     if with_greeks:
         W = st["W"] + p.sqrt_dt * z
@@ -586,7 +670,7 @@ def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
                        else (S <= p.barrier)).to(MC_DTYPE)
         else:
             crossed = zeros
-        if dynamics.startswith("heston"):
+        if dynamics.startswith("heston") or dynamics in _LSV:
             v = p.h_v0.expand(shape)
         elif dynamics.startswith("sabr"):
             v = p.s_alpha0.expand(shape)
@@ -606,7 +690,7 @@ def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
     for t in range(n_half):
         d0 = (rep * n_half + t) * 2
         z1, z2 = normals(d0)
-        if dynamics == "heston_qe":
+        if dynamics in _QE:
             zv1, zv2 = uniforms(d0 + 1)
         elif dynamics in _SV:
             zv1, zv2 = normals(d0 + 1)
@@ -614,15 +698,16 @@ def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
             zv1, zv2 = z1, z2
         t0 = float(np.float32(2.0 * t) * np.float32(p.dt.item()))
         t1 = float(np.float32(t0) + np.float32(p.dt.item()))
-        st_p = _advance(p, st_p, z1, zv1, t0, **adv)
-        st_p = _advance(p, st_p, z2, zv2, t1, **adv)
+        k0, k1 = 2 * t, 2 * t + 1
+        st_p = _advance(p, st_p, z1, zv1, t0, k0, **adv)
+        st_p = _advance(p, st_p, z2, zv2, t1, k1, **adv)
         if antithetic:
-            if dynamics == "heston_qe":
+            if dynamics in _QE:
                 mv1, mv2 = 1.0 - zv1, 1.0 - zv2
             else:
                 mv1, mv2 = -zv1, -zv2
-            st_m = _advance(p, st_m, -z1, mv1, t0, **adv)
-            st_m = _advance(p, st_m, -z2, mv2, t1, **adv)
+            st_m = _advance(p, st_m, -z1, mv1, t0, k0, **adv)
+            st_m = _advance(p, st_m, -z2, mv2, t1, k1, **adv)
 
     pk = dict(n_steps=n_steps, payoff_id=payoff_id, knock_out=knock_out,
               average_geo=average_geo, strike_floating=strike_floating,
@@ -663,7 +748,9 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     add three σ_loc evaluations a step under Milstein, one under
     log-Euler: a log32, an exp32 and one or two SVI slices with their
     derivatives each, IEEE divisions and square roots; the table sits in
-    shared memory.
+    shared memory. The LSV branches (``svi``: the f32 (n_steps, deg+1)
+    leverage coefficients) add a log32 and a deg-term Horner polynomial a
+    step, read from a warp-uniform table row.
     """
     _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
                   with_greeks, payoff_id, geo_cv, svi)
@@ -673,7 +760,7 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
               average_geo=average_geo, strike_floating=strike_floating,
               is_call=is_call, dynamics=dynamics, with_greeks=with_greeks,
               geo_cv=geo_cv)
-    if dynamics not in _LV:
+    if dynamics not in _LV + _LSV:
         svi = None
     if params.device.type == "cpu":
         return _path_mc_plain(seed, params, svi=svi, **kw)
@@ -723,7 +810,8 @@ def path_mc_sumstats_kernel(
     Dynamics: GBM by default, Heston with a ``heston`` dict (Euler, or
     Andersen QE under ``scheme="qe"``), SABR with a ``sabr`` dict, Dupire
     local vol with ``svi_slices`` (log-Euler, or Milstein under
-    ``scheme="milstein"``). n_steps must be even.
+    ``scheme="milstein"``), LSV with an ``lsv`` dict (Euler, or QE for its
+    ``scheme="qe"``). n_steps must be even.
     """
     dev = resolve_device(device)
     params, static = _resolve_config(

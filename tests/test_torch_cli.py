@@ -7,9 +7,14 @@ different generators in the two CLIs on the CPU (the reference takes its
 within Monte-Carlo error: 4 combined standard errors for the price, and
 for the Greeks bands at 2^20 paths scaled from tests/test_mc_greeks.py.
 ``qmc`` on ``--device cpu`` must print exactly what the port's own
-``exotic_price_mc(backend="qmc", device="cpu")`` gives, at 10 decimals.
+``exotic_price_mc(backend="qmc", device="cpu")`` gives, at 10 decimals, and
+so must ``basket`` and ``lsv`` (the latter calibrating on a surface file
+written by the JAX package and pricing again from its saved model);
+``basket --american`` raises ``NotImplementedError``.
 """
+import numpy as np
 import pytest
+import torch
 
 from optpricer_tpu import cli as jcli
 import optpricer_tpu_torch as tp
@@ -97,3 +102,75 @@ def test_fd_line_identical(extra, capsys):
     ref = _run(jcli.main, argv, capsys)
     got = _run(tcli.main, argv + ["--device", "cpu"], capsys)
     assert got == ref
+
+
+BASKET = ["--S0s", "100,95,105", "--sigmas", "0.2,0.3,0.25", "--K", "100",
+          "--T", "1", "--r", "0.03", "--rho", "0.4", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("extra, kw", [
+    (["--n-paths", "4096", "--seed", "3"], dict(payoff="basket")),
+    (["--payoff", "rainbow_min", "--kind", "put", "--n-paths", "4096",
+      "--seed", "4"], dict(payoff="rainbow_min", kind="put")),
+    (["--payoff", "worstof_barrier", "--barrier", "80",
+      "--barrier-type", "down-and-out", "--n-steps", "8", "--n-paths",
+      "4096", "--seed", "5"],
+     dict(payoff="worstof_barrier", barrier=80.0,
+          barrier_type="down-and-out", n_steps=8)),
+])
+def test_basket_line_equals_port_entry_point(extra, kw, capsys):
+    got = _run(tcli.main, ["basket", *BASKET, *extra], capsys)
+    S0s, sigmas = [100.0, 95.0, 105.0], [0.2, 0.3, 0.25]
+    corr = 0.4 * np.ones((3, 3)) + 0.6 * np.eye(3)
+    common = dict(sigmas=sigmas, corr=corr, kind=kw.pop("kind", "call"),
+                  n_paths=4096, seed=int(extra[extra.index("--seed") + 1]),
+                  device="cpu")
+    if kw["payoff"] == "worstof_barrier":
+        px, se = tp.basket_exotic_mc(S0s, [1 / 3] * 3, 100.0, 1.0, 0.03,
+                                     None, **kw, **common)
+    else:
+        px, se = tp.basket_price_mc(S0s, [1 / 3] * 3, 100.0, 1.0, 0.03,
+                                    None, **kw, **common)
+    assert got == f"{px:.10f}  (stderr {se:.10f})"
+
+
+def test_basket_american_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A.12"):
+        tcli.main(["basket", *BASKET, "--american"])
+
+
+def test_lsv_line_equals_port_entry_point(tmp_path, capsys):
+    """Calibrate on a surface file written by the JAX package, save the
+    model, then price from the saved model: both lines equal the same
+    calls in-process."""
+    from optpricer_tpu.models.calibration import SVIParams, VolSurface
+    from optpricer_tpu.utils import serialization as jsz
+
+    slices = {T: SVIParams(a=0.03 * T, b=0.12 * T, rho=-0.4, m=0.0,
+                           sigma=0.25, expiry=T) for T in (0.25, 0.5, 1.0)}
+    surf = tmp_path / "surface.json"
+    jsz.save_surface(VolSurface(slices, forward_curve={
+        T: 100.0 * np.exp(0.03 * T) for T in slices}), surf)
+    model_path = tmp_path / "lsv.json"
+    flags = ["lsv", *MARKET, "--n-steps", "8", "--cal-paths", "2048",
+             "--n-bins", "32", "--n-paths", "4096", "--seed", "2",
+             "--device", "cpu"]
+    got = _run(tcli.main, flags + ["--surface", str(surf), "--save-model",
+                                   str(model_path)], capsys)
+    from optpricer_tpu_torch.utils import serialization as tsz
+
+    model = tp.lsv_calibrate(tsz.load_surface(surf, device="cpu"),
+                             dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5,
+                                  rho=-0.6), 100.0, 0.03, 0.0, T=1.0,
+                             n_steps=8, n_paths=2048, n_bins=32, seed=2,
+                             device="cpu")
+    px, se = tp.lsv_price_mc("vanilla", model, 110.0, n_paths=4096, seed=2,
+                             device="cpu")
+    assert got == f"{px:.10f}  (stderr {se:.10f})"
+    saved = tsz.load_lsv(model_path, device="cpu")
+    assert torch.equal(saved.leverage, model.leverage)
+    again = _run(tcli.main, flags + ["--model", str(model_path), "--payoff",
+                                     "barrier", "--barrier", "130"], capsys)
+    px, se = tp.lsv_price_mc("barrier", saved, 110.0, n_paths=4096, seed=2,
+                             barrier=130.0, device="cpu")
+    assert again == f"{px:.10f}  (stderr {se:.10f})"

@@ -12,13 +12,15 @@ version per tile; the terminal kernel's Box-Muller angle is sincospi(2u)),
 and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²). The PDE
 kernels: the batched Thomas solve (K7) to rtol 1e-10 in f64 and 2e-5 in
 f32, the fused local-vol march (K8) within 2e-5 of its plain version. The
-path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5 too.
+path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5 too,
+and so the basket kernel (K6) and the path kernel's LSV branches.
 """
 import numpy as np
 import pytest
 import torch
 
 from optpricer_tpu_torch import OptionSpec, fd_price, fd_price_local_vol_batch
+from optpricer_tpu_torch.ops import basket_mc as tbk
 from optpricer_tpu_torch.ops import fd_lv as tlv
 from optpricer_tpu_torch.ops import mc_batch as tmb
 from optpricer_tpu_torch.ops import path_mc as tpm
@@ -296,3 +298,105 @@ def test_book_kernel_is_deterministic(cuda_device):
     kw = dict(n_programs=n_programs, reps=reps, antithetic=True)
     assert torch.equal(tmb.mc_batch(*ops, **kw).clone(),
                        tmb.mc_batch(*ops, **kw).clone())
+
+
+# K6 (the basket kernel) and K4's lsv / lsv_qe branches: counts equal, the
+# other sums at rtol 2e-5 (with non-negative weights K6's six are unsigned).
+def _basket_setup(a, payoff, btype, anti, device, n=(1 << 16) + 123,
+                  n_steps=16):
+    rng = np.random.default_rng(a)
+    S = rng.uniform(80.0, 120.0, a)
+    w = np.full(a, 1.0 / a)
+    chol = np.linalg.cholesky(np.full((a, a), 0.35) + 0.65 * np.eye(a))
+    lvl = float(S.min()) if payoff == "worstof_barrier" else float(S @ w)
+    up = btype.startswith("up")
+    params = tbk._build_params(n, n_steps, list(S), list(w), float(S.mean()),
+                               1.0, 0.03, [0.01] * a,
+                               list(rng.uniform(0.15, 0.4, a)), chol,
+                               lvl * (1.1 if up else 0.9), 1.0, True, payoff,
+                               up).to(device)
+    reps, n_programs = tmc._plan_grid(n, tbk.TILE)
+    return params, dict(n_programs=n_programs, reps=reps, n_assets=a,
+                        n_steps=n_steps, antithetic=anti,
+                        payoff_id=tbk.PAYOFF_IDS[payoff], barrier_up=up,
+                        knock_in=btype.endswith("in"))
+
+
+@pytest.mark.parametrize("a", [1, 3, 8, 16])
+@pytest.mark.parametrize("payoff, btype", [
+    ("asian_basket", "down-and-in"), ("worstof_barrier", "down-and-out"),
+    ("worstof_barrier", "up-and-in"), ("basket_barrier", "up-and-out"),
+    ("basket_barrier", "down-and-in")])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_basket_kernel_matches_plain(cuda_device, a, payoff, btype,
+                                     antithetic):
+    params, run = _basket_setup(a, payoff, btype, antithetic, cuda_device)
+    seed = tmc._seed_pair(5, cuda_device)
+    before = tbk.basket_mc.launches
+    got = tbk.basket_mc(seed, params, **run)
+    assert tbk.basket_mc.launches == before + 1
+    ref = tbk._basket_mc_plain(seed, params, **run)
+    k, p = got.double().cpu(), ref.double().cpu()
+    assert k[0] == p[0] == (1 << 16) + 123
+    torch.testing.assert_close(k[1:], p[1:], rtol=RTOL, atol=0.0)
+
+
+def test_basket_kernel_is_deterministic(cuda_device):
+    params, run = _basket_setup(10, "asian_basket", "down-and-in", True,
+                                cuda_device, n=1 << 18, n_steps=64)
+    seed = tmc._seed_pair(3, cuda_device)
+    assert torch.equal(tbk.basket_mc(seed, params, **run).clone(),
+                       tbk.basket_mc(seed, params, **run).clone())
+
+
+def _lsv_table(n_steps, scheme):
+    from optpricer_tpu_torch.models import lsv as tl
+
+    x_bins = np.linspace(-1.0, 1.0, 64)
+    lev = np.stack([1.0 + 0.3 * x_bins ** 2 * np.exp(-0.5 * k / 8)
+                    for k in range(n_steps)])
+    model = tl.LSVModel(100.0, 0.03, 0.0, 1.0, 0.04, 1.5, 0.04, 0.5, -0.6,
+                        torch.as_tensor(x_bins), torch.as_tensor(lev))
+    coeffs, x_width = tl._leverage_poly(model)
+    return dict(model.heston, coeffs=coeffs, x_width=x_width, scheme=scheme)
+
+
+@pytest.mark.parametrize("scheme", ["euler", "qe"])
+@pytest.mark.parametrize("payoff, kw", [
+    ("vanilla", {}), ("barrier", dict(barrier=125.0)), ("asian", {}),
+    ("digital", {}), ("lookback", dict(strike_type="floating"))])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_path_kernel_lsv_matches_plain(cuda_device, scheme, payoff, kw,
+                                       antithetic):
+    n, n_steps = (1 << 18) + 123, 16
+    params, static = tpm._resolve_config(
+        n, n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None, True, payoff,
+        antithetic, kw.get("barrier", 0.0), "up-and-out", 0.0, "arithmetic",
+        kw.get("strike_type", "fixed"), 1.0, None, "log_euler", 0.01, None,
+        lsv=_lsv_table(n_steps, scheme))
+    assert static["dynamics"] == ("lsv_qe" if scheme == "qe" else "lsv")
+    reps, n_programs = tmc._plan_grid(n, tpm.TILE)
+    seed = tmc._seed_pair(5, cuda_device)
+    static["svi"] = static["svi"].to(cuda_device)
+    run = dict(n_programs=n_programs, reps=reps, **static)
+    params = params.to(cuda_device)
+    _assert_close(tpm.path_mc(seed, params, **run),
+                  tpm._path_mc_plain(seed, params, **run))
+
+
+def test_basket_and_lsv_entry_points_launch_the_kernels(cuda_device):
+    from optpricer_tpu_torch import basket_exotic_mc, lsv_price_mc
+    from optpricer_tpu_torch.models import lsv as tl
+
+    before = (tbk.basket_mc.launches, tpm.path_mc.launches)
+    px, se = basket_exotic_mc([100.0, 95.0], [0.5, 0.5], 100.0, 1.0, 0.03,
+                              sigmas=[0.2, 0.3], corr=[[1, 0.4], [0.4, 1]],
+                              n_steps=8, n_paths=1 << 14, seed=1,
+                              device=cuda_device)
+    model = tl.LSVModel(100.0, 0.03, 0.0, 1.0, 0.04, 1.5, 0.04, 0.5, -0.6,
+                        torch.linspace(-1, 1, 32), torch.ones(8, 32))
+    px2, se2 = lsv_price_mc("vanilla", model, 100.0, n_paths=1 << 14,
+                            seed=1, device=cuda_device)
+    assert np.isfinite([px, se, px2, se2]).all()
+    assert (tbk.basket_mc.launches, tpm.path_mc.launches) == \
+        (before[0] + 1, before[1] + 1)

@@ -38,13 +38,23 @@ def test_import_never_pulls_in_jax():
                    "ops.fd_lv", "ops.grid", "ops.mc_batch",
                    "models.calibration", "models.processes",
                    "models.exotics", "risk",
-                   "scripts.desk_workflow_localvol_barrier"):
+                   "scripts.desk_workflow_localvol_barrier",
+                   "models.basket", "models.lsv", "ops.bvn", "ops.basket_mc",
+                   "utils.serialization"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
 def test_public_names_resolve():
     for name in tp.__all__:
         assert getattr(tp, name) is not None
+    import optpricer_tpu as jp
+
+    for name in ("basket_price_mc", "basket_greeks_mc", "basket_exotic_mc",
+                 "geometric_basket_price", "margrabe_price",
+                 "rainbow_price_stulz", "bvn_cdf", "LSVModel",
+                 "lsv_calibrate", "lsv_greeks_mc", "lsv_path_matrix",
+                 "lsv_price_mc"):
+        assert name in tp.__all__ and name in jp.__all__, name
     assert "jax" not in repr(vars(tp)).lower().replace("optpricer_tpu", "")
 
 
@@ -92,3 +102,87 @@ def test_host_vector_shapes_checked():
         convert.terminal_params(np.zeros(6, np.float32))
     with pytest.raises(ValueError):
         convert.seed_pair(np.zeros(3, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# JSON written by either package loads in the other
+# ---------------------------------------------------------------------------
+def _surfaces():
+    from optpricer_tpu.models import calibration as jcal
+    from optpricer_tpu_torch.models import calibration as tcal
+
+    def build(lib, **kw):
+        slices = {T: lib.SVIParams(a=0.02 * T + 0.01, b=0.15, rho=-0.3,
+                                   m=0.02, sigma=0.12, expiry=T)
+                  for T in (0.25, 1.0)}
+        return lib.VolSurface(slices, forward_curve={0.25: 100.5, 1.0: 102.0},
+                              **kw)
+
+    return build(jcal), build(tcal, device="cpu")
+
+
+def test_surface_json_round_trips_both_ways(tmp_path):
+    from optpricer_tpu.utils import serialization as jsz
+    from optpricer_tpu_torch.utils import serialization as tsz
+
+    jsurf, tsurf = _surfaces()
+    assert tsz.surface_to_json(tsurf) == jsz.surface_to_json(jsurf)
+    tsz.save_surface(tsurf, tmp_path / "t.json")
+    back = jsz.load_surface(tmp_path / "t.json")
+    assert back.slices == jsurf.slices
+    jsz.save_surface(jsurf, tmp_path / "j.json")
+    got = tsz.load_surface(tmp_path / "j.json", device="cpu")
+    assert {T: tsz.svi_to_dict(p) for T, p in got.slices.items()} == \
+        {T: jsz.svi_to_dict(p) for T, p in jsurf.slices.items()}
+    assert got.iv(95.0, 0.5) == pytest.approx(float(jsurf.iv(95.0, 0.5)),
+                                              rel=1e-12)
+
+
+def test_heston_and_basket_json_round_trips(tmp_path):
+    from optpricer_tpu.utils import serialization as jsz
+    from optpricer_tpu_torch.utils import serialization as tsz
+
+    fit = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7, rmse=1e-3)
+    tsz.save_heston(fit, tmp_path / "h.json")
+    assert jsz.load_heston(tmp_path / "h.json") == tsz.heston_from_dict(fit)
+    spec = dict(S0s=[100.0, 95.0], weights=[0.5, 0.5], sigmas=[0.2, 0.3],
+                corr=[[1.0, 0.4], [0.4, 1.0]], qs=[0.01, 0.0])
+    jsz.save_basket(tmp_path / "b.json", **spec)
+    got = tsz.load_basket(tmp_path / "b.json")
+    assert got["S0s"] == spec["S0s"] and got["qs"] == spec["qs"]
+    np.testing.assert_array_equal(got["corr"], spec["corr"])
+    with pytest.raises(KeyError):
+        tsz.heston_from_dict(dict(v0=0.04))
+
+
+@pytest.mark.parametrize("scheme", ["euler", "qe"])
+def test_lsv_json_round_trips_both_ways(tmp_path, scheme):
+    import jax.numpy as jnp
+    import torch
+
+    from optpricer_tpu.models.lsv import LSVModel as JModel
+    from optpricer_tpu.utils import serialization as jsz
+    from optpricer_tpu_torch.utils import serialization as tsz
+
+    rng = np.random.default_rng(0)
+    x_bins = np.linspace(-1.0, 1.0, 9)
+    lev = 1.0 + 0.1 * rng.standard_normal((4, 9))
+    heston = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6)
+    jm = JModel(S0=100.0, r=0.03, q=0.01, T=1.0, x_bins=jnp.asarray(x_bins),
+                leverage=jnp.asarray(lev), scheme=scheme, **heston)
+    jsz.save_lsv(jm, tmp_path / "j.json")
+    tm = tsz.load_lsv(tmp_path / "j.json", device="cpu")
+    assert isinstance(tm, tp.LSVModel) and tm.scheme == scheme
+    assert tm.leverage.dtype == torch.float64
+    np.testing.assert_array_equal(tm.leverage.numpy(), lev)
+    np.testing.assert_array_equal(tm.x_bins.numpy(), x_bins)
+    assert tsz.lsv_to_dict(tm) == jsz.lsv_to_dict(jm)
+    tsz.save_lsv(tm, tmp_path / "t.json")
+    back = jsz.load_lsv(tmp_path / "t.json")
+    assert back.scheme == scheme and back.heston == jm.heston
+    np.testing.assert_array_equal(np.asarray(back.leverage), lev)
+    conv = convert.lsv_model(jm)
+    assert tsz.lsv_to_dict(conv) == jsz.lsv_to_dict(jm)
+    with pytest.raises(ValueError, match="inconsistent"):
+        tsz.lsv_from_dict(dict(jsz.lsv_to_dict(jm), x_bins=[0.0, 1.0]),
+                          device="cpu")

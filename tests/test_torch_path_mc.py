@@ -196,10 +196,12 @@ def test_wrapper_rejects_bad_inputs():
                                     device="cpu")
     with pytest.raises(ValueError, match="svi"):
         tpm.path_mc(seed, params, **dict(kw, dynamics="lv_euler"))
-    with pytest.raises(NotImplementedError, match="B.3.5"):
+    with pytest.raises(ValueError, match="lsv dict misses"):
         tpm.path_mc_sumstats_kernel(1, 4096, 8, *MARKET, True,
                                     payoff="vanilla", antithetic=True,
                                     lsv=dict(HESTON), device="cpu")
+    with pytest.raises(ValueError, match="svi"):
+        tpm.path_mc(seed, params, **dict(kw, dynamics="lsv_qe"))
 
 
 # a 3-slice SVI table: rows a, b, ρ, m, σ, T
