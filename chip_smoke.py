@@ -26,12 +26,16 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      1M x 8; the Heston Euler and SABR β=1 call and put at 1M x 64;
    * the path-QMC kernel (K5) for the five payoffs at 65 536 points x 8
      replicates x 64 steps (the main path's shape) and x 252 steps;
-   * the batched Thomas kernel (K7) at (511, 1024) in f64 and f32, at the
-     propagator build's 511 x 511 in f64 with one coefficient column for
-     every system, at the "auto" ladder's call (one coefficient row for
-     1 024 right-hand sides of 511, through the last-axis adapter) in f64
-     and f32, and on a ragged (3, 37) last-axis case, every case with
-     garbage in a[0] and c[n-1];
+   * the batched tridiagonal kernel (K7, PCR) against the plain Thomas
+     solve at (511, 1024) in f64 and f32, at the propagator build's 511 x
+     511 in f64 with one coefficient column for every system, at the
+     marches' single systems (511, 1) and (199, 1) in f64 and (199, 1) in
+     f32, at n = 1, 2, 3 (5 systems), at (4095, 8) in f64 and f32 (the
+     partitioned kernel), at the "auto" ladder's call (one coefficient row
+     for 1 024 right-hand sides of 511, through the last-axis adapter) in
+     f64 and f32, on a ragged (3, 37) last-axis case, and on the ladder's
+     θ-scheme rows with the nodes above 130 knocked out into identity rows
+     (f64, f32), every case with garbage in a[0] and c[n-1];
    * the fused local-vol march (K8) on the full ladder (1 024 strikes x 511
      rows x 512 steps): PCR for calls and puts, with and without the
      American projection; Thomas for a call and an American put (the plain
@@ -53,14 +57,17 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
-   2e-5 (f32); K8's ladder prices within 2e-5. Each kernel's line names the
+   2e-5 (f32) norm-wise (max |Δx| / max |x|: PCR and Thomas round
+   differently); K8's ladder prices within 2e-5. Each kernel's line names the
    case that carries its largest price (K7: solution) difference.
 4. determinism — the terminal kernel at 2^24, the path kernel at the main
    path's shape and at the desk's lv_milstein call, K8 (PCR and Thomas at
    512 steps), K3 on the book at 2^20, K6 at 16 assets x 2^18 x 64 and
    K4-lsv / lsv_qe at 2^20 x 96, each twice on one input: bitwise equal;
    the LSV calibration twice on one seed: equal leverage tables (its binned
-   sums are sequential per bin, no float atomics).
+   sums are sequential per bin, no float atomics); the desk's K4 call
+   (lv_milstein and lv_euler) on the SVI table recorded from commit
+   1eec4fa's run: the 21 sums that run gave (``DESK_SUMS``), bit for bit.
 5. main paths — the public API on ``device="cuda"``; each path's launch
    counts are set to 0 just before it and read just after.
    The Monte-Carlo path:
@@ -99,7 +106,7 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      float64 one within rtol 1e-4 (a float32 march's round-off over 512
      steps);
    * the CLI's fd as a subprocess, equal to the same call in-process.
-   K7 and K8 must have been launched.
+   K7 and K8 must have been launched; K7's launches are tallied by shape.
    Config 5 (the desk workflow, ``optpricer_tpu_torch/scripts/
    desk_workflow_localvol_barrier.py``):
    * fit_svi_surface on the desk market equal to the same call on
@@ -139,12 +146,16 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    and its plain version at the main path's shape, and K4 with Greek
    moments there; K5 and its plain version at 65 536 x 8 x 64 and at 2^20 x
    8 x 252; K7 at (511, 1024) in f64 and f32 with its plain version and
-   torch.linalg.solve on the dense (1024, 511, 511) f64 matrices; K8 PCR
+   torch.linalg.solve on the dense (1024, 511, 511) f64 matrices, at the
+   ladder's last-axis call, and at (511, 1) and (199, 1), median of 21 with
+   the start event behind a queued device sleep (the device's time alone;
+   (511, 1024) f64 also without it, the host's launch latency in); K8 PCR
    and Thomas on the full ladder with the plain PCR (the plain Thomas is
    phase 3's one run); the "auto" ladder call; the host-clock wall time of
    each config-4 call; and, under torch.profiler, the device-busy share of
    the PSOR put, the European call and the "auto" and "fused" ladders; K4
-   lv_milstein at the desk's call and its plain version (median of 3); K3
+   lv_milstein at the desk's call and its plain version (median of 3), and
+   lv_euler at the same call; K3
    at 1 000 contracts x 2^20 and its plain version (median of 3); the
    host-clock wall of fit_svi_surface and of each desk stage; K6 at the
    `[basket-path]` shape and K4-lsv / lsv_qe at 2^20 x 96 (their plain
@@ -175,7 +186,8 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import redirect_stdout
+from collections import Counter
+from contextlib import ExitStack, contextmanager, redirect_stdout
 from pathlib import Path
 
 import torch
@@ -276,14 +288,20 @@ def compare(kernel: torch.Tensor, plain: torch.Tensor, what: str,
     return rel
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs after a warm-up."""
+def cuda_ms(fn, reps: int = 5, queued: bool = False) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs after a warm-up.
+    ``queued``: the start event waits behind a ~2 ms device sleep, so the
+    host has enqueued ``fn``'s launches before the device reaches them and
+    the time is the device's alone, not the host's launch latency (a
+    kernel of a few µs otherwise measures the Python wrapper)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(4_000_000)
         start.record()
         fn()
         end.record()
@@ -339,6 +357,27 @@ def check_price(label, price, se, ref, seconds=None, slack=1e-4,
                              f"4 se + {slack}")
 
 
+@contextmanager
+def k7_shapes():
+    """Tally K7's launches on the card by (rows, systems) inside the block:
+    its launcher is wrapped, the kernel and its own count untouched."""
+    from optpricer_tpu_torch.ops import thomas as tth
+
+    shapes = Counter()
+    solve_into = tth._solve_into
+
+    def tally(a, b, c, d, x):
+        if d.is_cuda:
+            shapes[tuple(d.shape)] += 1
+        solve_into(a, b, c, d, x)
+
+    tth._solve_into = tally
+    try:
+        yield shapes
+    finally:
+        tth._solve_into = solve_into
+
+
 def run_cli(args):
     cmd = [sys.executable, "-m", "optpricer_tpu_torch.cli", *args]
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -384,6 +423,27 @@ class PdeSlice:
         return [t.to(device=self.dev, dtype=dtype).contiguous()
                 for t in (a, b, c, d)]
 
+    def barrier_system(self, dtype):
+        """The implicit θ = ½ rows of the ladder's grid at t = 0 as
+        ``models/pde._fd_solve`` builds them, the nodes at or above 130
+        knocked out into identity rows, garbage in a[0] and c[n-1], and
+        the strikes' payoffs as the (strikes, n) right-hand sides."""
+        from optpricer_tpu_torch.models.pde import _operator_tridiag
+        from optpricer_tpu_torch.ops.grid import build_grid
+
+        S0, T, r, q = self.LV_MARKET
+        x_np, dx, dt = build_grid(S0, T, 0.3, self.N_S, self.N_T, 4.0)
+        S = torch.exp(torch.as_tensor(x_np[1:-1], dtype=torch.float64))
+        a_L, b_L, c_L = _operator_tridiag(smile(S, 0.0), dx, r, q)
+        out = S >= 130.0
+        a_L, b_L, c_L = (torch.where(out, 0.0, t) for t in (a_L, b_L, c_L))
+        a, b, c = -0.5 * dt * a_L, 1.0 - 0.5 * dt * b_L, -0.5 * dt * c_L
+        a[0] = 1e30
+        c[-1] = float("nan")
+        K = torch.as_tensor(self.strikes)[:, None]
+        d = torch.where(out, 0.0, torch.clamp(S - K, min=0.0))
+        return [t.to(device=self.dev, dtype=dtype) for t in (a, b, c, d)]
+
     def k8_setup(self, kind, american, method):
         """(operands, σ table, fd_lv kwargs, layer -> prices) for K8 on the
         ladder."""
@@ -410,21 +470,29 @@ class PdeSlice:
         def k7_check(case, got, ref, rtol):
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
-                raise AssertionError(f"thomas {case}: non-finite solution")
+                raise AssertionError(f"tridiag {case}: non-finite solution")
             # norm-wise: max |x_k - x_p| / max |x_p|
             diff = (got - ref).abs().double()
             rel = diff.max().item() / ref.abs().max().item()
             if rel > rtol:
-                raise AssertionError(f"thomas {case}: max rel err {rel:.3e} "
+                raise AssertionError(f"tridiag {case}: max rel err {rel:.3e} "
                                      f"> {rtol}")
-            record("thomas", rel, diff.max().item(), 0.0, case)
+            record("tridiag", rel, diff.max().item(), 0.0, case)
 
         n, batch = self.K7_SHAPE
         rtols = {torch.float64: 1e-10, torch.float32: 2e-5}
-        cases = [(f"{n} x {batch} f64", (n, batch, torch.float64)),
-                 (f"{n} x {batch} f32", (n, batch, torch.float32)),
+        f64, f32 = torch.float64, torch.float32
+        cases = [(f"{n} x {batch} f64", (n, batch, f64)),
+                 (f"{n} x {batch} f32", (n, batch, f32)),
                  (f"{n} x {n} f64 shared columns (propagator build)",
-                  (n, n, torch.float64, True))]
+                  (n, n, f64, True))]
+        # the batch-1 solves of the PDE marches (PSOR's 511 rows, the
+        # local-vol FD's 199), n <= 3, and a size for the partitioned kernel
+        cases += [(f"{m} x 1 {tag}", (m, 1, dt)) for m, dt, tag in (
+            (n, f64, "f64"), (199, f64, "f64"), (199, f32, "f32"))]
+        cases += [(f"{m} x 5 f64", (m, 5, f64)) for m in (1, 2, 3)]
+        cases += [(f"{m} x 8 {tag} (partitioned)", (m, 8, dt))
+                  for m, dt, tag in ((4095, f64, "f64"), (4095, f32, "f32"))]
         for case, args in cases:
             a, b, c, d = self.k7_system(*args)
             k7_check(case, tth.tridiag_solve_kernel(a, b, c, d),
@@ -443,6 +511,13 @@ class PdeSlice:
         k7_check("ragged (3, 37) last axis",
                  tth.tridiag_solve_kernel_lastdim(a, b, c, d),
                  tth._thomas_plain(a.t(), b.t(), c.t(), d.t()).t(), 1e-10)
+        for dtype, tag in ((f64, "f64"), (f32, "f32")):
+            a, b, c, d = self.barrier_system(dtype)
+            k7_check(f"{batch} x {n} {tag} θ-scheme rows, knocked out above "
+                     "130, last axis",
+                     tth.tridiag_solve_kernel_lastdim(a, b, c, d),
+                     tth._thomas_plain(a[:, None], b[:, None], c[:, None],
+                                       d.t()).t(), rtols[dtype])
 
         # both methods at the ladder's full 512 steps; the plain Thomas
         # march (~5·10^6 small launches) is timed once on the European call
@@ -515,11 +590,13 @@ class PdeSlice:
         from optpricer_tpu_torch.ops import thomas as tth
 
         dev, grid4 = self.dev, self.GRID4
-        pde_fns = {"thomas_kernel": tth.tridiag_solve_kernel,
+        pde_fns = {"tridiag_pcr_kernel": tth.tridiag_solve_kernel,
                    "fd_lv_kernel": flv.fd_lv}
         for fn in pde_fns.values():
             fn.launches = 0
         print("phase 5 main path, PDE:")
+        tally = ExitStack()
+        self.k7_shapes = tally.enter_context(k7_shapes())
         t0 = time.perf_counter()
         spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
         bs4 = {k: tp.bs_price(spec4, k, device=dev) for k in ("call", "put")}
@@ -632,8 +709,10 @@ class PdeSlice:
             raise AssertionError(f"cli fd {out_fd!r} vs {proj:.10f}")
         print(f"  cli fd American put (projection): {out_fd}")
         launches = {name: fn.launches for name, fn in pde_fns.items()}
+        tally.close()
         print(f"  PDE path {time.perf_counter() - t0:.2f} s; launches in this "
-              f"process: {launches}")
+              f"process: {launches}; K7 launches by (rows, systems): "
+              f"{dict(self.k7_shapes)}")
         for name, count in launches.items():
             if count == 0:
                 raise AssertionError(f"{name} was not launched on the PDE "
@@ -651,17 +730,35 @@ class PdeSlice:
 
         dev = self.dev
         n, batch = self.K7_SHAPE
+        # K7's times are the device's (queued): its single-system launches
+        # take a few µs, less than the host's launch latency
         for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
             a, b, c, d = self.k7_system(n, batch, dtype, seed=1)
             times[("k7", tag)] = cuda_ms(
-                lambda: tth.tridiag_solve_kernel(a, b, c, d))
+                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
+                queued=True)
+            times[("k7 with launch", tag)] = cuda_ms(
+                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21)
             times[("k7plain", tag)] = cuda_ms(
                 lambda: tth._thomas_plain(a, b, c, d))
             self.k7_bytes[tag] = 5 * n * batch * a.element_size()
         a, b, c, d = self.k7_system(n, batch, torch.float64, shared=True,
                                     seed=1)
         times[("k7 shared columns", "f64")] = cuda_ms(
-            lambda: tth.tridiag_solve_kernel(a, b, c, d))
+            lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
+            queued=True)
+        # the ladder's call: one coefficient row, 1 024 (..., n) rhs rows
+        rows = [t[:, 0] for t in (a, b, c)]
+        rhs = d.t().contiguous()
+        times[("k7 ladder call (last axis)", "f64")] = cuda_ms(
+            lambda: tth.tridiag_solve_kernel_lastdim(*rows, rhs), reps=21,
+            queued=True)
+        # the single systems of the PSOR and local-vol FD marches
+        for m in (n, 199):
+            a, b, c, d = self.k7_system(m, 1, torch.float64, seed=1)
+            times[("k7", f"{m} x 1 f64")] = cuda_ms(
+                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
+                queued=True)
         # the library call: a dense batched LU solve of the same systems
         a, b, c, d = self.k7_system(n, batch, torch.float64, seed=1,
                                     garbage=False)
@@ -747,11 +844,11 @@ class PdeSlice:
         m, B = self.N_S - 1, len(self.strikes)
         k7_ops = 10 * n * batch
         return [
-            {"name": "thomas_kernel", "route": "cuda",
+            {"name": "tridiag_pcr_kernel", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/thomas.cu",
              "replaces": "optpricer_tpu/ops/pallas_tridiag.py:31",
-             "launches": launches["thomas_kernel"],
-             "max_abs_err": worst["thomas"][1],
+             "launches": launches["tridiag_pcr_kernel"],
+             "max_abs_err": worst["tridiag"][1],
              "ms": times[("k7", "f64")],
              "plain_ms": times[("k7plain", "f64")],
              **dict(zip(("bound_ms", "bound_by"),
@@ -759,10 +856,20 @@ class PdeSlice:
              "library_ms": times[("k7 library torch.linalg.solve", "f64")],
              "shape": f"{n} rows x {batch} systems, f64, full coefficient "
                       "arrays",
+             "ms_with_launch": times[("k7 with launch", "f64")],
              "ms_f32": times[("k7", "f32")],
              "plain_ms_f32": times[("k7plain", "f32")],
              "bound_ms_f32": bound(k7_ops, self.k7_bytes["f32"])[0],
-             "ms_shared_columns": times[("k7 shared columns", "f64")]},
+             "ms_shared_columns": times[("k7 shared columns", "f64")],
+             "ms_ladder_call": times[("k7 ladder call (last axis)", "f64")],
+             "bound_ms_ladder_call": bound(k7_ops, 8 * (2 * n * batch
+                                                        + 3 * n))[0],
+             **{f"ms_{m}x1": times[("k7", f"{m} x 1 f64")]
+                for m in (n, 199)},
+             **{f"bound_ms_{m}x1": bound(10 * m, 8 * 5 * m)[0]
+                for m in (n, 199)},
+             "launches_by_shape": {f"{r} x {b}": k for (r, b), k
+                                   in sorted(self.k7_shapes.items())}},
             {"name": "fd_lv_kernel", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/fd_lv.cu",
              "replaces": "optpricer_tpu/ops/pallas_fd_lv.py:63",
@@ -784,6 +891,29 @@ class PdeSlice:
 # the 3-slice SVI table of phase 3's Dupire cases: rows a, b, ρ, m, σ, T
 SVI3 = ((0.01, 0.02, 0.035), (0.12, 0.14, 0.15), (-0.4, -0.3, -0.25),
         (0.0, 0.02, 0.03), (0.1, 0.12, 0.15), (0.25, 0.5, 1.0))
+# The desk's K4 call as commit 1eec4fa ran it on an NVIDIA H100 80GB HBM3,
+# before σ_loc shared the centre's slice values and the step plans were
+# written once per launch: the (6, 3) SVI table its fit gave (f32, rows a,
+# b, ρ, m, σ, T) and the first 11 of the 21 sums (the rest 0) of
+# lv_milstein (the desk's scheme) and lv_euler at 200 000 x 500,
+# up-and-out 130, seed 42. Any later kernel must give them bit for bit.
+DESK_SVI = (
+    ("0x1.efa434p-10", "0x1.38fbccp-8", "0x1.45a722p-7"),
+    ("0x1.3e8f36p-7", "0x1.37c8dcp-6", "0x1.39d4a4p-5"),
+    ("-0x1.62d55ep-2", "-0x1.6676a4p-2", "-0x1.65de3ep-2"),
+    ("-0x1.014cd6p-3", "-0x1.edc366p-4", "-0x1.eb0c2ap-4"),
+    ("0x1.ca16a2p-1", "0x1.be1ee0p-1", "0x1.be0b7ep-1"),
+    ("0x1.0p-2", "0x1.0p-1", "0x1.0p+0"))
+DESK_SUMS = {
+    "milstein": ("0x1.86a0p+17", "0x1.438cf2p+19", "0x1.28d53ep+22",
+                 "0x1.2b19acp+24", "0x1.ca5074p+30", "0x1.eb4d9ep+25",
+                 "0x1.87738ep+16", "0x1.9a2d0ap+15", "0x1.39e3f0p+18",
+                 "0x1.2b7bdcp+23", "0x1.ed68cep+15"),
+    "log_euler": ("0x1.86a0p+17", "0x1.438eb4p+19", "0x1.28e4d8p+22",
+                  "0x1.2b19c2p+24", "0x1.ca50cep+30", "0x1.eb4f30p+25",
+                  "0x1.876eccp+16", "0x1.9a1f78p+15", "0x1.39e2dcp+18",
+                  "0x1.2b7854p+23", "0x1.ed603ep+15"),
+}
 # K3 per base draw, antithetic, counted like K1: half a Threefry block
 # (40), half a Box-Muller pair (a log32, a sqrt, a cos and a sin: 22), two
 # exp32 (44), the two payoffs and their average (12), and the 10 moments
@@ -870,12 +1000,16 @@ class Config5Slice:
 
     def main_k4(self, surface):
         """The K4 call of the desk workflow's fused row."""
+        return self.desk_k4(surface.svi_table(), "milstein")
+
+    def desk_k4(self, svi, scheme):
+        """The desk's K4 call on the SVI table ``svi`` under ``scheme``."""
         from optpricer_tpu_torch.scripts import \
             desk_workflow_localvol_barrier as desk
 
         return self.k4_lv(self.DESK["n_paths"], self.DESK["n_steps"],
-                          dict(payoff="barrier", barrier=130.0), "milstein",
-                          True, surface.svi_table(), seed=desk.SEED)
+                          dict(payoff="barrier", barrier=130.0), scheme,
+                          True, svi, seed=desk.SEED)
 
     def book(self):
         """1 000 contracts: 992 calls and puts, K 70..130, S0 95..105, T
@@ -985,6 +1119,24 @@ class Config5Slice:
         if not torch.equal(a, b):
             raise AssertionError("path kernel (lv_milstein) is not bitwise "
                                  "reproducible")
+        # the recorded sums on the recorded desk table, bit for bit
+        svi = torch.tensor([[float.fromhex(h) for h in row]
+                            for row in DESK_SVI], dtype=torch.float32)
+        fitted = torch.equal(torch.as_tensor(self.surface.svi_table()), svi)
+        for scheme, sums in DESK_SUMS.items():
+            seed, params, run = self.desk_k4(svi, scheme)
+            got = pmc.path_mc(seed, params, **run).cpu()
+            want = torch.zeros_like(got)
+            want[:len(sums)] = torch.tensor([float.fromhex(h) for h in sums])
+            if not torch.equal(got, want):
+                i = int((got != want).nonzero()[0])
+                raise AssertionError(
+                    f"path kernel {scheme} on the recorded desk table: sum "
+                    f"{i} is {float(got[i]).hex()}, the recorded "
+                    f"{float(want[i]).hex()}")
+        print(f"phase 4 desk K4 call on the recorded table (the fit here "
+              f"{'equals' if fitted else 'differs from'} it): lv_milstein "
+              f"and lv_euler give the recorded 21 sums bit for bit")
         ops, kw, _ = self.k3(1 << 20, True)
         if not torch.equal(tmb.mc_batch(*ops, **kw).clone(),
                            tmb.mc_batch(*ops, **kw).clone()):
@@ -1064,8 +1216,11 @@ class Config5Slice:
                                  "or KO out of (0, fd_lv)")
 
         # the desk workflow end to end at its full size
-        out = desk.run(**self.DESK, device=dev)
+        with k7_shapes() as desk_k7:
+            out = desk.run(**self.DESK, device=dev)
         self.desk_times = out["times"]
+        print(f"  desk workflow: K7 launches by (rows, systems) "
+              f"{dict(desk_k7)}")
         gap = abs(out["fused_barrier"] - out["mc_barrier"])
         band = 5.0 * math.hypot(out["fused_se"], out["mc_se"]) + 1e-3
         dgap = abs(out["grid_greeks"]["delta"] - out["bump_greeks"]["delta"])
@@ -1155,6 +1310,10 @@ class Config5Slice:
         seed, params, run = self.main_k4(self.surface)
         times[("k4 lv_milstein", "200000 x 500")] = cuda_ms(
             lambda: pmc.path_mc(seed, params, **run))
+        seed_e, params_e, run_e = self.desk_k4(self.surface.svi_table(),
+                                               "log_euler")
+        times[("k4 lv_euler", "200000 x 500")] = cuda_ms(
+            lambda: pmc.path_mc(seed_e, params_e, **run_e))
         # one call, in phase 3 (it takes seconds)
         times[("k4plain lv_milstein", "200000 x 500")] = \
             self.plain_ms["k4 lv"]
@@ -1163,7 +1322,7 @@ class Config5Slice:
                                                                      **kw))
         times[("k3plain", "1000 x 2^20")] = cuda_ms(
             lambda: tmb._mc_batch_plain(*ops, **kw), reps=3)
-        for what in ("k4 lv_milstein", "k4plain lv_milstein"):
+        for what in ("k4 lv_milstein", "k4 lv_euler", "k4plain lv_milstein"):
             print(f"phase 6 time {what} 200000 x 500: "
                   f"{times[(what, '200000 x 500')]:.4f} ms [{self.card}]")
         for what in ("k3", "k3plain"):
@@ -1195,7 +1354,8 @@ class Config5Slice:
                  8 + 96 + 4 * 6 * n_slices + 84))),
              "library_ms": None,
              "shape": f"Dupire Milstein up-and-out barrier, {n_slices} SVI "
-                      f"slices, {n} paths x {steps} steps, antithetic"},
+                      f"slices, {n} paths x {steps} steps, antithetic",
+             "ms_lv_euler": times[("k4 lv_euler", "200000 x 500")]},
             {"name": "mc_batch_kernel", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/mc_batch.cu",
              "replaces": "optpricer_tpu/ops/pallas_mc_batch.py:32",
@@ -1772,7 +1932,7 @@ def main():
               SPEC["sigma"])
     # worst[name] = [max rel err, max |price difference|, its case]
     worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
-                                          "qmc_path", "thomas", "fd_lv",
+                                          "qmc_path", "tridiag", "fd_lv",
                                           "path_lv", "mc_batch", "basket",
                                           "path_lsv")}
 
@@ -1935,7 +2095,7 @@ def main():
     multi.phase3(record)
 
     for name, (rel, dprice, case) in worst.items():
-        if name == "thomas":
+        if name == "tridiag":
             print(f"phase 3 {name} kernel vs plain: max norm-wise rel err "
                   f"{rel:.3e} (rtol 1e-10 f64, 2e-5 f32), max |x difference| "
                   f"{dprice:.3e} in case [{case}]")

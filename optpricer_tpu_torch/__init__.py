@@ -39,6 +39,7 @@ from .models.processes import (gbm_paths, merton_jump_paths, heston_paths,
 # Risk engine
 from .risk import (numerical_greeks, scenario_grid, portfolio_risk,
                    var_historical, cvar_historical)
+from .risk import ad_greeks, exposure_profile, portfolio_risk_fast
 
 # PDE (finite difference, finite element)
 from .models.pde import (fd_price, fd_price_barrier,
@@ -80,7 +81,7 @@ __all__ = [
     "sabr_paths", "local_vol_paths", "gbm_milstein_paths",
     "milstein_local_vol_paths",
     "numerical_greeks", "scenario_grid", "portfolio_risk", "var_historical",
-    "cvar_historical",
+    "cvar_historical", "ad_greeks", "portfolio_risk_fast", "exposure_profile",
     "fd_price", "fd_price_barrier", "fd_price_double_barrier", "fd_greeks",
     "fd_price_local_vol", "fem_price",
     # Production data model

@@ -34,9 +34,14 @@ Per step, one of:
   kernel; here every per-step solve of a CUDA march goes to K7: the torch
   log-depth solve (:func:`~optpricer_tpu_torch.ops.tridiag.tridiag_solve`)
   is ~3·⌈log₂ M⌉ doubling passes of several launches each per step, where
-  the reference's XLA scan is one fused program. The CPU keeps the
-  reference's CPU choice. As in the reference, PSOR's warm start under
-  ``"pallas"`` on the CPU takes ``tridiag_solve``.
+  the reference's XLA scan is one fused program. K7 is one launch a step:
+  one block per system, parallel cyclic reduction in shared memory, the
+  step's ``(..., M)`` rows read and written where they lie. A single
+  system (a local-vol or PSOR march) is bound by K7's ⌈log₂ M⌉ levels and
+  its launch, a ladder by the bytes of its right-hand sides; the march
+  around it, a dozen or more small launches a step, is host-bound. The
+  CPU keeps the reference's CPU choice. As in the reference, PSOR's warm
+  start under ``"pallas"`` on the CPU takes ``tridiag_solve``.
 
 ``solver="fused"`` / ``"fused_pcr"`` / ``"fused_thomas"`` of
 :func:`fd_price_local_vol_batch` run the whole march in one kernel (K8,

@@ -84,6 +84,7 @@ _QE = ("heston_qe", "lsv_qe")       # raw uniforms for the variance
 MAX_SLICES = 16         # csrc/path_mc.cu MAX_SLICES: the SVI table's bound
 MAX_COEFFS = 13         # csrc/path_mc.cu MAX_COEFFS: deg <= 12 leverage rows
 
+LV_PLAN_WORDS = 17      # csrc/path_mc.cu LvStep: a Dupire step's plan
 _ROW = 24               # kernel stats rows are padded to 24 floats
 _THREADS = 128          # csrc/path_mc.cu THREADS
 _BLOCKS_PER_PROGRAM = TILE // _THREADS
@@ -746,9 +747,11 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     two per pair under stochastic volatility, an exp32 per step and
     state). The Dupire branches (``svi``: the f32 (6, n_slices) table)
     add three σ_loc evaluations a step under Milstein, one under
-    log-Euler: a log32, an exp32 and one or two SVI slices with their
-    derivatives each, IEEE divisions and square roots; the table sits in
-    shared memory. The LSV branches (``svi``: the f32 (n_steps, deg+1)
+    log-Euler: a log32 and one or two SVI slices with their derivatives
+    each, IEEE divisions and square roots; the table sits in shared
+    memory, and each step's plan (the forward, the three blends in T) is
+    worked out once per launch by a one-pass pre-kernel into an
+    (n_steps, ``LV_PLAN_WORDS``) scratch. The LSV branches (``svi``: the f32 (n_steps, deg+1)
     leverage coefficients) add a log32 and a deg-term Horner polynomial a
     step, read from a warp-uniform table row.
     """
@@ -772,10 +775,13 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
                              dtype=MC_DTYPE, device=dev)
     prog_rows = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
     out = torch.empty((_ROW,), dtype=MC_DTYPE, device=dev)
+    plans = torch.empty((n_steps, LV_PLAN_WORDS), dtype=MC_DTYPE,
+                        device=dev) if dynamics in _LV else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.optpricer_path_mc(
             seed.data_ptr(), params.data_ptr(), svi.data_ptr(),
+            None if plans is None else plans.data_ptr(),
             block_rows.data_ptr(), prog_rows.data_ptr(), out.data_ptr(),
             n_programs, reps, n_steps, int(svi.shape[1]),
             DYNAMICS[dynamics], int(payoff_id), flags,

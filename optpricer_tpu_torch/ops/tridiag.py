@@ -11,12 +11,13 @@ Counterpart of ``optpricer_tpu/ops/tridiag.py``. Every solver takes
   has no public associative scan, so each is ⌈log₂ n⌉ doubling passes
   (Hillis-Steele) of the same combine functions, vectorised over the batch.
   The combine order differs from XLA's tree, so the two agree to round-off.
-* :func:`tridiag_solve_thomas` — the sequential Thomas solve. On a CUDA
-  tensor it launches ``thomas_kernel`` (K7, ``ops/thomas.py``); on the CPU
-  it runs that kernel's plain version, a torch loop over rows. It keeps the
-  kernel's arithmetic (two divisions per forward row), which differs from
-  the reference's ``lax.scan`` form (pivot then one division per row in the
-  back substitution) by round-off.
+* :func:`tridiag_solve_thomas` — the reference's Thomas solve. On a CUDA
+  tensor it launches K7 (``ops/thomas.py``: parallel cyclic reduction, a
+  block of threads per system); on the CPU it runs K7's plain version, the
+  Pallas kernel's Thomas elimination as a torch loop over rows (two
+  divisions per forward row), which differs from the reference's
+  ``lax.scan`` form (pivot then one division per row in the back
+  substitution) by round-off.
 * :func:`tridiag_matvec` and :func:`tridiag_dense`.
 
 ``tridiag_inv`` waits for its consumers (the Heston ADI and forward-PDE
@@ -130,9 +131,9 @@ def tridiag_dense(lo, mid, hi):
 
 
 # ---------------------------------------------------------------------------
-# Sequential Thomas (K7 on the card)
+# Thomas (K7 on the card)
 # ---------------------------------------------------------------------------
 def tridiag_solve_thomas(a, b, c, d):
-    """Sequential Thomas solve along the last axis, batched over leading
-    axes: K7 for CUDA tensors, its plain torch loop on the CPU."""
+    """Tridiagonal solve along the last axis, batched over leading axes:
+    K7 for CUDA tensors, the plain Thomas loop on the CPU."""
     return tridiag_solve_kernel_lastdim(a, b, c, d)

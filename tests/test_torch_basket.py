@@ -22,6 +22,9 @@ bvn.py``, ``models/basket.py``, ``ops/basket_mc.py``).
   against ``exotic_price_mc`` and Black-Scholes, the closed-form oracles
   within 4 se.
 """
+import json
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +43,7 @@ from optpricer_tpu_torch.ops import bvn as tbvn
 from optpricer_tpu_torch.ops import terminal_mc as tmc
 from tests.torch_threads import torch_one_thread  # noqa: F401
 
+GOLDENS = json.loads((Path(__file__).with_name("goldens.json")).read_text())
 RTOL = 1e-12
 KRTOL = 2e-5
 CORR = np.array([[1.0, 0.5, 0.3], [0.5, 1.0, 0.4], [0.3, 0.4, 1.0]])
@@ -369,6 +373,19 @@ def test_closed_form_oracles():
     p_raw, se_raw = tp.basket_price_mc(S0, W, 100.0, 1.0, 0.03,
                                        control_variate=False, **book)
     assert se_cv < 0.2 * se_raw and abs(p_cv - p_raw) < 4 * se_raw
+
+
+def test_basket_golden_met_statistically():
+    """``basket_mc_seed5`` (tests/golden_cases.py: 2 assets, float64, 2^16
+    paths) comes from the reference's ``jax.random`` draws; the port draws
+    with torch, so the two prices agree within 4·hypot(se, golden se)."""
+    golden = GOLDENS["basket_mc_seed5"]
+    px, se = tp.basket_price_mc(
+        [100.0, 95.0], [0.6, 0.4], 100.0, 1.0, 0.03, sigmas=[0.2, 0.3],
+        corr=np.array([[1.0, 0.5], [0.5, 1.0]]), seed=5, n_paths=1 << 16,
+        dtype="float64", device="cpu")
+    assert abs(px - golden["price"]) <= 4.0 * np.hypot(se, golden["stderr"])
+    assert 0.0 < se < 4.0 * golden["stderr"]
 
 
 def test_guards():

@@ -10,8 +10,9 @@ Tolerances as in ``chip_smoke.py``: counts equal, every other stat within
 rtol 2e-5 (the kernel sums per thread, then a fixed block tree; the plain
 version per tile; the terminal kernel's Box-Muller angle is sincospi(2u)),
 and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²). The PDE
-kernels: the batched Thomas solve (K7) to rtol 1e-10 in f64 and 2e-5 in
-f32, the fused local-vol march (K8) within 2e-5 of its plain version. The
+kernels: the batched tridiagonal solve (K7) against the plain Thomas
+solve to rtol 1e-10 in f64 and 2e-5 in f32 norm-wise, the fused local-vol
+march (K8) within 2e-5 of its plain version. The
 path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5 too,
 and so the basket kernel (K6) and the path kernel's LSV branches.
 """
@@ -163,9 +164,11 @@ def test_path_launch_counters_count_kernel_launches(cuda_device):
         (before[0] + 1, before[1] + 1)
 
 
-# K7 and K8: f64 solves to rtol 1e-10, f32 to 2e-5; the fused march's
-# prices within 2e-5 of the plain version's (both built without FMA
-# contraction, so they round alike).
+# K7 and K8: f64 solves to rtol 1e-10, f32 to 2e-5, norm-wise (K7 solves by
+# cyclic reduction, its plain version by Thomas: the two round differently,
+# so an entry far below the solution's scale is held to the scale); the
+# fused march's prices within 2e-5 of the plain version's (both built
+# without FMA contraction, so they round alike).
 def _tridiag(n, batch, dtype, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     a, b, c, d = (torch.randn(n, batch, generator=g, dtype=torch.float64)
@@ -175,7 +178,10 @@ def _tridiag(n, batch, dtype, device, seed=0):
 
 @pytest.mark.parametrize("n, batch, dtype, rtol", [
     (511, 1024, torch.float64, 1e-10), (511, 1024, torch.float32, 2e-5),
-    (511, 511, torch.float64, 1e-10), (37, 3, torch.float64, 1e-10)])
+    (511, 511, torch.float64, 1e-10), (37, 3, torch.float64, 1e-10),
+    (511, 1, torch.float64, 1e-10), (199, 1, torch.float32, 2e-5),
+    (1, 4, torch.float64, 1e-10), (2, 4, torch.float64, 1e-10),
+    (3, 4, torch.float64, 1e-10), (4095, 8, torch.float64, 1e-10)])
 def test_thomas_kernel_matches_plain(cuda_device, n, batch, dtype, rtol):
     a, b, c, d = _tridiag(n, batch, dtype, cuda_device)
     a[0] = 1e30           # unused corners hold garbage
@@ -184,7 +190,7 @@ def test_thomas_kernel_matches_plain(cuda_device, n, batch, dtype, rtol):
     torch.cuda.synchronize()
     ref = tth._thomas_plain(a, b, c, d)
     assert torch.isfinite(x).all()
-    torch.testing.assert_close(x, ref, rtol=rtol, atol=0.0)
+    assert (x - ref).abs().max() <= rtol * ref.abs().max()
 
 
 def test_thomas_lastdim_with_row_coefficients(cuda_device):
@@ -194,7 +200,7 @@ def test_thomas_lastdim_with_row_coefficients(cuda_device):
     got = tth.tridiag_solve_kernel_lastdim(*rows, d.t())
     assert tth.tridiag_solve_kernel.launches == before + 1
     ref = tth._thomas_plain(*(r[:, None] for r in rows), d)
-    torch.testing.assert_close(got, ref.t(), rtol=1e-10, atol=0.0)
+    assert (got - ref.t()).abs().max() <= 1e-10 * ref.abs().max()
 
 
 def _smile(S, t):

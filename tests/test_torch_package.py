@@ -45,16 +45,21 @@ def test_import_never_pulls_in_jax():
 
 
 def test_public_names_resolve():
-    for name in tp.__all__:
-        assert getattr(tp, name) is not None
+    """Every name the port exports is one of the reference's and resolves to
+    a callable or a class (the option-kind constants equal the reference's);
+    the three risk names are among them."""
     import optpricer_tpu as jp
 
-    for name in ("basket_price_mc", "basket_greeks_mc", "basket_exotic_mc",
-                 "geometric_basket_price", "margrabe_price",
-                 "rainbow_price_stulz", "bvn_cdf", "LSVModel",
-                 "lsv_calibrate", "lsv_greeks_mc", "lsv_path_matrix",
-                 "lsv_price_mc"):
-        assert name in tp.__all__ and name in jp.__all__, name
+    assert len(set(tp.__all__)) == len(tp.__all__)
+    for name in tp.__all__:
+        assert name in jp.__all__, name
+        obj = getattr(tp, name)
+        if name in ("CALL", "PUT"):
+            assert obj == getattr(jp, name), name
+        else:
+            assert callable(obj) or isinstance(obj, type), name
+    for name in ("ad_greeks", "portfolio_risk_fast", "exposure_profile"):
+        assert name in tp.__all__, name
     assert "jax" not in repr(vars(tp)).lower().replace("optpricer_tpu", "")
 
 
