@@ -146,10 +146,11 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    and its plain version at the main path's shape, and K4 with Greek
    moments there; K5 and its plain version at 65 536 x 8 x 64 and at 2^20 x
    8 x 252; K7 at (511, 1024) in f64 and f32 with its plain version and
-   torch.linalg.solve on the dense (1024, 511, 511) f64 matrices, at the
-   ladder's last-axis call, and at (511, 1) and (199, 1), median of 21 with
-   the start event behind a queued device sleep (the device's time alone;
-   (511, 1024) f64 also without it, the host's launch latency in); K8 PCR
+   torch.linalg.solve on the dense (1024, 511, 511) f64 matrices, with
+   shared columns, at the ladder's last-axis call, and at (511, 1) and
+   (199, 1), median of 21, each twice: like every kernel (the host's launch
+   latency in) and with the start event behind a queued device sleep (the
+   device's time alone, ``device_ms``); K8 PCR
    and Thomas on the full ladder with the plain PCR (the plain Thomas is
    phase 3's one run); the "auto" ladder call; the host-clock wall time of
    each config-4 call; and, under torch.profiler, the device-busy share of
@@ -172,22 +173,41 @@ whichever is larger; K1/K2 count their source's operations, K4/K5/K8 the
 least their function needs, K7 its bytes; K3 like K1, per base draw;
 K4 lv_milstein three σ evaluations a step over every SVI slice with their
 derivatives and the two w of ∂w/∂T; K6 and K4-lsv per path-step by
-``ops_k6_path_step`` / ``ops_k4_lsv_path_step``) and ``library_ms`` (K7: the dense
-batched ``torch.linalg.solve``; null for the others, which no single
-PyTorch call computes). K7's ``max_abs_err`` is in solution units, K8's in
-price units, K3's the largest over the book's contracts. The last line is ``{"ok": true, "device": {...}}``.
+``ops_k6_path_step`` / ``ops_k4_lsv_path_step``) and ``library_ms`` (K7:
+the dense batched ``torch.linalg.solve``; null for the others, which no
+single PyTorch call computes). K7's ``max_abs_err`` is in solution units,
+K8's in price units, K3's the largest over the book's contracts. K7's
+entry also has its launches by (rows, systems) on the PDE path. The last
+line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --ab OTHER_TREE
+
+compares this tree with another checkout of the repository (the parent
+commit unpacked with ``git archive``, say) instead: one process per turn,
+in the order other, this, this, other, each importing and building its own
+tree's package and timing it by this script's rules (``ab_turn``): K4
+lv_milstein and lv_euler at the desk's call on ``DESK_SVI`` (its 21 sums
+compared bit for bit across the turns), K7 at the shapes phase 6 times
+and the propagator build's (with the host's launch latency, the device's
+time alone, and the host's µs a call), and the host-clock wall and
+device-busy time (K7's share under torch.profiler) of the "auto" ladder,
+the PSOR put, the European call and ``fd_price_local_vol`` at 200 x 200;
+and ptxas' registers and spills of K7 and K4 ``LV_MILSTEIN`` from each
+turn that builds its tree's library.
 """
 from __future__ import annotations
 
 import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
-from collections import Counter
-from contextlib import ExitStack, contextmanager, redirect_stdout
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import torch
@@ -329,10 +349,11 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def device_busy(fn):
-    """(wall ms, device-busy ms, kernels) of one call of ``fn`` under
-    torch.profiler: the summed durations of the kernels it ran (one stream,
-    so they do not overlap) against the host clock."""
+def device_busy(fn, names=None):
+    """(wall ms, device-busy ms, kernels, busy ms of the kernels whose name
+    ``names`` matches) of one call of ``fn`` under torch.profiler: the
+    summed durations of the kernels it ran (one stream, so they do not
+    overlap) against the host clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,7 +363,9 @@ def device_busy(fn):
         _, wall = timed(fn)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return wall * 1e3, busy, len(kernels)
+    matched = sum(e.time_range.elapsed_us() for e in kernels
+                  if names is not None and names.search(e.name)) / 1e3
+    return wall * 1e3, busy, len(kernels), matched
 
 
 def check_price(label, price, se, ref, seconds=None, slack=1e-4,
@@ -355,27 +378,6 @@ def check_price(label, price, se, ref, seconds=None, slack=1e-4,
     if not ok:
         raise AssertionError(f"{label}: |price - {what}| {err:.3e} > "
                              f"4 se + {slack}")
-
-
-@contextmanager
-def k7_shapes():
-    """Tally K7's launches on the card by (rows, systems) inside the block:
-    its launcher is wrapped, the kernel and its own count untouched."""
-    from optpricer_tpu_torch.ops import thomas as tth
-
-    shapes = Counter()
-    solve_into = tth._solve_into
-
-    def tally(a, b, c, d, x):
-        if d.is_cuda:
-            shapes[tuple(d.shape)] += 1
-        solve_into(a, b, c, d, x)
-
-    tth._solve_into = tally
-    try:
-        yield shapes
-    finally:
-        tth._solve_into = solve_into
 
 
 def run_cli(args):
@@ -492,7 +494,9 @@ class PdeSlice:
             (n, f64, "f64"), (199, f64, "f64"), (199, f32, "f32"))]
         cases += [(f"{m} x 5 f64", (m, 5, f64)) for m in (1, 2, 3)]
         cases += [(f"{m} x 8 {tag} (partitioned)", (m, 8, dt))
-                  for m, dt, tag in ((4095, f64, "f64"), (4095, f32, "f32"))]
+                  for m, dt, tag in ((1025, f64, "f64"), (1025, f32, "f32"),
+                                     (1536, f64, "f64"), (4095, f64, "f64"),
+                                     (4095, f32, "f32"))]
         for case, args in cases:
             a, b, c, d = self.k7_system(*args)
             k7_check(case, tth.tridiag_solve_kernel(a, b, c, d),
@@ -594,9 +598,8 @@ class PdeSlice:
                    "fd_lv_kernel": flv.fd_lv}
         for fn in pde_fns.values():
             fn.launches = 0
+        tth.tridiag_solve_kernel.launches_by_shape.clear()
         print("phase 5 main path, PDE:")
-        tally = ExitStack()
-        self.k7_shapes = tally.enter_context(k7_shapes())
         t0 = time.perf_counter()
         spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
         bs4 = {k: tp.bs_price(spec4, k, device=dev) for k in ("call", "put")}
@@ -709,7 +712,10 @@ class PdeSlice:
             raise AssertionError(f"cli fd {out_fd!r} vs {proj:.10f}")
         print(f"  cli fd American put (projection): {out_fd}")
         launches = {name: fn.launches for name, fn in pde_fns.items()}
-        tally.close()
+        self.k7_shapes = dict(tth.tridiag_solve_kernel.launches_by_shape)
+        if sum(self.k7_shapes.values()) != launches["tridiag_pcr_kernel"]:
+            raise AssertionError(f"K7 launches by shape {self.k7_shapes} "
+                                 "do not add up to its count")
         print(f"  PDE path {time.perf_counter() - t0:.2f} s; launches in this "
               f"process: {launches}; K7 launches by (rows, systems): "
               f"{dict(self.k7_shapes)}")
@@ -730,35 +736,34 @@ class PdeSlice:
 
         dev = self.dev
         n, batch = self.K7_SHAPE
-        # K7's times are the device's (queued): its single-system launches
-        # take a few µs, less than the host's launch latency
+        # K7 is timed like every kernel (events around the wrapper, the
+        # host's launch latency in) and also queued behind a device sleep,
+        # the device's time alone: a single system's launch takes a few µs,
+        # less than the wrapper's host time
+        def k7_times(what, fn):
+            times[("k7", what)] = cuda_ms(fn, reps=21)
+            times[("k7 device", what)] = cuda_ms(fn, reps=21, queued=True)
+
         for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
             a, b, c, d = self.k7_system(n, batch, dtype, seed=1)
-            times[("k7", tag)] = cuda_ms(
-                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
-                queued=True)
-            times[("k7 with launch", tag)] = cuda_ms(
-                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21)
+            k7_times(tag, lambda: tth.tridiag_solve_kernel(a, b, c, d))
             times[("k7plain", tag)] = cuda_ms(
                 lambda: tth._thomas_plain(a, b, c, d))
             self.k7_bytes[tag] = 5 * n * batch * a.element_size()
         a, b, c, d = self.k7_system(n, batch, torch.float64, shared=True,
                                     seed=1)
-        times[("k7 shared columns", "f64")] = cuda_ms(
-            lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
-            queued=True)
+        k7_times("shared columns f64",
+                 lambda: tth.tridiag_solve_kernel(a, b, c, d))
         # the ladder's call: one coefficient row, 1 024 (..., n) rhs rows
         rows = [t[:, 0] for t in (a, b, c)]
         rhs = d.t().contiguous()
-        times[("k7 ladder call (last axis)", "f64")] = cuda_ms(
-            lambda: tth.tridiag_solve_kernel_lastdim(*rows, rhs), reps=21,
-            queued=True)
+        k7_times("ladder call (last axis) f64",
+                 lambda: tth.tridiag_solve_kernel_lastdim(*rows, rhs))
         # the single systems of the PSOR and local-vol FD marches
         for m in (n, 199):
             a, b, c, d = self.k7_system(m, 1, torch.float64, seed=1)
-            times[("k7", f"{m} x 1 f64")] = cuda_ms(
-                lambda: tth.tridiag_solve_kernel(a, b, c, d), reps=21,
-                queued=True)
+            k7_times(f"{m} x 1 f64",
+                     lambda: tth.tridiag_solve_kernel(a, b, c, d))
         # the library call: a dense batched LU solve of the same systems
         a, b, c, d = self.k7_system(n, batch, torch.float64, seed=1,
                                     garbage=False)
@@ -828,7 +833,7 @@ class PdeSlice:
             "ladder fused": (lambda: self.ladder("fused"),
                              times[("ladder fused", "call")])}
         for label, (fn, ref_ms) in profiled.items():
-            wall, busy, n_k = device_busy(fn)
+            wall, busy, n_k, _ = device_busy(fn)
             print(f"phase 6 profile {label}: device busy {busy:.4f} ms "
                   f"in {n_k} kernels; {wall:.4f} ms wall under the "
                   f"profiler, {ref_ms:.4f} ms without: busy "
@@ -856,16 +861,21 @@ class PdeSlice:
              "library_ms": times[("k7 library torch.linalg.solve", "f64")],
              "shape": f"{n} rows x {batch} systems, f64, full coefficient "
                       "arrays",
-             "ms_with_launch": times[("k7 with launch", "f64")],
+             "device_ms": times[("k7 device", "f64")],
              "ms_f32": times[("k7", "f32")],
+             "device_ms_f32": times[("k7 device", "f32")],
              "plain_ms_f32": times[("k7plain", "f32")],
              "bound_ms_f32": bound(k7_ops, self.k7_bytes["f32"])[0],
-             "ms_shared_columns": times[("k7 shared columns", "f64")],
-             "ms_ladder_call": times[("k7 ladder call (last axis)", "f64")],
+             **{f"{key}_shared_columns": times[(what, "shared columns f64")]
+                for key, what in (("ms", "k7"), ("device_ms", "k7 device"))},
+             **{f"{key}_ladder_call": times[(what,
+                                             "ladder call (last axis) f64")]
+                for key, what in (("ms", "k7"), ("device_ms", "k7 device"))},
              "bound_ms_ladder_call": bound(k7_ops, 8 * (2 * n * batch
                                                         + 3 * n))[0],
-             **{f"ms_{m}x1": times[("k7", f"{m} x 1 f64")]
-                for m in (n, 199)},
+             **{f"{key}_{m}x1": times[(what, f"{m} x 1 f64")]
+                for m in (n, 199)
+                for key, what in (("ms", "k7"), ("device_ms", "k7 device"))},
              **{f"bound_ms_{m}x1": bound(10 * m, 8 * 5 * m)[0]
                 for m in (n, 199)},
              "launches_by_shape": {f"{r} x {b}": k for (r, b), k
@@ -914,6 +924,14 @@ DESK_SUMS = {
                   "0x1.876eccp+16", "0x1.9a1f78p+15", "0x1.39e2dcp+18",
                   "0x1.2b7854p+23", "0x1.ed603ep+15"),
 }
+
+
+def desk_svi() -> torch.Tensor:
+    """The recorded desk table ``DESK_SVI`` as the kernel takes it."""
+    return torch.tensor([[float.fromhex(h) for h in row] for row in DESK_SVI],
+                        dtype=torch.float32)
+
+
 # K3 per base draw, antithetic, counted like K1: half a Threefry block
 # (40), half a Box-Muller pair (a log32, a sqrt, a cos and a sin: 22), two
 # exp32 (44), the two payoffs and their average (12), and the 10 moments
@@ -1120,8 +1138,7 @@ class Config5Slice:
             raise AssertionError("path kernel (lv_milstein) is not bitwise "
                                  "reproducible")
         # the recorded sums on the recorded desk table, bit for bit
-        svi = torch.tensor([[float.fromhex(h) for h in row]
-                            for row in DESK_SVI], dtype=torch.float32)
+        svi = desk_svi()
         fitted = torch.equal(torch.as_tensor(self.surface.svi_table()), svi)
         for scheme, sums in DESK_SUMS.items():
             seed, params, run = self.desk_k4(svi, scheme)
@@ -1151,6 +1168,7 @@ class Config5Slice:
         import optpricer_tpu_torch as tp
         from optpricer_tpu_torch.ops import mc_batch as tmb
         from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.ops import thomas as tth
         from optpricer_tpu_torch.scripts import \
             desk_workflow_localvol_barrier as desk
 
@@ -1216,11 +1234,18 @@ class Config5Slice:
                                  "or KO out of (0, fd_lv)")
 
         # the desk workflow end to end at its full size
-        with k7_shapes() as desk_k7:
-            out = desk.run(**self.DESK, device=dev)
+        k7 = tth.tridiag_solve_kernel
+        k7.launches_by_shape.clear()
+        k7_before = k7.launches
+        out = desk.run(**self.DESK, device=dev)
+        desk_k7 = dict(k7.launches_by_shape)
+        if sum(desk_k7.values()) != k7.launches - k7_before or not desk_k7:
+            raise AssertionError(f"desk workflow: K7 launches by shape "
+                                 f"{desk_k7} against "
+                                 f"{k7.launches - k7_before} launches")
         self.desk_times = out["times"]
         print(f"  desk workflow: K7 launches by (rows, systems) "
-              f"{dict(desk_k7)}")
+              f"{desk_k7}")
         gap = abs(out["fused_barrier"] - out["mc_barrier"])
         band = 5.0 * math.hypot(out["fused_se"], out["mc_se"]) + 1e-3
         dgap = abs(out["grid_greeks"]["delta"] - out["bump_greeks"]["delta"])
@@ -2405,5 +2430,169 @@ def main():
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
+# -- --ab: this tree's K7, K4 lv and PDE numbers against another tree's ------
+AB_TURNS = ("other", "this", "this", "other")
+K7_NAMES = re.compile(r"\b(?:tridiag_\w+_kernel|thomas_kernel)\b")
+
+
+def ptxas_k7_k4lv(report: str) -> dict:
+    """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
+    from a verbose build's report, for K4's LV_MILSTEIN instantiations and
+    K7's kernels."""
+    lines = report.splitlines()
+    found = {}
+    for i, line in enumerate(lines[:-2]):
+        m = re.search(r"Function properties for (\S+)", line)
+        k4 = m and re.search(r"path_mc_kernelILi6ELi(\d)ELb0ELb(\d)",
+                             m.group(1))
+        k7 = m and re.search(r"(tridiag_\w+?_kernel|thomas_kernel)I([fd])",
+                             m.group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", lines[i + 1])
+        regs = re.search(r"Used (\d+) registers", lines[i + 2])
+        if not ((k4 or k7) and spill and regs):
+            continue
+        key = (f"path_mc_kernel<LV_MILSTEIN, payoff {k4.group(1)}, "
+               f"anti={k4.group(2)}>" if k4 else
+               f"{k7.group(1)}<{dict(f='float', d='double')[k7.group(2)]}>")
+        found[key] = (f"{regs.group(1)} registers, {spill.group(1)} bytes "
+                      f"spill stores, {spill.group(2)} bytes spill loads")
+    return found
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call of ``fn``, ``reps`` calls enqueued with
+    no synchronize in between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ab_turn(tree: Path) -> dict:
+    """One turn of ``--ab``: the numbers of the package in ``tree`` (its
+    kernels built from its own sources), timed by this script's rules."""
+    sys.path.insert(0, str(tree))
+    import optpricer_tpu_torch as tp
+    from optpricer_tpu_torch import _build
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import thomas as tth
+
+    if not Path(tp.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"chip_smoke --ab: imported {tp.__file__}, not the "
+                         f"package in {tree}")
+    dev, card = torch.device("cuda", 0), card_line()
+    report = io.StringIO()
+    with redirect_stdout(report):
+        _build.build(verbose=True)
+    _build.load()
+    out = {"card": card, "ptxas": ptxas_k7_k4lv(report.getvalue())}
+
+    desk = Config5Slice(dev, card)
+    for scheme in ("milstein", "log_euler"):
+        seed, params, run = desk.desk_k4(desk_svi(), scheme)
+        sums = pmc.path_mc(seed, params, **run).cpu()
+        out[f"k4 {scheme} sums"] = [float(v).hex() for v in sums]
+        out[f"k4 {scheme} ms"] = cuda_ms(
+            lambda: pmc.path_mc(seed, params, **run))
+
+    pde = PdeSlice(dev, card)
+    n, batch = pde.K7_SHAPE
+    f64, f32 = torch.float64, torch.float32
+    calls = {}
+    for m, b, dtype, tag in ((n, batch, f64, "f64"), (n, batch, f32, "f32"),
+                             (n, 1, f64, "f64"), (n, 1, f32, "f32"),
+                             (199, 1, f64, "f64")):
+        ops = pde.k7_system(m, b, dtype, seed=1)
+        calls[f"{m} x {b} {tag}"] = \
+            lambda ops=ops: tth.tridiag_solve_kernel(*ops)
+    shared = pde.k7_system(n, n, f64, shared=True, seed=1)
+    calls[f"{n} x {n} f64 shared columns"] = \
+        lambda: tth.tridiag_solve_kernel(*shared)
+    a, b, c, d = pde.k7_system(n, batch, f64, shared=True, seed=1)
+    rows, rhs = [t[:, 0] for t in (a, b, c)], d.t().contiguous()
+    calls[f"ladder call {batch} x {n} f64 (last axis)"] = \
+        lambda: tth.tridiag_solve_kernel_lastdim(*rows, rhs)
+    cols = pde.k7_system(n, n, f64, seed=2)[3]
+    calls[f"propagator build {n} x {n} f64 (last axis, rhs transposed)"] = \
+        lambda: tth.tridiag_solve_kernel_lastdim(*rows, cols.T)
+    for what, fn in calls.items():
+        out[f"k7 {what}"] = dict(ms=cuda_ms(fn, reps=21),
+                                 device_ms=cuda_ms(fn, reps=21, queued=True),
+                                 host_us=host_us(fn))
+
+    spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
+    g4 = pde.GRID4
+    marches = {
+        f"ladder auto f64 {pde.N_STRIKES} x {pde.N_S} x {pde.N_T}": (
+            lambda: pde.ladder("auto"), 5),
+        "fd_price American put PSOR 512 x 256": (lambda: tp.fd_price(
+            spec4, "put", american=True, american_method="psor", **g4,
+            device=dev), 3),
+        "fd_price European call 512 x 256": (lambda: tp.fd_price(
+            spec4, "call", **g4, device=dev), 5),
+        "fd_price_local_vol 200 x 200": (lambda: tp.fd_price_local_vol(
+            100.0, 100.0, 1.0, 0.05, 0.0,
+            lambda S, t: 0.2 * torch.ones_like(S), "call", N_S=200, N_t=200,
+            ref_vol=0.2, device=dev), 5),
+    }
+    for what, (fn, reps) in marches.items():
+        fn()
+        wall = statistics.median(timed(fn)[1] * 1e3 for _ in range(reps))
+        _, busy, n_k, k7 = device_busy(fn, K7_NAMES)
+        out[f"pde {what}"] = dict(wall_ms=wall, busy_ms=busy, k7_ms=k7,
+                                  kernels=n_k)
+    return out
+
+
+def ab(other: Path):
+    """Run ``ab_turn`` on ``other`` and on this tree in the turns
+    ``AB_TURNS``, one process each, and print every number side by side,
+    the ptxas lines of each tree's turn that built it, and whether K4's
+    sums are equal bit for bit across the turns. The last line is one JSON
+    object with every turn's numbers."""
+    trees = {"this": ROOT, "other": other.resolve()}
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, side in enumerate(AB_TURNS):
+            path = Path(tmp) / f"{i}.json"
+            subprocess.run([sys.executable, __file__, "--ab-turn",
+                            str(trees[side]), str(path)], check=True,
+                           env=dict(os.environ, PYTHONPATH=""), timeout=1500)
+            turns.append((side, json.loads(path.read_text())))
+    print(f"card: {turns[0][1]['card']}; turns: {', '.join(AB_TURNS)} "
+          f"(other = {trees['other']})")
+    for key, first in turns[0][1].items():
+        if key in ("card", "ptxas") or key.endswith("sums"):
+            continue
+        for field in first if isinstance(first, dict) else [None]:
+            values = [t[key] if field is None else t[key][field]
+                      for _, t in turns]
+            print(f"{key}{'' if field is None else ' ' + field}: "
+                  + ", ".join(f"{v:.4f}" for v in values))
+    for side, turn in turns:
+        for name, line in turn["ptxas"].items():
+            print(f"ptxas {side} {name}: {line}")
+    for scheme in ("milstein", "log_euler"):
+        sums = [t[f"k4 {scheme} sums"] for _, t in turns]
+        same = all(s == sums[0] for s in sums)
+        print(f"k4 {scheme} at the desk's call: the 21 sums are "
+              f"{'equal' if same else 'NOT equal'} bit for bit across the "
+              "turns")
+    print(json.dumps({"turns": [dict(t, side=s) for s, t in turns]}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:
+        Path(sys.argv[3]).write_text(json.dumps(
+            ab_turn(Path(sys.argv[2]).resolve())))
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        ab(Path(sys.argv[2]))
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE]")

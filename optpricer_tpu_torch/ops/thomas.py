@@ -41,12 +41,14 @@ entry point calls it.
 
 ``tridiag_solve_kernel`` and ``tridiag_solve_kernel_lastdim`` launch the
 kernel for tensors on a CUDA device and count each launch in
-``tridiag_solve_kernel.launches``; for tensors on the CPU they run
+``tridiag_solve_kernel.launches``, and by (n, batch) in
+``tridiag_solve_kernel.launches_by_shape``; for tensors on the CPU they run
 ``_thomas_plain``. Any other device raises.
 """
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 
@@ -158,9 +160,10 @@ def _check(a, b, c, d):
         if t.dtype != d.dtype or t.device != d.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, d is "
                              f"{d.dtype} on {d.device}")
-        if t.dim() != 2 or t.shape[0] != n or t.shape[1] not in (1, batch):
+        shape = t.shape
+        if len(shape) != 2 or shape[0] != n or shape[1] not in (1, batch):
             raise ValueError(f"{name} must be ({n}, {batch}) or ({n}, 1), "
-                             f"got {tuple(t.shape)}")
+                             f"got {tuple(shape)}")
     if d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {d.device}")
 
@@ -168,7 +171,8 @@ def _check(a, b, c, d):
 def _strides(t, batch: int):
     """(row, system) strides of an (n, batch) or (n, 1) operand; a single
     column, or a system axis of stride 0, is one column for every system."""
-    return t.stride(0), t.stride(1) if t.shape[1] == batch else 0
+    row, system = t.stride()
+    return row, system if t.shape[1] == batch else 0
 
 
 def _solve_into(a, b, c, d, x):
@@ -195,6 +199,7 @@ def _solve_into(a, b, c, d, x):
         raise RuntimeError(f"tridiagonal kernel launch failed: CUDA error "
                            f"{err}")
     tridiag_solve_kernel.launches += 1
+    tridiag_solve_kernel.launches_by_shape[(n, batch)] += 1
 
 
 def tridiag_solve_kernel(a, b, c, d) -> torch.Tensor:
@@ -213,6 +218,7 @@ def tridiag_solve_kernel(a, b, c, d) -> torch.Tensor:
 
 
 tridiag_solve_kernel.launches = 0
+tridiag_solve_kernel.launches_by_shape = Counter()
 
 
 def tridiag_solve_kernel_lastdim(a, b, c, d) -> torch.Tensor:

@@ -170,7 +170,9 @@ def test_float32_thomas_matches_reference():
 
 
 # -- K7's algorithm: the plain mirror of the CUDA kernel --------------------
-PCR_NS = [1, 2, 3, 37, 199, 511, 2049]     # 2049 > PCR_MAX_ROWS: partitioned
+# above PCR_MAX_ROWS the partitioned form: 1025 and 1536 in chunks of 3
+# rows (no up-sweep), 2049 in chunks of 5
+PCR_NS = [1, 2, 3, 37, 199, 511, 1025, 1536, 2049]
 PCR_RTOL = {np.float64: 1e-12, np.float32: 2e-5}
 
 
