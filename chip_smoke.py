@@ -8,8 +8,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
 1. device — require ``torch.cuda.is_available()``; print the card's name
    and power limit as ``nvidia-smi`` reports them.
 2. build — compile the CUDA kernels from ``optpricer_tpu_torch/csrc`` (one
-   nvcc per source, all started together) and print the build seconds and
-   ptxas' registers and spills for every kernel instantiation.
+   nvcc per source, all started together) and print the build seconds,
+   ptxas' registers and spills for every kernel instantiation, and the
+   resident blocks per SM (the CUDA runtime's occupancy) and waves of K4's
+   timed instantiations (``K4_TIMED``) at their shapes.
 3. kernel vs plain — each kernel's wrapper against its plain torch version
    on the same card and inputs:
    * the terminal kernel (K1) at 2^20 and a ragged 1 000 003 draws for
@@ -52,8 +54,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      worst-of and basket barriers up/down x in/out (with a rebate) at
      2^16 + 123 pairs x 16 steps, antithetic on and off for 3 assets;
    * K4's lsv and lsv_qe branches on the calibrated tables at 2^20 x 96
-     (up-and-out 130), and on a fixed 16-step table for the five payoffs x
-     antithetic on/off at 2^16 + 123 paths.
+     (up-and-out 130), on a fixed 16-step table for the five payoffs x
+     antithetic on/off at 2^16 + 123 paths, and up-and-out 125 there on a
+     degree-5 table (the Horner loop over a shared row) and a 130-step
+     degree-12 table (past one staged window of leverage rows).
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
@@ -143,9 +147,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30 and 2^24 base draws and
    its plain version at 2^24; K2 and its plain version at 2^22 points; K4
-   and its plain version at the main path's shape, and K4 with Greek
-   moments there; K5 and its plain version at 65 536 x 8 x 64 and at 2^20 x
-   8 x 252; K7 at (511, 1024) in f64 and f32 with its plain version and
+   and its plain version at the main path's shape, K4 with Greek moments
+   there, and K4's Heston Euler and SABR β=1 vanillas at 1M x 64; K5 and
+   its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252; K7 at
+   (511, 1024) in f64 and f32 with its plain version and
    torch.linalg.solve on the dense (1024, 511, 511) f64 matrices, with
    shared columns, at the ladder's last-axis call, and at (511, 1) and
    (199, 1), median of 21, each twice: like every kernel (the host's launch
@@ -185,15 +190,31 @@ line is ``{"ok": true, "device": {...}}``.
 compares this tree with another checkout of the repository (the parent
 commit unpacked with ``git archive``, say) instead: one process per turn,
 in the order other, this, this, other, each importing and building its own
-tree's package and timing it by this script's rules (``ab_turn``): K4
-lv_milstein and lv_euler at the desk's call on ``DESK_SVI`` (its 21 sums
-compared bit for bit across the turns), K7 at the shapes phase 6 times
-and the propagator build's (with the host's launch latency, the device's
-time alone, and the host's µs a call), and the host-clock wall and
-device-busy time (K7's share under torch.profiler) of the "auto" ladder,
-the PSOR put, the European call and ``fd_price_local_vol`` at 200 x 200;
-and ptxas' registers and spills of K7 and K4 ``LV_MILSTEIN`` from each
-turn that builds its tree's library.
+tree's package and timing it by this script's rules (``ab_turn``): K4's
+timed instantiations (``K4_TIMED``: config 3's asian with the geometric CV
+at 1M x 252 with and without Greek moments, lsv and lsv_qe up-and-out 130
+at 2^20 x 96 on the calibrated tables, the Heston Euler and SABR β=1
+vanillas at 1M x 64), their 21 sums at 2^18 paths (one rep) compared bit
+for bit across the turns and at the timed shape within rtol 2e-5; the
+host-clock walls of config 3's ``exotic_price_mc`` and of
+``lsv_price_mc``'s up-and-out calls; K4 lv_milstein and lv_euler at the
+desk's call on ``DESK_SVI`` (its 21 sums compared bit for bit across the
+turns), K7 at the shapes phase 6 times and the propagator build's (with
+the host's launch latency, the device's time alone, and the host's µs a
+call), and the host-clock wall and device-busy time (K7's share under
+torch.profiler) of the "auto" ladder, the PSOR put, the European call and
+``fd_price_local_vol`` at 200 x 200; the resident blocks per SM and waves
+of ``K4_TIMED`` (a tree without the path kernel's occupancy query gets a
+probe library built on its ``path_mc.cu``); and, from each turn that
+builds its tree's library, ptxas' registers and spills of K7, K4
+``LV_MILSTEIN`` and ``K4_TIMED``, and the static SASS instruction count of
+``K4_TIMED``'s step-pair loop by class (``cuobjdump -sass``) with the
+issue-limited time it implies.
+
+    python3 chip_smoke.py --ab OTHER_TREE --static
+
+prints only what the two builds show (ptxas, resident blocks, SASS), one
+turn per tree.
 """
 from __future__ import annotations
 
@@ -214,8 +235,38 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SPEC = dict(S0=100.0, K=110.0, T=1.0, r=0.03, sigma=0.2, q=0.0)
+MARKET = (SPEC["S0"], SPEC["K"], SPEC["T"], SPEC["r"], SPEC["q"],
+          SPEC["sigma"])
 RTOL = 2e-5
 K4_SIGNED = (11, 13, 15, 17, 19)
+K4_PAYOFFS = {
+    "vanilla": dict(payoff="vanilla"),
+    "up-and-out": dict(payoff="barrier", barrier=130.0),
+    "down-and-in": dict(payoff="barrier", barrier=90.0, rebate=1.5,
+                        barrier_type="down-and-in", is_call=False),
+    "asian-geo_cv": dict(payoff="asian", geo_cv=True),
+    "asian-geometric-floating": dict(payoff="asian",
+                                     average_type="geometric",
+                                     strike_type="floating"),
+    "digital": dict(payoff="digital"),
+    "lookback-fixed": dict(payoff="lookback"),
+    "lookback-floating": dict(payoff="lookback", strike_type="floating",
+                              is_call=False),
+}
+# the stochastic-volatility dynamics of phase 5's K4 calls
+SV_PHASE5 = (dict(heston=dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4,
+                              rho=-0.6)),
+             dict(sabr=dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4)))
+# K4's timed instantiations (all antithetic): label -> (dynamics, payoff,
+# Greek moments, paths, steps) of the main-path call each times
+K4_TIMED = {
+    "gbm asian": ("gbm", "asian", False, 1_000_000, 252),
+    "gbm asian greeks": ("gbm", "asian", True, 1_000_000, 252),
+    "lsv barrier": ("lsv", "barrier", False, 1 << 20, 96),
+    "lsv_qe barrier": ("lsv_qe", "barrier", False, 1 << 20, 96),
+    "heston vanilla": ("heston", "vanilla", False, 1_000_000, 64),
+    "sabr_ln vanilla": ("sabr_ln", "vanilla", False, 1_000_000, 64),
+}
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores and
 # the HBM3 rate. Integer operations are counted at the float32 rate.
@@ -262,6 +313,74 @@ def ops_k5_point(n_steps: int) -> float:
     per point the Gray-code bit (1), the two closing exp32 (44), the payoff
     and its 6 moments (~20). The geometric average needs no exp32 per step."""
     return 58 * n_steps + 65
+
+
+def k4_call(dev, n, n_steps, pay, dyn, anti, greeks, mkt=MARKET):
+    """(seed, params, run kwargs, dynamics, geo_ey, market) of one K4 call
+    under GBM (``dyn`` empty) or a ``SV_PHASE5``-like dynamics dict."""
+    from optpricer_tpu_torch.models.analytic import geometric_asian_price_f64
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    params, static = pmc._resolve_config(
+        n, n_steps, *mkt, pay.get("is_call", True), pay["payoff"],
+        anti, pay.get("barrier", 0.0),
+        pay.get("barrier_type", "up-and-out"), pay.get("rebate", 0.0),
+        pay.get("average_type", "arithmetic"),
+        pay.get("strike_type", "fixed"), 1.0, None,
+        dyn.get("scheme", "log_euler"), 0.01, dyn.get("heston"),
+        dyn.get("sabr"), pay.get("geo_cv", False))
+    reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+    run = dict(n_programs=n_prog, reps=reps, with_greeks=greeks, **static)
+    geo = geometric_asian_price_f64(*mkt, n_steps=n_steps) \
+        if pay.get("geo_cv") else None
+    return (tmc._seed_pair(11, dev), params.to(dev), run,
+            "gbm" if not dyn else "sv", geo, mkt)
+
+
+def k4_timed_calls(dev, multi, n=None) -> dict:
+    """label -> (seed, params, run kwargs) of each ``K4_TIMED`` call at its
+    main-path shape, or at ``n`` paths: config 3's asian with the
+    geometric CV (K = 100, 1M x 252), with and without Greek moments; the
+    Heston Euler and SABR β=1 calls of phase 5 (1M x 64); lsv and lsv_qe
+    up-and-out 130 on ``multi``'s calibrated tables (2^20 x 96)."""
+    calls = {}
+    for label, (dynamics, payoff, greeks, n_full, n_steps) in \
+            K4_TIMED.items():
+        if dynamics in ("lsv", "lsv_qe"):
+            scheme = "qe" if dynamics == "lsv_qe" else "euler"
+            if scheme not in multi.models:
+                multi.models[scheme] = multi.calibrate(scheme)
+            calls[label] = multi.k4_lsv(multi.models[scheme], n or n_full,
+                                        dict(payoff="barrier", barrier=130.0))
+            continue
+        if dynamics == "gbm":
+            pay, dyn, mkt = K4_PAYOFFS["asian-geo_cv"], {}, \
+                (100.0, 100.0, *MARKET[2:])
+        else:
+            pay, mkt = K4_PAYOFFS["vanilla"], MARKET
+            dyn = SV_PHASE5[0] if dynamics == "heston" else SV_PHASE5[1]
+        calls[label] = k4_call(dev, n or n_full, n_steps, pay, dyn, True,
+                               greeks, mkt)[:3]
+    return calls
+
+
+def k4_waves(dev) -> dict:
+    """label -> (resident blocks per SM, grid blocks, waves, paths priced)
+    of each ``K4_TIMED`` instantiation at its shape on this card."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, (dynamics, payoff, greeks, n, _) in K4_TIMED.items():
+        per_sm = pmc.blocks_per_sm(dynamics, pmc.PAYOFF_IDS[payoff], greeks,
+                                   True)
+        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+        blocks, _ = pmc._launch_plan(dynamics, n_prog, reps)
+        out[label] = (per_sm, blocks, blocks / (per_sm * sms),
+                      n_prog * reps * pmc.TILE)
+    return out
 
 
 def bound(ops: float, n_bytes: float):
@@ -1526,14 +1645,20 @@ class MultiAssetLsvSlice:
     def k4_lsv(self, model, n, pay, anti=True, seed=7):
         """(seed, params, run kwargs) of one K4-lsv call on ``model``."""
         from optpricer_tpu_torch.models import lsv as tl
+
+        coeffs, x_width = tl._leverage_poly(model)
+        return self.k4_lsv_table(
+            dict(model.heston, coeffs=coeffs, x_width=x_width,
+                 scheme=model.scheme), model.n_steps, n, pay, anti, seed)
+
+    def k4_lsv_table(self, lsv, n_steps, n, pay, anti=True, seed=7):
+        """(seed, params, run kwargs) of one K4-lsv call on the ``lsv``
+        dict's coefficient table."""
         from optpricer_tpu_torch.ops import path_mc as pmc
         from optpricer_tpu_torch.ops import terminal_mc as tmc
 
-        coeffs, x_width = tl._leverage_poly(model)
-        lsv = dict(model.heston, coeffs=coeffs, x_width=x_width,
-                   scheme=model.scheme)
         params, static = pmc._resolve_config(
-            n, model.n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None, True,
+            n, n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None, True,
             pay["payoff"], anti, pay.get("barrier", 0.0), "up-and-out", 0.0,
             "arithmetic", pay.get("strike_type", "fixed"), 1.0, None,
             "log_euler", 0.01, None, lsv=lsv)
@@ -1613,6 +1738,19 @@ class MultiAssetLsvSlice:
                     k4_check(f"path {scheme} table model {name} anti={anti} "
                              f"{self.SMALL[0]} x {self.SMALL[1]}",
                              self.k4_lsv(model, self.SMALL[0], pay, anti))
+        # a degree-5 table (the Horner loop over a shared row) and a table
+        # longer than the window of steps a block stages at once
+        rng = np.random.default_rng(5)
+        for scheme in ("euler", "qe"):
+            for n_steps, deg in ((self.SMALL[1], 5), (pmc.LEV_WINDOW + 2, 12)):
+                coeffs = 0.05 * rng.standard_normal((n_steps, deg + 1))
+                coeffs[:, -1] += 1.0
+                lsv = dict(self.HESTON, coeffs=coeffs, x_width=0.6,
+                           scheme=scheme)
+                k4_check(f"path {scheme} degree {deg} table up-and-out 125 "
+                         f"{self.SMALL[0]} x {n_steps}",
+                         self.k4_lsv_table(lsv, n_steps, self.SMALL[0],
+                                           pays["barrier"]))
 
     # -- phase 4 ---------------------------------------------------------
     def phase4(self):
@@ -1928,7 +2066,6 @@ def main():
     from optpricer_tpu_torch import _build
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch.models import mc_fused
-    from optpricer_tpu_torch.models.analytic import geometric_asian_price_f64
     from optpricer_tpu_torch.ops import path_mc as pmc
     from optpricer_tpu_torch.ops import qmc_path as qmp
     from optpricer_tpu_torch.ops import terminal_mc as tmc
@@ -1951,10 +2088,13 @@ def main():
     for line in report.getvalue().splitlines():  # empty if already built
         if "Function properties" in line or "spill" in line or "Used" in line:
             print("  " + line.strip())
+    for label, (per_sm, blocks, waves, _) in k4_waves(dev).items():
+        dynamics, _, _, n, n_steps = K4_TIMED[label]
+        print(f"phase 2 K4 {label} ({n} x {n_steps}): {per_sm} resident "
+              f"blocks per SM, {blocks} blocks, {waves:.2f} waves")
 
     # phase 3: kernels against their plain versions, on the card
-    market = (SPEC["S0"], SPEC["K"], SPEC["T"], SPEC["r"], SPEC["q"],
-              SPEC["sigma"])
+    market = MARKET
     # worst[name] = [max rel err, max |price difference|, its case]
     worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
                                           "qmc_path", "tridiag", "fd_lv",
@@ -1997,24 +2137,6 @@ def main():
             rows.double().cpu().numpy().reshape(R, ppr, tmc.NSTAT).sum(1),
             *market, is_call)[0] for rows in (k, p)), case)
 
-    def k4_setup(n, n_steps, pay, dyn, anti, greeks, mkt=market):
-        """(seed, params, run kwargs, dynamics, geo_ey, market) for K4."""
-        params, static = pmc._resolve_config(
-            n, n_steps, *mkt, pay.get("is_call", True), pay["payoff"],
-            anti, pay.get("barrier", 0.0),
-            pay.get("barrier_type", "up-and-out"), pay.get("rebate", 0.0),
-            pay.get("average_type", "arithmetic"),
-            pay.get("strike_type", "fixed"), 1.0, None,
-            dyn.get("scheme", "log_euler"), 0.01, dyn.get("heston"),
-            dyn.get("sabr"), pay.get("geo_cv", False))
-        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
-        run = dict(n_programs=n_prog, reps=reps, with_greeks=greeks,
-                   **static)
-        geo = geometric_asian_price_f64(*mkt, n_steps=n_steps) \
-            if pay.get("geo_cv") else None
-        return (tmc._seed_pair(11, dev), params.to(dev), run,
-                "gbm" if not dyn else "sv", geo, mkt)
-
     def k4_check(what, setup, pay, signed=()):
         """The kernel against its plain version on one K4 setup."""
         seed, params, run, dynamics, geo, mkt = setup
@@ -2027,22 +2149,8 @@ def main():
 
     heston = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7)
     sabr = dict(alpha0=0.2, beta=0.6, nu=0.4, rho=-0.3)
-    payoffs = {
-        "vanilla": dict(payoff="vanilla"),
-        "up-and-out": dict(payoff="barrier", barrier=130.0),
-        "down-and-in": dict(payoff="barrier", barrier=90.0, rebate=1.5,
-                            barrier_type="down-and-in", is_call=False),
-        "asian-geo_cv": dict(payoff="asian", geo_cv=True),
-        "asian-geometric-floating": dict(payoff="asian",
-                                         average_type="geometric",
-                                         strike_type="floating"),
-        "digital": dict(payoff="digital"),
-        "lookback-fixed": dict(payoff="lookback"),
-        "lookback-floating": dict(payoff="lookback", strike_type="floating",
-                                  is_call=False),
-    }
     k4_shape = ((1 << 18) + 123, 16)  # paths (a ragged count), steps
-    k4_runs = [(name, {}, anti, greeks) for name in payoffs
+    k4_runs = [(name, {}, anti, greeks) for name in K4_PAYOFFS
                for anti in (True, False) for greeks in (False, True)]
     k4_runs += [(name, dyn, anti, False) for name in ("vanilla", "up-and-out")
                 for dyn in (dict(heston=heston),
@@ -2052,16 +2160,14 @@ def main():
     for name, dyn, anti, greeks in k4_runs:
         k4_check(f"path {name} {list(dyn.values())} anti={anti} "
                  f"greeks={greeks}",
-                 k4_setup(*k4_shape, payoffs[name], dyn, anti, greeks),
-                 payoffs[name], signed=K4_SIGNED)
+                 k4_call(dev, *k4_shape, K4_PAYOFFS[name], dyn, anti,
+                         greeks),
+                 K4_PAYOFFS[name], signed=K4_SIGNED)
     # every K4 configuration that phase 5 runs, at its shape and market
-    main_k4 = k4_setup(1_000_000, 252, payoffs["asian-geo_cv"], {}, True,
-                       False, mkt=(100.0, 100.0, *market[2:]))
+    main_k4 = k4_call(dev, 1_000_000, 252, K4_PAYOFFS["asian-geo_cv"], {},
+                      True, False, mkt=(100.0, 100.0, *market[2:]))
     k4_check("path main shape 1M x 252 asian geo_cv", main_k4,
-             payoffs["asian-geo_cv"])
-    sv_phase5 = (dict(heston=dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4,
-                                  rho=-0.6)),
-                 dict(sabr=dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4)))
+             K4_PAYOFFS["asian-geo_cv"])
     phase5_k4 = [
         ("asian", dict(payoff="asian"), {}, 252, False,
          (100.0, 100.0, *market[2:])),
@@ -2077,13 +2183,13 @@ def main():
         ("vanilla greeks", dict(payoff="vanilla"), {}, 8, True, market),
     ] + [(f"{kind} vanilla", dict(payoff="vanilla", is_call=is_call), dyn,
           64, False, market)
-         for dyn in sv_phase5 for is_call, kind in ((True, "call"),
+         for dyn in SV_PHASE5 for is_call, kind in ((True, "call"),
                                                      (False, "put"))]
     for label, pay, dyn, n_steps, greeks, mkt in phase5_k4:
         k4_check(f"path phase-5 shape 1M x {n_steps} {label} "
                  f"{list(dyn.values())}",
-                 k4_setup(1_000_000, n_steps, pay, dyn, True, greeks,
-                          mkt=mkt), pay, signed=K4_SIGNED)
+                 k4_call(dev, 1_000_000, n_steps, pay, dyn, True, greeks,
+                         mkt=mkt), pay, signed=K4_SIGNED)
 
     def k5_setup(payoff, n, d, R=8):
         m_bits, d_pad, reps, ppr = qmp._plan(n, d, R)
@@ -2115,7 +2221,7 @@ def main():
     pde = PdeSlice(dev, card)
     pde.phase3(record)
     desk = Config5Slice(dev, card)
-    desk.phase3(record, payoffs)
+    desk.phase3(record, K4_PAYOFFS)
     multi = MultiAssetLsvSlice(dev, card)
     multi.phase3(record)
 
@@ -2273,7 +2379,7 @@ def main():
                 geo64, what="closed form")
     parity = SPEC["S0"] * math.exp(-SPEC["q"] * SPEC["T"]) \
         - SPEC["K"] * math.exp(-SPEC["r"] * SPEC["T"])
-    for label, dyn in zip(("heston euler", "sabr beta=1"), sv_phase5):
+    for label, dyn in zip(("heston euler", "sabr beta=1"), SV_PHASE5):
         sv = dict(n_steps=64, n_paths=1_000_000, seed=9, device=dev, **dyn)
         call_cv, se_cv = tp.exotic_price_mc("vanilla", *market[:5],
                                             control_variate=True, **sv)
@@ -2359,6 +2465,16 @@ def main():
     run4g = dict(run4, with_greeks=True)
     times[("k4greeks", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4g))
+    sv_calls = k4_timed_calls(dev, multi)
+    for label in ("heston vanilla", "sabr_ln vanilla"):
+        seed_sv, params_sv, run_sv = sv_calls[label]
+        times[("k4", label)] = cuda_ms(
+            lambda: pmc.path_mc(seed_sv, params_sv, **run_sv))
+    print(f"phase 6 time K4 gbm asian + geometric CV 1M x 252: "
+          f"{times[('k4', '1M x 252')]:.4f} ms, with Greek moments "
+          f"{times[('k4greeks', '1M x 252')]:.4f} ms; heston vanilla 1M x 64 "
+          f"{times[('k4', 'heston vanilla')]:.4f} ms; sabr_ln vanilla 1M x 64 "
+          f"{times[('k4', 'sabr_ln vanilla')]:.4f} ms [{card}]")
     k5_bounds = {}
     for n, d in ((65_536, 64), (1 << 20, 252)):
         tensors, kw5, (R5, _, _) = k5_setup("asian", n, d)
@@ -2407,7 +2523,9 @@ def main():
          "shape": "asian + geometric CV, 1M paths x 252 steps, antithetic",
          "ms_greeks": times[("k4greeks", "1M x 252")],
          "bound_ms_greeks": bound(1_000_000 * 252 * ops_k4_path_step(
-             True, True), 188)[0]},
+             True, True), 188)[0],
+         "ms_heston_1Mx64": times[("k4", "heston vanilla")],
+         "ms_sabr_ln_1Mx64": times[("k4", "sabr_ln vanilla")]},
         {"name": "qmc_path_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/qmc_path.cu",
          "replaces": "optpricer_tpu/ops/pallas_qmc_path.py:113",
@@ -2430,34 +2548,216 @@ def main():
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-# -- --ab: this tree's K7, K4 lv and PDE numbers against another tree's ------
+# -- --ab: this tree's K4, K7 and PDE numbers against another tree's -------
 AB_TURNS = ("other", "this", "this", "other")
+AB_STATIC_TURNS = ("other", "this")
 K7_NAMES = re.compile(r"\b(?:tridiag_\w+_kernel|thomas_kernel)\b")
+# a path_mc_kernel instantiation's mangled template arguments: dynamics,
+# payoff, Greeks, antithetic and, from this tree on, the LSV coefficients
+K4_KERNEL = re.compile(
+    r"path_mc_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E(?:Li(\d+)E)?E")
+LV_MILSTEIN = 6
 
 
-def ptxas_k7_k4lv(report: str) -> dict:
+def k4_label(m: re.Match) -> str | None:
+    """The name of a ``K4_KERNEL`` match that ``--ab`` reports: K4's
+    LV_MILSTEIN instantiations, and the ``K4_TIMED`` ones (antithetic; LSV
+    at the reference's 13 coefficients)."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+
+    dyn, payoff, greeks, anti, nc = (int(m[1]), int(m[2]), m[3] == "1",
+                                     m[4] == "1", m[5])
+    if dyn == LV_MILSTEIN:
+        return (f"path_mc_kernel<LV_MILSTEIN, payoff {payoff}, "
+                f"anti={int(anti)}>")
+    if not anti or nc not in (None, "0", str(pmc.MAX_COEFFS)):
+        return None
+    if nc == "0" and dyn in (pmc.DYNAMICS["lsv"], pmc.DYNAMICS["lsv_qe"]):
+        return None
+    for label, (dynamics, pay, g, _, _) in K4_TIMED.items():
+        if (pmc.DYNAMICS[dynamics], pmc.PAYOFF_IDS[pay], g) == \
+                (dyn, payoff, greeks):
+            return f"path_mc_kernel {label}"
+    return None
+
+
+def ptxas_k4_k7(report: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
-    from a verbose build's report, for K4's LV_MILSTEIN instantiations and
-    K7's kernels."""
+    from a verbose build's report, for K4's LV_MILSTEIN and ``K4_TIMED``
+    instantiations and K7's kernels."""
     lines = report.splitlines()
     found = {}
     for i, line in enumerate(lines[:-2]):
         m = re.search(r"Function properties for (\S+)", line)
-        k4 = m and re.search(r"path_mc_kernelILi6ELi(\d)ELb0ELb(\d)",
-                             m.group(1))
+        k4 = m and K4_KERNEL.search(m.group(1))
         k7 = m and re.search(r"(tridiag_\w+?_kernel|thomas_kernel)I([fd])",
                              m.group(1))
+        key = k4_label(k4) if k4 else (
+            f"{k7.group(1)}<{dict(f='float', d='double')[k7.group(2)]}>"
+            if k7 else None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", lines[i + 1])
         regs = re.search(r"Used (\d+) registers", lines[i + 2])
-        if not ((k4 or k7) and spill and regs):
+        if not (key and spill and regs):
             continue
-        key = (f"path_mc_kernel<LV_MILSTEIN, payoff {k4.group(1)}, "
-               f"anti={k4.group(2)}>" if k4 else
-               f"{k7.group(1)}<{dict(f='float', d='double')[k7.group(2)]}>")
         found[key] = (f"{regs.group(1)} registers, {spill.group(1)} bytes "
                       f"spill stores, {spill.group(2)} bytes spill loads")
     return found
+
+
+# For a tree whose path_mc.cu has no occupancy query (before the per-path
+# grid): a library that includes that source and asks the CUDA runtime
+# about its four-parameter path_mc_kernel instantiations.
+PROBE_SOURCE = """#include "{source}"
+template <int D, int P, bool G>
+int probe_occupancy() {{
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, optpricer::path_mc_kernel<D, P, G, true>, 128, 0);
+  return err == cudaSuccess ? n : -1;
+}}
+extern "C" int path_mc_probe(int dyn, int payoff, int greeks) {{
+{cases}
+  return -1;
+}}
+"""
+
+
+def occupancy_probe(tree: Path):
+    """``fn(dynamics id, payoff id, greeks) -> resident blocks per SM`` for
+    the ``K4_TIMED`` instantiations of ``tree``'s path kernel, through a
+    library built from ``PROBE_SOURCE`` beside the tree's kernels."""
+    import ctypes
+
+    from optpricer_tpu_torch import _build
+    from optpricer_tpu_torch.ops import path_mc as pmc
+
+    cases = "\n".join(
+        f"  if (dyn == {pmc.DYNAMICS[d]} && payoff == {pmc.PAYOFF_IDS[p]} "
+        f"&& greeks == {int(g)}) return probe_occupancy<{pmc.DYNAMICS[d]}, "
+        f"{pmc.PAYOFF_IDS[p]}, {'true' if g else 'false'}>();"
+        for d, p, g, _, _ in K4_TIMED.values())
+    src = _build.BUILD_DIR / "path_mc_probe.cu"
+    lib = _build.BUILD_DIR / "path_mc_probe.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(PROBE_SOURCE.format(
+        source=tree / "optpricer_tpu_torch" / "csrc" / "path_mc.cu",
+        cases=cases))
+    if not lib.exists():
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                        *_build.SOURCES["path_mc.cu"], "-shared", "-o",
+                        str(lib), str(src)], check=True, capture_output=True,
+                       timeout=900)
+    fn = ctypes.CDLL(str(lib)).path_mc_probe
+    fn.argtypes = (ctypes.c_int,) * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k4_occupancy(dev, tree: Path) -> dict:
+    """label -> [resident blocks per SM, grid blocks, waves, paths] of each
+    ``K4_TIMED`` call of the package in ``tree``: ``k4_waves``, or for a
+    tree from before the per-path grid, its probe and its grid of
+    n_programs x 32 blocks."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    if hasattr(pmc, "blocks_per_sm"):
+        return {k: list(v) for k, v in k4_waves(dev).items()}
+    probe = occupancy_probe(tree)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, (dynamics, payoff, greeks, n, _) in K4_TIMED.items():
+        per_sm = probe(pmc.DYNAMICS[dynamics], pmc.PAYOFF_IDS[payoff],
+                       int(greeks))
+        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+        blocks = n_prog * pmc.TILE // 128
+        out[label] = [per_sm, blocks, blocks / (per_sm * sms),
+                      n_prog * reps * pmc.TILE]
+    return out
+
+
+# SASS opcode classes (the opcode before its first '.'; U-prefixed uniform
+# integer ops count as integer)
+SASS_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FSET", "FMNMX", "FSEL",
+             "FCHK", "FRND", "FSWZADD"}
+SASS_INT = {"IADD3", "IADD", "IMAD", "IMUL", "ISETP", "IABS", "IMNMX",
+            "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "PRMT", "SEL", "POPC",
+            "FLO", "BREV", "BMSK", "IDP", "SGXT"}
+SASS_CONV = {"I2F", "F2I", "F2F", "I2I", "I2FP", "F2IP", "F2FP"}
+
+
+def sass_class(opcode: str) -> str:
+    base = opcode.split(".")[0]
+    if base == "MUFU":
+        return "mufu"
+    if base in SASS_FP32:
+        return "fp32"
+    if base in SASS_CONV:
+        return "conversion"
+    if base.startswith(("LD", "ST", "ULDC", "ATOM", "RED")):
+        return "memory"
+    if base in SASS_INT or (base[:1] == "U" and base[1:] in SASS_INT):
+        return "int"
+    return "other"
+
+
+def sass_step_loops(lib: Path) -> dict:
+    """label -> instruction counts by class of the step-pair loop of each
+    ``K4_TIMED`` instantiation in ``lib`` (``cuobjdump -sass``): the static
+    instructions from the target of the smallest backward branch whose
+    span holds a MUFU instruction (the Box-Muller square root, log32's
+    division) to that branch, with the backward branches inside it
+    (``inner_loops``) and its CALLs (the division and sin/cos slow
+    paths)."""
+    from optpricer_tpu_torch import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=900).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        m = K4_KERNEL.search(chunk.split(None, 1)[0])
+        label = m and k4_label(m)
+        if not label or "LV_MILSTEIN" in label:
+            continue
+        insts, labels = [], {}
+        for line in chunk.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(insts)
+                continue
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if ins:
+                insts.append((int(ins.group(1), 16), ins.group(2)))
+        index = {addr: i for i, (addr, _) in enumerate(insts)}
+        loops = []
+        for i, (_, txt) in enumerate(insts):
+            br = re.search(r"\bBRA\S*\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)", txt)
+            if not br:
+                continue
+            tgt = br.group(1)
+            j = labels.get(tgt) if tgt.startswith(".L") \
+                else index.get(int(tgt, 16))
+            if j is not None and j < i:
+                loops.append((j, i))
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for _, t in insts]
+        with_mufu = [(j, i) for j, i in loops
+                     if any(o.startswith("MUFU") for o in ops[j:i + 1])]
+        if not with_mufu:
+            out[label] = None
+            continue
+        j, i = min(with_mufu, key=lambda ji: ji[1] - ji[0])
+        counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion",
+                                 "memory", "other")}
+        for o in ops[j:i + 1]:
+            counts[sass_class(o)] += 1
+        counts["total"] = i - j + 1
+        counts["calls"] = sum(o.startswith("CALL") for o in ops[j:i + 1])
+        counts["inner_loops"] = sum(j < jj and ii < i for jj, ii in loops)
+        out[label] = counts
+    return out
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -2473,9 +2773,10 @@ def host_us(fn, reps: int = 200) -> float:
     return us
 
 
-def ab_turn(tree: Path) -> dict:
+def ab_turn(tree: Path, static: bool = False) -> dict:
     """One turn of ``--ab``: the numbers of the package in ``tree`` (its
-    kernels built from its own sources), timed by this script's rules."""
+    kernels built from its own sources), timed by this script's rules.
+    ``static``: only what its build shows (ptxas, resident blocks, SASS)."""
     sys.path.insert(0, str(tree))
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch import _build
@@ -2490,7 +2791,46 @@ def ab_turn(tree: Path) -> dict:
     with redirect_stdout(report):
         _build.build(verbose=True)
     _build.load()
-    out = {"card": card, "ptxas": ptxas_k7_k4lv(report.getvalue())}
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    out = {"card": card, "sm_clock_max_mhz": float(clock),
+           "sms": torch.cuda.get_device_properties(dev).multi_processor_count,
+           "ptxas": ptxas_k4_k7(report.getvalue()),
+           "k4 occupancy": k4_occupancy(dev, tree)}
+    if report.getvalue():  # this turn built the library
+        out["sass"] = sass_step_loops(_build.library_path())
+    if static:
+        return out
+
+    multi = MultiAssetLsvSlice(dev, card)
+    out["k4 sums timed"], out["k4 sums 2^18"] = {}, {}
+    for label, (seed, params, run) in k4_timed_calls(dev, multi).items():
+        out["k4 sums timed"][label] = [
+            float(v) for v in pmc.path_mc(seed, params, **run).cpu()]
+        out[f"k4 {label} ms"] = cuda_ms(
+            lambda: pmc.path_mc(seed, params, **run))
+    # the user's calls around K4 gbm and K4 lsv: host clock, median of 5
+    walls = {"exotic_price_mc asian 1M x 252 geo CV (config 3)": lambda:
+             tp.exotic_price_mc("asian", 100.0, 100.0, 1.0, 0.03, sigma=0.2,
+                                n_steps=252, n_paths=1_000_000, seed=7,
+                                control_variate=True, device=dev)}
+    for scheme in ("euler", "qe"):
+        walls[f"lsv_price_mc {scheme} up-and-out 130 2^20 x 96"] = \
+            lambda model=multi.models[scheme]: tp.lsv_price_mc(
+                "barrier", model, 100.0, **multi.LSV_PRICE, device=dev,
+                barrier=130.0)
+    for what, fn in walls.items():
+        fn()
+        out[f"wall {what} ms"] = statistics.median(
+            timed(fn)[1] * 1e3 for _ in range(5))
+    for label, (seed, params, run) in k4_timed_calls(dev, multi,
+                                                     n=1 << 18).items():
+        if run["reps"] != 1:
+            raise AssertionError(f"{label} at 2^18 paths: {run['reps']} reps")
+        out["k4 sums 2^18"][label] = [
+            float(v).hex() for v in pmc.path_mc(seed, params, **run).cpu()]
 
     desk = Config5Slice(dev, card)
     for scheme in ("milstein", "log_euler"):
@@ -2549,34 +2889,90 @@ def ab_turn(tree: Path) -> dict:
     return out
 
 
-def ab(other: Path):
+AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
+                "sass", "k4 sums timed", "k4 sums 2^18")
+
+
+def ab(other: Path, static: bool = False):
     """Run ``ab_turn`` on ``other`` and on this tree in the turns
-    ``AB_TURNS``, one process each, and print every number side by side,
-    the ptxas lines of each tree's turn that built it, and whether K4's
-    sums are equal bit for bit across the turns. The last line is one JSON
-    object with every turn's numbers."""
+    ``AB_TURNS`` (``AB_STATIC_TURNS`` under ``static``), one process each,
+    and print every number side by side, the ptxas lines and the SASS
+    counts of each tree's turn that built it, the resident blocks and
+    waves of K4's timed instantiations, and whether K4's sums are equal bit
+    for bit across the turns. The last line is one JSON object with every
+    turn's numbers."""
     trees = {"this": ROOT, "other": other.resolve()}
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, side in enumerate(AB_TURNS):
+        for i, side in enumerate(AB_STATIC_TURNS if static else AB_TURNS):
             path = Path(tmp) / f"{i}.json"
             subprocess.run([sys.executable, __file__, "--ab-turn",
-                            str(trees[side]), str(path)], check=True,
+                            str(trees[side]), str(path),
+                            *(["--static"] if static else [])], check=True,
                            env=dict(os.environ, PYTHONPATH=""), timeout=1500)
             turns.append((side, json.loads(path.read_text())))
-    print(f"card: {turns[0][1]['card']}; turns: {', '.join(AB_TURNS)} "
+    sides = ", ".join(side for side, _ in turns)
+    first = turns[0][1]
+    print(f"card: {first['card']}; {first['sms']} SMs, max SM clock "
+          f"{first['sm_clock_max_mhz']:.0f} MHz; turns: {sides} "
           f"(other = {trees['other']})")
-    for key, first in turns[0][1].items():
-        if key in ("card", "ptxas") or key.endswith("sums"):
+    for key, value in first.items():
+        if key in AB_NOT_TIMES or key.endswith("sums"):
             continue
-        for field in first if isinstance(first, dict) else [None]:
+        for field in value if isinstance(value, dict) else [None]:
             values = [t[key] if field is None else t[key][field]
                       for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
                   + ", ".join(f"{v:.4f}" for v in values))
+    for label in K4_TIMED:
+        if f"k4 {label} ms" not in first:
+            continue
+        ms = {side: [t[f"k4 {label} ms"] for s, t in turns if s == side]
+              for side in ("other", "this")}
+        slow = min(ms["other"]) / max(ms["this"])
+        fast = max(ms["other"]) / min(ms["this"])
+        print(f"k4 {label}: other / this {slow:.3f}x in the slowest pairing "
+              f"of turns, {fast:.3f}x in the fastest")
     for side, turn in turns:
         for name, line in turn["ptxas"].items():
             print(f"ptxas {side} {name}: {line}")
+    seen = set()
+    for side, turn in turns:
+        if side in seen:
+            continue
+        seen.add(side)
+        for label, (per_sm, blocks, waves, _) in \
+                turn["k4 occupancy"].items():
+            print(f"k4 {side} {label}: {per_sm} resident blocks per SM, "
+                  f"{blocks} blocks, {waves:.2f} waves")
+    for side, turn in turns:
+        for label, counts in turn.get("sass", {}).items():
+            if counts is None:
+                print(f"sass {side} {label}: no step-pair loop found")
+                continue
+            _, _, _, n, n_steps = K4_TIMED[label.split(" ", 1)[1]]
+            paths = turn["k4 occupancy"][label.split(" ", 1)[1]][3]
+            issue_ms = (counts["total"] * paths * (n_steps // 2)
+                        / (turn["sms"] * 128
+                           * turn["sm_clock_max_mhz"] * 1e6) * 1e3)
+            print(f"sass {side} {label}: step-pair loop "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items())
+                  + f"; issue-limited {issue_ms:.4f} ms at {n} x {n_steps} "
+                  f"(one instruction per lane and cycle, 4 schedulers an SM)")
+    if static:
+        print(json.dumps({"turns": [dict(t, side=s) for s, t in turns]}))
+        return
+    for label in K4_TIMED:
+        sums = [t["k4 sums 2^18"][label] for _, t in turns]
+        same = all(v == sums[0] for v in sums)
+        this = [t["k4 sums timed"][label] for s, t in turns if s == "this"]
+        that = [t["k4 sums timed"][label] for s, t in turns if s == "other"]
+        rel = max(compare(torch.tensor(a), torch.tensor(b), label,
+                          signed=K4_SIGNED) for a in this for b in that)
+        print(f"k4 {label}: the 21 sums at 2^18 paths (one rep) are "
+              f"{'equal' if same else 'NOT equal'} bit for bit across the "
+              f"turns; at the timed shape this vs other max rel err of the "
+              f"unsigned sums {rel:.3e} (rtol {RTOL})")
     for scheme in ("milstein", "log_euler"):
         sums = [t[f"k4 {scheme} sums"] for _, t in turns]
         same = all(s == sums[0] for s in sums)
@@ -2587,12 +2983,16 @@ def ab(other: Path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:
-        Path(sys.argv[3]).write_text(json.dumps(
-            ab_turn(Path(sys.argv[2]).resolve())))
-    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
-        ab(Path(sys.argv[2]))
-    elif len(sys.argv) == 1:
+    args = sys.argv[1:]
+    static = args[-1:] == ["--static"]
+    if static:
+        args = args[:-1]
+    if args[:1] == ["--ab-turn"] and len(args) == 3:
+        Path(args[2]).write_text(json.dumps(
+            ab_turn(Path(args[1]).resolve(), static)))
+    elif args[:1] == ["--ab"] and len(args) == 2:
+        ab(Path(args[1]), static)
+    elif not args and not static:
         main()
     else:
-        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE]")
+        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE [--static]]")

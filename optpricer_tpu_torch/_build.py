@@ -49,6 +49,7 @@ _SIGNATURES = {
     "optpricer_mc_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_path_mc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
+    "optpricer_path_mc_occupancy": (_I, _I, _I, _I, _I, _P),
     "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _P),
     "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,

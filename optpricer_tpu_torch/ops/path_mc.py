@@ -48,7 +48,10 @@ Names, JAX → port:
 on a CUDA device and counts the launch in ``path_mc.launches``; for tensors
 on the CPU it runs the plain torch version ``_path_mc_plain``, which walks
 all programs and reps of the grid at once, one step pair at a time. Any
-other device raises.
+other device raises. ``_launch_plan`` is the kernel's grid: one block of
+128 paths per (program, rep, block in tile) for every dynamics but the
+Dupire ones, which keep one thread per (program, element) looping over the
+reps.
 """
 from __future__ import annotations
 
@@ -83,6 +86,7 @@ _LSV = ("lsv", "lsv_qe")
 _QE = ("heston_qe", "lsv_qe")       # raw uniforms for the variance
 MAX_SLICES = 16         # csrc/path_mc.cu MAX_SLICES: the SVI table's bound
 MAX_COEFFS = 13         # csrc/path_mc.cu MAX_COEFFS: deg <= 12 leverage rows
+LEV_WINDOW = 128        # csrc/path_mc.cu LEV_WINDOW: leverage rows staged
 
 LV_PLAN_WORDS = 17      # csrc/path_mc.cu LvStep: a Dupire step's plan
 _ROW = 24               # kernel stats rows are padded to 24 floats
@@ -731,6 +735,35 @@ def _path_mc_plain(seed, params, *, n_programs: int, reps: int, n_steps: int,
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
+def _launch_plan(dynamics: str, n_programs: int, reps: int):
+    """(blocks, rows per program) of ``path_mc_kernel``'s grid, as
+    ``optpricer_path_mc`` launches it: a block of 128 paths per (program,
+    rep, block in tile), or per (program, block in tile) for the Dupire
+    branches, whose threads loop over the reps. Each block writes one
+    stats row; the first combine pass Kahan-sums a program's rows."""
+    rows = _BLOCKS_PER_PROGRAM * (1 if dynamics in _LV else reps)
+    return n_programs * rows, rows
+
+
+def blocks_per_sm(dynamics: str, payoff_id: int, with_greeks: bool,
+                  antithetic: bool, n_coef: int = MAX_COEFFS) -> int:
+    """Resident blocks per SM of the instantiation ``path_mc`` launches for
+    these arguments (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
+    the current card); ``n_coef``: the LSV table's columns."""
+    import ctypes
+
+    lib = _build.load()
+    n = ctypes.c_int(0)
+    n_cols = n_coef if dynamics in _LSV else 1
+    err = lib.optpricer_path_mc_occupancy(
+        DYNAMICS[dynamics], int(payoff_id), n_cols, int(bool(with_greeks)),
+        int(bool(antithetic)), ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"path_mc_kernel occupancy query failed: CUDA "
+                           f"error {err}")
+    return n.value
+
+
 def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
             n_programs: int, reps: int, n_steps: int, antithetic: bool,
             payoff_id: int, barrier_up: bool, knock_out: bool,
@@ -741,19 +774,27 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
 
     Kernel ``path_mc_kernel`` in ``csrc/path_mc.cu``; it replaces
     ``optpricer_tpu/ops/pallas_path_mc.py:_path_kernel`` (launched from
-    ``_run_path_kernel``). One thread owns one (program, element) path and
-    loops over reps and step pairs with its state in registers; it is
-    bound by integer and SFU issue (a Threefry block per step pair, one or
-    two per pair under stochastic volatility, an exp32 per step and
-    state). The Dupire branches (``svi``: the f32 (6, n_slices) table)
-    add three σ_loc evaluations a step under Milstein, one under
-    log-Euler: a log32 and one or two SVI slices with their derivatives
-    each, IEEE divisions and square roots; the table sits in shared
-    memory, and each step's plan (the forward, the three blends in T) is
-    worked out once per launch by a one-pass pre-kernel into an
-    (n_steps, ``LV_PLAN_WORDS``) scratch. The LSV branches (``svi``: the f32 (n_steps, deg+1)
-    leverage coefficients) add a log32 and a deg-term Horner polynomial a
-    step, read from a warp-uniform table row.
+    ``_run_path_kernel``). It is bound by integer and SFU issue (a
+    Threefry block per step pair, two under stochastic volatility, an
+    exp32 per step and state, the geometric CV's log32 with its IEEE
+    division), so its grid fills the card: one thread prices one
+    (program, rep, element) path with its state in registers, a block of
+    128 paths writes one stats row and a combine pass Kahan-sums each
+    program's rows in (rep, block) order (``_launch_plan``); with no
+    per-thread Kahan state each instantiation is compiled for the
+    resident blocks its registers allow. The Dupire branches (``svi``:
+    the f32 (6, n_slices) table) add three σ_loc evaluations a step under
+    Milstein, one under log-Euler: a log32 and one or two SVI slices with
+    their derivatives each, IEEE divisions and square roots; they keep
+    one thread per (program, element) looping over the reps, the table
+    sits in shared memory, and each step's plan (the forward, the three
+    blends in T) is worked out once per launch by a one-pass pre-kernel
+    into an (n_steps, ``LV_PLAN_WORDS``) scratch. The LSV branches
+    (``svi``: the f32 (n_steps, deg+1) leverage coefficients) add a
+    log32 and a deg-term Horner polynomial a step: each block stages the
+    table in shared memory ``LEV_WINDOW`` steps at a time and reads a
+    step's row once for both legs, the reference's degree 12 unrolled
+    from registers.
     """
     _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
                   with_greeks, payoff_id, geo_cv, svi)
@@ -771,8 +812,8 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     if svi is None:
         svi = torch.zeros((6, 1), dtype=MC_DTYPE, device=dev)
     flags = sum(bit for name, bit in _FLAG_BITS.items() if kw[name])
-    block_rows = torch.empty((n_programs * _BLOCKS_PER_PROGRAM, _ROW),
-                             dtype=MC_DTYPE, device=dev)
+    blocks, _ = _launch_plan(dynamics, n_programs, reps)
+    block_rows = torch.empty((blocks, _ROW), dtype=MC_DTYPE, device=dev)
     prog_rows = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
     out = torch.empty((_ROW,), dtype=MC_DTYPE, device=dev)
     plans = torch.empty((n_steps, LV_PLAN_WORDS), dtype=MC_DTYPE,

@@ -15,7 +15,9 @@ solve to rtol 1e-10 in f64 and 2e-5 in f32, with an absolute floor of
 rtol·max|x|, the fused local-vol march (K8) within 2e-5 of its plain
 version. The path kernel's Dupire branches and the book kernel (K3) at
 rtol 2e-5 too, and so the basket kernel (K6) and the path kernel's LSV
-branches.
+branches, and the path kernel's per-path grid at one, two and four reps;
+its Box-Muller sincosf is held to cosf and sinf bit for bit on every
+angle it can draw.
 """
 import numpy as np
 import pytest
@@ -416,3 +418,149 @@ def test_basket_and_lsv_entry_points_launch_the_kernels(cuda_device):
     assert np.isfinite([px, se, px2, se2]).all()
     assert (tbk.basket_mc.launches, tpm.path_mc.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+# K4's per-path grid (one thread per (program, rep, element) path): the
+# kernel against its plain version at one, two and four reps, at 2, 252 and
+# one past a staged leverage window of steps, the LSV branches at the
+# reference's degree 12 (the unrolled Horner) and degree 5 (the loop over a
+# shared row), with and without antithetic sampling.
+_GRID_CASES = {
+    "gbm asian geo_cv": dict(payoff="asian", geo_cv=True),
+    "gbm asian greeks": dict(payoff="asian", greeks=True),
+    "heston": dict(payoff="vanilla", heston=_HESTON),
+    "heston_qe barrier": dict(payoff="barrier", barrier=125.0,
+                              heston=_HESTON, scheme="qe"),
+    "sabr_ln": dict(payoff="vanilla",
+                    sabr=dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4)),
+    "lsv barrier": dict(payoff="barrier", barrier=125.0, lsv="euler"),
+    "lsv_qe barrier": dict(payoff="barrier", barrier=125.0, lsv="qe"),
+}
+
+
+def _lsv_coeffs(n_steps, deg, scheme):
+    rng = np.random.default_rng(deg)
+    coeffs = 0.05 * rng.standard_normal((n_steps, deg + 1))
+    coeffs[:, -1] += 1.0
+    return dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6,
+                coeffs=coeffs, x_width=0.6, scheme=scheme)
+
+
+def _grid_run(case, n, n_steps, antithetic, device, deg=12):
+    kw = dict(_GRID_CASES[case])
+    lsv = _lsv_coeffs(n_steps, deg, kw["lsv"]) if "lsv" in kw else None
+    params, static = tpm._resolve_config(
+        n, n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None if lsv else 0.2,
+        True, kw["payoff"], antithetic, kw.get("barrier", 0.0),
+        "up-and-out", 0.0, "arithmetic", "fixed", 1.0, None,
+        kw.get("scheme", "log_euler"), 0.01, kw.get("heston"),
+        kw.get("sabr"), kw.get("geo_cv", False), lsv=lsv)
+    reps, n_programs = tmc._plan_grid(n, tpm.TILE)
+    if static["svi"] is not None:
+        static["svi"] = static["svi"].to(device)
+    run = dict(n_programs=n_programs, reps=reps,
+               with_greeks=kw.get("greeks", False), **static)
+    return tmc._seed_pair(9, device), params.to(device), run
+
+
+@pytest.mark.parametrize("case", list(_GRID_CASES))
+@pytest.mark.parametrize("n, reps", [(1 << 18, 1), ((1 << 18) + 123, 2),
+                                     (1_000_000, 4)])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_path_kernel_per_path_grid_matches_plain(cuda_device, case, n, reps,
+                                                 antithetic):
+    seed, params, run = _grid_run(case, n, 16, antithetic, cuda_device)
+    assert run["reps"] == reps
+    before = tpm.path_mc.launches
+    got = tpm.path_mc(seed, params, **run)
+    assert tpm.path_mc.launches == before + 1
+    _assert_close(got, tpm._path_mc_plain(seed, params, **run),
+                  signed=(11, 13, 15, 17, 19))
+
+
+@pytest.mark.parametrize("case", ["gbm asian geo_cv", "lsv barrier",
+                                  "lsv_qe barrier"])
+@pytest.mark.parametrize("n_steps", [2, 252, tpm.LEV_WINDOW + 2])
+def test_path_kernel_step_counts_match_plain(cuda_device, case, n_steps):
+    seed, params, run = _grid_run(case, (1 << 16) + 123, n_steps, True,
+                                  cuda_device)
+    _assert_close(tpm.path_mc(seed, params, **run),
+                  tpm._path_mc_plain(seed, params, **run))
+
+
+@pytest.mark.parametrize("case", ["lsv barrier", "lsv_qe barrier"])
+@pytest.mark.parametrize("deg", [12, 5])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_path_kernel_lsv_degrees_match_plain(cuda_device, case, deg,
+                                             antithetic):
+    seed, params, run = _grid_run(case, (1 << 18) + 123, 16, antithetic,
+                                  cuda_device, deg=deg)
+    assert tuple(run["svi"].shape) == (16, deg + 1)
+    _assert_close(tpm.path_mc(seed, params, **run),
+                  tpm._path_mc_plain(seed, params, **run))
+
+
+def test_path_kernel_per_path_grid_is_deterministic(cuda_device):
+    seed, params, run = _grid_run("lsv_qe barrier", 1_000_000, 16, True,
+                                  cuda_device)
+    assert torch.equal(tpm.path_mc(seed, params, **run).clone(),
+                       tpm.path_mc(seed, params, **run).clone())
+
+
+def test_path_kernel_occupancy_query(cuda_device):
+    for dynamics in ("gbm", "heston", "lsv", "lsv_qe", "lv_milstein"):
+        per_sm = tpm.blocks_per_sm(dynamics, tpm.PAYOFF_IDS["barrier"],
+                                   False, True)
+        assert 1 <= per_sm <= 16
+
+
+_SINCOS_CHECK = r"""
+#include <cstdint>
+#include <cstdio>
+// every Box-Muller angle of the path kernel, 2*pi * (i * 2^-24)
+__device__ float angle(unsigned i) {
+  return 6.283185307179586f * (static_cast<float>(i) * 5.9604645e-8f);
+}
+__global__ void separate(float *s, float *c) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  c[i] = cosf(angle(i));
+  s[i] = sinf(angle(i));
+}
+__global__ void together(float *s, float *c) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  sincosf(angle(i), s + i, c + i);
+}
+int main() {
+  const size_t n = 1u << 24;
+  float *d;
+  cudaMalloc(&d, 4 * n * sizeof(float));
+  separate<<<n / 256, 256>>>(d, d + n);
+  together<<<n / 256, 256>>>(d + 2 * n, d + 3 * n);
+  uint32_t *h = new uint32_t[4 * n];
+  cudaMemcpy(h, d, 4 * n * sizeof(float), cudaMemcpyDeviceToHost);
+  size_t differ = 0;
+  for (size_t i = 0; i < 2 * n; ++i) differ += h[i] != h[2 * n + i];
+  printf("%zu %s\n", differ, cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+def test_sincosf_is_cosf_and_sinf_on_every_box_muller_angle(cuda_device,
+                                                            tmp_path):
+    # the path kernel's per-path branches draw their Box-Muller pair with
+    # one sincosf where the plain version (and the Dupire kernel) take cos
+    # and sin: built as path_mc.cu is (no FMA contraction), it must return
+    # their bits on all 2^24 angles 2*pi*u2
+    import subprocess
+
+    from optpricer_tpu_torch import _build
+
+    src, exe = tmp_path / "sincos.cu", tmp_path / "sincos"
+    src.write_text(_SINCOS_CHECK)
+    subprocess.run([_build.find_nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
+                    "-o", str(exe), str(src)], check=True, timeout=600)
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True, timeout=600).stdout.split()
+    assert out == ["0", "no", "error"], out
