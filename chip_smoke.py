@@ -189,14 +189,15 @@ line is ``{"ok": true, "device": {...}}``.
 
 compares this tree with another checkout of the repository (the parent
 commit unpacked with ``git archive``, say) instead: one process per turn,
-in the order other, this, this, other, each importing and building its own
-tree's package and timing it by this script's rules (``ab_turn``): K4's
-timed instantiations (``K4_TIMED``: config 3's asian with the geometric CV
-at 1M x 252 with and without Greek moments, lsv and lsv_qe up-and-out 130
-at 2^20 x 96 on the calibrated tables, the Heston Euler and SABR β=1
-vanillas at 1M x 64), their 21 sums at 2^18 paths (one rep) compared bit
-for bit across the turns and at the timed shape within rtol 2e-5; the
-host-clock walls of config 3's ``exotic_price_mc`` and of
+in the order other, this, this, other, twice (``AB_TURNS``), each
+importing and building its own tree's package and timing it by this
+script's rules (``ab_turn``): K4's timed instantiations (``K4_TIMED``:
+config 3's asian with the geometric CV at 1M x 252 with and without Greek
+moments, lsv and lsv_qe up-and-out 130 at 2^20 x 96 on the calibrated
+tables, the Heston Euler and QE and the SABR β=1 and β=0.5 vanillas at
+1M x 64), their 21 sums at 2^18 paths (one rep) compared bit for bit
+across the turns and at the timed shape within rtol 2e-5; the host-clock
+walls (median of 21) of config 3's ``exotic_price_mc`` and of
 ``lsv_price_mc``'s up-and-out calls; K4 lv_milstein and lv_euler at the
 desk's call on ``DESK_SVI`` (its 21 sums compared bit for bit across the
 turns), K7 at the shapes phase 6 times and the propagator build's (with
@@ -204,17 +205,14 @@ the host's launch latency, the device's time alone, and the host's µs a
 call), and the host-clock wall and device-busy time (K7's share under
 torch.profiler) of the "auto" ladder, the PSOR put, the European call and
 ``fd_price_local_vol`` at 200 x 200; the resident blocks per SM and waves
-of ``K4_TIMED`` (a tree without the path kernel's occupancy query gets a
-probe library built on its ``path_mc.cu``); and, from each turn that
-builds its tree's library, ptxas' registers and spills of K7, K4
-``LV_MILSTEIN`` and ``K4_TIMED``, and the static SASS instruction count of
-``K4_TIMED``'s step-pair loop by class (``cuobjdump -sass``) with the
-issue-limited time it implies.
-
-    python3 chip_smoke.py --ab OTHER_TREE --static
-
-prints only what the two builds show (ptxas, resident blocks, SASS), one
-turn per tree.
+of ``K4_TIMED`` (none for a tree without the path kernel's occupancy
+query); and, from each turn that builds its tree's library, ptxas'
+registers and spills of K7, K4 ``LV_MILSTEIN`` and ``K4_TIMED``, and the
+static SASS instruction count of ``K4_TIMED``'s step-pair loop by class
+(``cuobjdump -sass``). The static count holds code a step pair seldom
+runs (the division and sin/cos slow paths), so it is not the count of
+instructions issued, and the time it gives at one instruction per lane
+and cycle is no bound on the kernel's.
 """
 from __future__ import annotations
 
@@ -257,6 +255,12 @@ K4_PAYOFFS = {
 SV_PHASE5 = (dict(heston=dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4,
                               rho=-0.6)),
              dict(sabr=dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4)))
+# the dynamics dict of each stochastic-volatility K4_TIMED call: phase 5's,
+# and its Andersen QE and β = 0.5 variants
+SV_TIMED = {"heston": SV_PHASE5[0],
+            "heston_qe": dict(SV_PHASE5[0], scheme="qe"),
+            "sabr_ln": SV_PHASE5[1],
+            "sabr_cev": dict(sabr=dict(SV_PHASE5[1]["sabr"], beta=0.5))}
 # K4's timed instantiations (all antithetic): label -> (dynamics, payoff,
 # Greek moments, paths, steps) of the main-path call each times
 K4_TIMED = {
@@ -266,6 +270,8 @@ K4_TIMED = {
     "lsv_qe barrier": ("lsv_qe", "barrier", False, 1 << 20, 96),
     "heston vanilla": ("heston", "vanilla", False, 1_000_000, 64),
     "sabr_ln vanilla": ("sabr_ln", "vanilla", False, 1_000_000, 64),
+    "heston_qe vanilla": ("heston_qe", "vanilla", False, 1_000_000, 64),
+    "sabr_cev vanilla": ("sabr_cev", "vanilla", False, 1_000_000, 64),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores and
@@ -342,8 +348,9 @@ def k4_timed_calls(dev, multi, n=None) -> dict:
     """label -> (seed, params, run kwargs) of each ``K4_TIMED`` call at its
     main-path shape, or at ``n`` paths: config 3's asian with the
     geometric CV (K = 100, 1M x 252), with and without Greek moments; the
-    Heston Euler and SABR β=1 calls of phase 5 (1M x 64); lsv and lsv_qe
-    up-and-out 130 on ``multi``'s calibrated tables (2^20 x 96)."""
+    Heston Euler and SABR β=1 calls of phase 5 and their QE and β = 0.5
+    variants (``SV_TIMED``, 1M x 64); lsv and lsv_qe up-and-out 130 on
+    ``multi``'s calibrated tables (2^20 x 96)."""
     calls = {}
     for label, (dynamics, payoff, greeks, n_full, n_steps) in \
             K4_TIMED.items():
@@ -358,8 +365,8 @@ def k4_timed_calls(dev, multi, n=None) -> dict:
             pay, dyn, mkt = K4_PAYOFFS["asian-geo_cv"], {}, \
                 (100.0, 100.0, *MARKET[2:])
         else:
-            pay, mkt = K4_PAYOFFS["vanilla"], MARKET
-            dyn = SV_PHASE5[0] if dynamics == "heston" else SV_PHASE5[1]
+            pay, mkt, dyn = K4_PAYOFFS["vanilla"], MARKET, \
+                SV_TIMED[dynamics]
         calls[label] = k4_call(dev, n or n_full, n_steps, pay, dyn, True,
                                greeks, mkt)[:3]
     return calls
@@ -2466,15 +2473,16 @@ def main():
     times[("k4greeks", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4g))
     sv_calls = k4_timed_calls(dev, multi)
-    for label in ("heston vanilla", "sabr_ln vanilla"):
+    sv_labels = [f"{d} vanilla" for d in SV_TIMED]
+    for label in sv_labels:
         seed_sv, params_sv, run_sv = sv_calls[label]
         times[("k4", label)] = cuda_ms(
             lambda: pmc.path_mc(seed_sv, params_sv, **run_sv))
     print(f"phase 6 time K4 gbm asian + geometric CV 1M x 252: "
           f"{times[('k4', '1M x 252')]:.4f} ms, with Greek moments "
-          f"{times[('k4greeks', '1M x 252')]:.4f} ms; heston vanilla 1M x 64 "
-          f"{times[('k4', 'heston vanilla')]:.4f} ms; sabr_ln vanilla 1M x 64 "
-          f"{times[('k4', 'sabr_ln vanilla')]:.4f} ms [{card}]")
+          f"{times[('k4greeks', '1M x 252')]:.4f} ms; "
+          + "; ".join(f"{label} 1M x 64 {times[('k4', label)]:.4f} ms"
+                      for label in sv_labels) + f" [{card}]")
     k5_bounds = {}
     for n, d in ((65_536, 64), (1 << 20, 252)):
         tensors, kw5, (R5, _, _) = k5_setup("asian", n, d)
@@ -2524,8 +2532,8 @@ def main():
          "ms_greeks": times[("k4greeks", "1M x 252")],
          "bound_ms_greeks": bound(1_000_000 * 252 * ops_k4_path_step(
              True, True), 188)[0],
-         "ms_heston_1Mx64": times[("k4", "heston vanilla")],
-         "ms_sabr_ln_1Mx64": times[("k4", "sabr_ln vanilla")]},
+         **{f"ms_{d}_1Mx64": times[("k4", f"{d} vanilla")]
+            for d in SV_TIMED}},
         {"name": "qmc_path_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/qmc_path.cu",
          "replaces": "optpricer_tpu/ops/pallas_qmc_path.py:113",
@@ -2549,8 +2557,7 @@ def main():
 
 
 # -- --ab: this tree's K4, K7 and PDE numbers against another tree's -------
-AB_TURNS = ("other", "this", "this", "other")
-AB_STATIC_TURNS = ("other", "this")
+AB_TURNS = ("other", "this", "this", "other") * 2
 K7_NAMES = re.compile(r"\b(?:tridiag_\w+_kernel|thomas_kernel)\b")
 # a path_mc_kernel instantiation's mangled template arguments: dynamics,
 # payoff, Greeks, antithetic and, from this tree on, the LSV coefficients
@@ -2603,78 +2610,6 @@ def ptxas_k4_k7(report: str) -> dict:
         found[key] = (f"{regs.group(1)} registers, {spill.group(1)} bytes "
                       f"spill stores, {spill.group(2)} bytes spill loads")
     return found
-
-
-# For a tree whose path_mc.cu has no occupancy query (before the per-path
-# grid): a library that includes that source and asks the CUDA runtime
-# about its four-parameter path_mc_kernel instantiations.
-PROBE_SOURCE = """#include "{source}"
-template <int D, int P, bool G>
-int probe_occupancy() {{
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, optpricer::path_mc_kernel<D, P, G, true>, 128, 0);
-  return err == cudaSuccess ? n : -1;
-}}
-extern "C" int path_mc_probe(int dyn, int payoff, int greeks) {{
-{cases}
-  return -1;
-}}
-"""
-
-
-def occupancy_probe(tree: Path):
-    """``fn(dynamics id, payoff id, greeks) -> resident blocks per SM`` for
-    the ``K4_TIMED`` instantiations of ``tree``'s path kernel, through a
-    library built from ``PROBE_SOURCE`` beside the tree's kernels."""
-    import ctypes
-
-    from optpricer_tpu_torch import _build
-    from optpricer_tpu_torch.ops import path_mc as pmc
-
-    cases = "\n".join(
-        f"  if (dyn == {pmc.DYNAMICS[d]} && payoff == {pmc.PAYOFF_IDS[p]} "
-        f"&& greeks == {int(g)}) return probe_occupancy<{pmc.DYNAMICS[d]}, "
-        f"{pmc.PAYOFF_IDS[p]}, {'true' if g else 'false'}>();"
-        for d, p, g, _, _ in K4_TIMED.values())
-    src = _build.BUILD_DIR / "path_mc_probe.cu"
-    lib = _build.BUILD_DIR / "path_mc_probe.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(PROBE_SOURCE.format(
-        source=tree / "optpricer_tpu_torch" / "csrc" / "path_mc.cu",
-        cases=cases))
-    if not lib.exists():
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
-                        *_build.SOURCES["path_mc.cu"], "-shared", "-o",
-                        str(lib), str(src)], check=True, capture_output=True,
-                       timeout=900)
-    fn = ctypes.CDLL(str(lib)).path_mc_probe
-    fn.argtypes = (ctypes.c_int,) * 3
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def k4_occupancy(dev, tree: Path) -> dict:
-    """label -> [resident blocks per SM, grid blocks, waves, paths] of each
-    ``K4_TIMED`` call of the package in ``tree``: ``k4_waves``, or for a
-    tree from before the per-path grid, its probe and its grid of
-    n_programs x 32 blocks."""
-    from optpricer_tpu_torch.ops import path_mc as pmc
-    from optpricer_tpu_torch.ops import terminal_mc as tmc
-
-    if hasattr(pmc, "blocks_per_sm"):
-        return {k: list(v) for k, v in k4_waves(dev).items()}
-    probe = occupancy_probe(tree)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {}
-    for label, (dynamics, payoff, greeks, n, _) in K4_TIMED.items():
-        per_sm = probe(pmc.DYNAMICS[dynamics], pmc.PAYOFF_IDS[payoff],
-                       int(greeks))
-        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
-        blocks = n_prog * pmc.TILE // 128
-        out[label] = [per_sm, blocks, blocks / (per_sm * sms),
-                      n_prog * reps * pmc.TILE]
-    return out
 
 
 # SASS opcode classes (the opcode before its first '.'; U-prefixed uniform
@@ -2773,10 +2708,9 @@ def host_us(fn, reps: int = 200) -> float:
     return us
 
 
-def ab_turn(tree: Path, static: bool = False) -> dict:
+def ab_turn(tree: Path) -> dict:
     """One turn of ``--ab``: the numbers of the package in ``tree`` (its
-    kernels built from its own sources), timed by this script's rules.
-    ``static``: only what its build shows (ptxas, resident blocks, SASS)."""
+    kernels built from its own sources), timed by this script's rules."""
     sys.path.insert(0, str(tree))
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch import _build
@@ -2798,11 +2732,11 @@ def ab_turn(tree: Path, static: bool = False) -> dict:
     out = {"card": card, "sm_clock_max_mhz": float(clock),
            "sms": torch.cuda.get_device_properties(dev).multi_processor_count,
            "ptxas": ptxas_k4_k7(report.getvalue()),
-           "k4 occupancy": k4_occupancy(dev, tree)}
+           # a tree from before the per-path grid has no occupancy query
+           "k4 occupancy": k4_waves(dev) if hasattr(pmc, "blocks_per_sm")
+           else {}}
     if report.getvalue():  # this turn built the library
         out["sass"] = sass_step_loops(_build.library_path())
-    if static:
-        return out
 
     multi = MultiAssetLsvSlice(dev, card)
     out["k4 sums timed"], out["k4 sums 2^18"] = {}, {}
@@ -2811,7 +2745,7 @@ def ab_turn(tree: Path, static: bool = False) -> dict:
             float(v) for v in pmc.path_mc(seed, params, **run).cpu()]
         out[f"k4 {label} ms"] = cuda_ms(
             lambda: pmc.path_mc(seed, params, **run))
-    # the user's calls around K4 gbm and K4 lsv: host clock, median of 5
+    # the user's calls around K4 gbm and K4 lsv: host clock, median of 21
     walls = {"exotic_price_mc asian 1M x 252 geo CV (config 3)": lambda:
              tp.exotic_price_mc("asian", 100.0, 100.0, 1.0, 0.03, sigma=0.2,
                                 n_steps=252, n_paths=1_000_000, seed=7,
@@ -2824,7 +2758,7 @@ def ab_turn(tree: Path, static: bool = False) -> dict:
     for what, fn in walls.items():
         fn()
         out[f"wall {what} ms"] = statistics.median(
-            timed(fn)[1] * 1e3 for _ in range(5))
+            timed(fn)[1] * 1e3 for _ in range(21))
     for label, (seed, params, run) in k4_timed_calls(dev, multi,
                                                      n=1 << 18).items():
         if run["reps"] != 1:
@@ -2893,22 +2827,25 @@ AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
                 "sass", "k4 sums timed", "k4 sums 2^18")
 
 
-def ab(other: Path, static: bool = False):
+def ab(other: Path):
     """Run ``ab_turn`` on ``other`` and on this tree in the turns
-    ``AB_TURNS`` (``AB_STATIC_TURNS`` under ``static``), one process each,
-    and print every number side by side, the ptxas lines and the SASS
-    counts of each tree's turn that built it, the resident blocks and
-    waves of K4's timed instantiations, and whether K4's sums are equal bit
-    for bit across the turns. The last line is one JSON object with every
-    turn's numbers."""
+    ``AB_TURNS``, one process each, and print every number side by side,
+    the ratio other / this of K4's timed calls and of the user calls'
+    walls in the slowest and the fastest pairing of turns, the ptxas lines
+    and the SASS counts of each tree's turn that built it, the resident
+    blocks and waves of K4's timed instantiations, and whether K4's sums
+    are equal bit for bit across the turns. The last line is one JSON
+    object with every turn's numbers."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
     trees = {"this": ROOT, "other": other.resolve()}
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, side in enumerate(AB_STATIC_TURNS if static else AB_TURNS):
+        for i, side in enumerate(AB_TURNS):
             path = Path(tmp) / f"{i}.json"
             subprocess.run([sys.executable, __file__, "--ab-turn",
-                            str(trees[side]), str(path),
-                            *(["--static"] if static else [])], check=True,
+                            str(trees[side]), str(path)], check=True,
                            env=dict(os.environ, PYTHONPATH=""), timeout=1500)
             turns.append((side, json.loads(path.read_text())))
     sides = ", ".join(side for side, _ in turns)
@@ -2924,14 +2861,13 @@ def ab(other: Path, static: bool = False):
                       for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
                   + ", ".join(f"{v:.4f}" for v in values))
-    for label in K4_TIMED:
-        if f"k4 {label} ms" not in first:
-            continue
-        ms = {side: [t[f"k4 {label} ms"] for s, t in turns if s == side]
+    for key in [f"k4 {label} ms" for label in K4_TIMED] \
+            + [k for k in first if k.startswith("wall ")]:
+        ms = {side: [t[key] for s, t in turns if s == side]
               for side in ("other", "this")}
         slow = min(ms["other"]) / max(ms["this"])
         fast = max(ms["other"]) / min(ms["this"])
-        print(f"k4 {label}: other / this {slow:.3f}x in the slowest pairing "
+        print(f"{key[:-3]}: other / this {slow:.3f}x in the slowest pairing "
               f"of turns, {fast:.3f}x in the fastest")
     for side, turn in turns:
         for name, line in turn["ptxas"].items():
@@ -2951,17 +2887,16 @@ def ab(other: Path, static: bool = False):
                 print(f"sass {side} {label}: no step-pair loop found")
                 continue
             _, _, _, n, n_steps = K4_TIMED[label.split(" ", 1)[1]]
-            paths = turn["k4 occupancy"][label.split(" ", 1)[1]][3]
+            reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+            paths = n_prog * reps * pmc.TILE
             issue_ms = (counts["total"] * paths * (n_steps // 2)
                         / (turn["sms"] * 128
                            * turn["sm_clock_max_mhz"] * 1e6) * 1e3)
             print(f"sass {side} {label}: step-pair loop "
                   + ", ".join(f"{k} {v}" for k, v in counts.items())
-                  + f"; issue-limited {issue_ms:.4f} ms at {n} x {n_steps} "
-                  f"(one instruction per lane and cycle, 4 schedulers an SM)")
-    if static:
-        print(json.dumps({"turns": [dict(t, side=s) for s, t in turns]}))
-        return
+                  + f"; {issue_ms:.4f} ms at {n} x {n_steps} if each static "
+                  f"instruction issued once a step pair (one a lane and "
+                  f"cycle, 4 schedulers an SM)")
     for label in K4_TIMED:
         sums = [t["k4 sums 2^18"][label] for _, t in turns]
         same = all(v == sums[0] for v in sums)
@@ -2984,15 +2919,11 @@ def ab(other: Path, static: bool = False):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    static = args[-1:] == ["--static"]
-    if static:
-        args = args[:-1]
     if args[:1] == ["--ab-turn"] and len(args) == 3:
-        Path(args[2]).write_text(json.dumps(
-            ab_turn(Path(args[1]).resolve(), static)))
+        Path(args[2]).write_text(json.dumps(ab_turn(Path(args[1]).resolve())))
     elif args[:1] == ["--ab"] and len(args) == 2:
-        ab(Path(args[1]), static)
-    elif not args and not static:
+        ab(Path(args[1]))
+    elif not args:
         main()
     else:
-        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE [--static]]")
+        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE]")

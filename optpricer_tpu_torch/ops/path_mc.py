@@ -781,8 +781,9 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     (program, rep, element) path with its state in registers, a block of
     128 paths writes one stats row and a combine pass Kahan-sums each
     program's rows in (rep, block) order (``_launch_plan``); with no
-    per-thread Kahan state each instantiation is compiled for the
-    resident blocks its registers allow. The Dupire branches (``svi``:
+    per-thread Kahan state each instantiation of gbm, heston, sabr_ln,
+    lsv and lsv_qe is compiled for the resident blocks its registers
+    allow (heston_qe and sabr_cev keep ptxas' own allocation). The Dupire branches (``svi``:
     the f32 (6, n_slices) table) add three σ_loc evaluations a step under
     Milstein, one under log-Euler: a log32 and one or two SVI slices with
     their derivatives each, IEEE divisions and square roots; they keep

@@ -508,7 +508,8 @@ def test_path_kernel_per_path_grid_is_deterministic(cuda_device):
 
 
 def test_path_kernel_occupancy_query(cuda_device):
-    for dynamics in ("gbm", "heston", "lsv", "lsv_qe", "lv_milstein"):
+    for dynamics in ("gbm", "heston", "heston_qe", "sabr_cev", "lsv",
+                     "lsv_qe", "lv_milstein"):
         per_sm = tpm.blocks_per_sm(dynamics, tpm.PAYOFF_IDS["barrier"],
                                    False, True)
         assert 1 <= per_sm <= 16

@@ -5,8 +5,9 @@
 Dupire ones, whose threads loop over the reps, so a program's stats rows
 (the first combine pass's segment) are reps x 32 or 32. The LSV branches
 stage their leverage table ``LEV_WINDOW`` steps at a time, so the input
-checks put no bound on ``n_steps``. Nothing here launches a kernel or runs
-the interpreted TPU kernel.
+checks put no bound on ``n_steps``; the plain version prices such a table
+as the interpreted TPU kernel does, on one tile. Nothing here launches a
+kernel.
 """
 import re
 from pathlib import Path
@@ -97,13 +98,18 @@ def test_input_checks_accept_tables_beyond_one_window(n_steps, deg):
 
 @pytest.mark.parametrize("scheme", ["euler", "qe"])
 def test_plain_version_prices_past_one_window(scheme):
-    n_steps = tpm.LEV_WINDOW + 2
-    params, static = tpm._resolve_config(
-        4096, n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, None, True, "barrier",
-        True, 125.0, "up-and-out", 0.0, "arithmetic", "fixed", 1.0, None,
-        "log_euler", 0.01, None, lsv=_lsv(n_steps, 12, scheme))
-    s = tpm.path_mc(torch.tensor([3, 0], dtype=torch.int32), params,
-                    n_programs=1, reps=1, **static)
-    assert float(s[0]) == 4096.0
-    assert torch.isfinite(s).all()
-    assert 0.0 < float(s[1]) / 4096.0 < 25.0
+    # a table one step pair past LEV_WINDOW: the port's plain version
+    # against the interpreted TPU kernel on one 32 x 128 tile
+    from optpricer_tpu.ops import pallas_path_mc as jpm
+
+    n, n_steps = tpm.TILE, tpm.LEV_WINDOW + 2
+    args = (3, n, n_steps, 100.0, 100.0, 1.0, 0.03, 0.0, 0.0, True)
+    kw = dict(payoff="barrier", barrier=125.0, antithetic=True,
+              lsv=_lsv(n_steps, 12, scheme))
+    ref = np.asarray(jpm.path_mc_sumstats_pallas(*args, interpret=True,
+                                                 **kw), np.float64)
+    got = tpm.path_mc_sumstats_kernel(*args, device="cpu", **kw)
+    got = got.numpy().astype(np.float64)
+    assert got[0] == ref[0] == n
+    np.testing.assert_allclose(got[1:11], ref[1:11], rtol=2e-5, atol=0.0)
+    assert not got[11:].any() and not ref[11:].any()
