@@ -41,7 +41,11 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    * the fused local-vol march (K8) on the full ladder (1 024 strikes x 511
      rows x 512 steps): PCR for calls and puts, with and without the
      American projection; Thomas for a call and an American put (the plain
-     Thomas march, ~5·10^6 small launches, is timed once here);
+     Thomas march, ~5·10^6 small launches, is timed once here); PCR on a
+     ragged ladder (1 025 strikes, calls and puts mixed, American) and on
+     1 024 rows (N_S = 1 025) at 512 steps, Thomas on the ragged ladder at
+     32 steps; the pre-kernel's plan of both forms at the ladder's shape
+     equal to its plain version (``fd_lv_plan``);
    * K4's Dupire branches (lv_euler, lv_milstein) at 2^18 + 123 paths x 16
      steps on a 3-slice SVI table for every payoff variant x antithetic
      on/off, and at the desk workflow's fused call (its calibrated surface,
@@ -145,8 +149,8 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    (surface file, saved model) equal to the same calls. K4 must have been
    launched on it.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
-   plain version and the dense solve): K1 at 2^30 and 2^24 base draws and
-   its plain version at 2^24; K2 and its plain version at 2^22 points; K4
+   plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
+   draws and its plain version at 2^24; K2 and its plain version at 2^22 points; K4
    and its plain version at the main path's shape, K4 with Greek moments
    there, and K4's Heston Euler and SABR β=1 vanillas at 1M x 64; K5 and
    its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252; K7 at
@@ -155,18 +159,21 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    shared columns, at the ladder's last-axis call, and at (511, 1) and
    (199, 1), median of 21, each twice: like every kernel (the host's launch
    latency in) and with the start event behind a queued device sleep (the
-   device's time alone, ``device_ms``); K8 PCR
-   and Thomas on the full ladder with the plain PCR (the plain Thomas is
-   phase 3's one run); the "auto" ladder call; the host-clock wall time of
+   device's time alone, ``device_ms``); K8 PCR and Thomas on the full
+   ladder, European calls and American puts, with the plain PCR (the plain
+   Thomas is phase 3's one run) and the pre-kernel alone; the "auto",
+   "fused" and "fused_thomas" ladder calls; the host-clock wall time of
    each config-4 call; and, under torch.profiler, the device-busy share of
-   the PSOR put, the European call and the "auto" and "fused" ladders; K4
-   lv_milstein at the desk's call and its plain version (median of 3), and
-   lv_euler at the same call; K3
-   at 1 000 contracts x 2^20 and its plain version (median of 3); the
-   host-clock wall of fit_svi_surface and of each desk stage; K6 at the
+   the PSOR put, the European call and the "auto", "fused" and
+   "fused_thomas" ladders; K4 lv_milstein at the desk's call and its plain
+   version (median of 3), and lv_euler at the same call; K3 at 1 000
+   contracts x 2^20 and its plain version (median of 3); the host-clock
+   wall of fit_svi_surface and of each desk stage; K6 at the
    `[basket-path]` shape and K4-lsv / lsv_qe at 2^20 x 96 (their plain
-   versions timed once, in phase 3); the wall of lsv_calibrate, of the
-   100-asset basket_price_mc and of lsv_greeks_mc (phase 5's runs).
+   versions timed once, in phase 3), K6 also at phase 5's 16-asset basket
+   barrier (2^18 x 64) and 1-asset worst-of (2^20 x 64); the wall of
+   lsv_calibrate, of the 100-asset basket_price_mc and of lsv_greeks_mc
+   (phase 5's runs).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -182,8 +189,9 @@ derivatives and the two w of ∂w/∂T; K6 and K4-lsv per path-step by
 the dense batched ``torch.linalg.solve``; null for the others, which no
 single PyTorch call computes). K7's ``max_abs_err`` is in solution units,
 K8's in price units, K3's the largest over the book's contracts. K7's
-entry also has its launches by (rows, systems) on the PDE path. The last
-line is ``{"ok": true, "device": {...}}``.
+entry also has its launches by (rows, systems) on the PDE path, K8's its
+launches by method, both forms' times for calls and American puts and the
+pre-kernel's. The last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -204,10 +212,14 @@ turns), K7 at the shapes phase 6 times and the propagator build's (with
 the host's launch latency, the device's time alone, and the host's µs a
 call), and the host-clock wall and device-busy time (K7's share under
 torch.profiler) of the "auto" ladder, the PSOR put, the European call and
-``fd_price_local_vol`` at 200 x 200; the resident blocks per SM and waves
+``fd_price_local_vol`` at 200 x 200; K8 PCR and Thomas on the ladder
+(1 024 strikes x 511 rows x 512 steps) for European calls and American
+puts, each form's layer compared bit for bit across the turns (a SHA-256
+of its bytes), and the host-clock walls (median of 21) of the "fused" and
+"fused_thomas" ladders; the resident blocks per SM and waves
 of ``K4_TIMED`` (none for a tree without the path kernel's occupancy
 query); and, from each turn that builds its tree's library, ptxas'
-registers and spills of K7, K4 ``LV_MILSTEIN`` and ``K4_TIMED``, and the
+registers and spills of K7, K8, K4 ``LV_MILSTEIN`` and ``K4_TIMED``, and the
 static SASS instruction count of ``K4_TIMED``'s step-pair loop by class
 (``cuobjdump -sass``). The static count holds code a step pair seldom
 runs (the division and sin/cos slow paths), so it is not the count of
@@ -216,6 +228,7 @@ and cycle is no bound on the kernel's.
 """
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import math
@@ -302,13 +315,15 @@ def ops_k4_path_step(antithetic: bool, greeks: bool) -> float:
     return 65 + per_state * (2 if antithetic else 1)
 
 
-def ops_k8_ladder(n_strikes: int, m: int, n_t: int) -> float:
-    """K8's least work for a European ladder: per strike, row and step the
-    rhs (three products of the layer with the row's coefficients and two
-    adds, 5), the forward elimination (d' = (d − a·d'_prev)·rcp, 3) and the
-    back substitution (2); per row and step, shared by every strike, σ's
-    operator coefficients, the pivot c' and its reciprocal (~25)."""
-    return (10 * n_strikes + 25) * m * n_t
+def ops_k8_ladder(n_strikes: int, m: int, n_t: int,
+                  american: bool = False) -> float:
+    """K8's least work for a ladder: per strike, row and step the rhs
+    (three products of the layer with the row's coefficients and two adds,
+    5), the forward elimination (d' = (d − a·d'_prev)·rcp, 3), the back
+    substitution (2) and, American, the projection against the intrinsic
+    value (1); per row and step, shared by every strike, σ's operator
+    coefficients, the pivot c' and its reciprocal (~25)."""
+    return ((10 + american) * n_strikes + 25) * m * n_t
 
 
 def ops_k5_point(n_steps: int) -> float:
@@ -572,20 +587,22 @@ class PdeSlice:
         d = torch.where(out, 0.0, torch.clamp(S - K, min=0.0))
         return [t.to(device=self.dev, dtype=dtype) for t in (a, b, c, d)]
 
-    def k8_setup(self, kind, american, method):
+    def k8_setup(self, kind, american, method, strikes=None, N_S=None,
+                 N_t=None):
         """(operands, σ table, fd_lv kwargs, layer -> prices) for K8 on the
-        ladder."""
+        ladder, or on ``strikes`` x ``N_S`` x ``N_t``; ``kind`` "call",
+        "put" or a call mask."""
         from optpricer_tpu_torch.ops import fd_lv as flv
 
         S0, T, r, q = self.LV_MARKET
+        strikes = self.strikes if strikes is None else strikes
+        N_S, N_t = N_S or self.N_S, N_t or self.N_T
         (x_np, dt, K_arr, mask, params, K32, sign, m, m_pad) = \
-            flv._kernel_inputs(S0, self.strikes, T, r, q, kind,
-                               N_S=self.N_S, N_t=self.N_T, S_max_mult=4.0,
-                               ref_vol=0.3)
-        tab = flv._sigma_table(smile, x_np, dt, self.N_S, self.N_T, m_pad,
-                               self.dev)
+            flv._kernel_inputs(S0, strikes, T, r, q, kind, N_S=N_S, N_t=N_t,
+                               S_max_mult=4.0, ref_vol=0.3)
+        tab = flv._sigma_table(smile, x_np, dt, N_S, N_t, m_pad, self.dev)
         ops = [torch.from_numpy(t).to(self.dev) for t in (params, K32, sign)]
-        kw = dict(n_t=self.N_T, m=m, m_pad=m_pad, theta=0.5,
+        kw = dict(n_t=N_t, m=m, m_pad=m_pad, theta=0.5,
                   american=american, method=method)
         return ops, tab, kw, lambda V: flv._ladder_prices(
             V, x_np, K_arr, mask, S0, r, T)
@@ -649,13 +666,39 @@ class PdeSlice:
                      tth._thomas_plain(a[:, None], b[:, None], c[:, None],
                                        d.t()).t(), rtols[dtype])
 
+        # the pre-kernel's plan of both forms at the ladder's shape, held
+        # to its plain version exactly (the same correctly rounded f32
+        # operations)
+        for method in ("pcr", "thomas"):
+            ops, tab, kw, _ = self.k8_setup("call", False, method)
+            plan_kw = {k: kw[k] for k in ("n_t", "m", "m_pad", "theta",
+                                          "method")}
+            got = flv.fd_lv_plan(ops[0], tab, **plan_kw)
+            ref = flv._fd_lv_plan_plain(ops[0], tab, **plan_kw)
+            gap = (got - ref).abs().max().item()
+            print(f"phase 3 fd_lv plan {method} {self.N_S - 1} rows x "
+                  f"{self.N_T} steps: {got.numel()} words, max |kernel − "
+                  f"plain| {gap:.3e}, equal: {torch.equal(got, ref)}")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"fd_lv plan {method}: kernel and plain "
+                                     f"plans differ (max {gap:.3e})")
+
         # both methods at the ladder's full 512 steps; the plain Thomas
-        # march (~5·10^6 small launches) is timed once on the European call
-        k8_cases = [(kind, am, "pcr") for kind in ("call", "put")
+        # march (~5·10^6 small launches) is timed once on the European
+        # call; a ragged ladder of 1 025 strikes, calls and puts mixed, and
+        # PCR's largest grid, 1 024 rows; Thomas's ragged ladder at 32
+        # steps (its plain march is a Python loop over rows and steps)
+        ragged = torch.linspace(70.0, 130.0, 1025).double().numpy()
+        mixed = (torch.arange(ragged.size) % 2 == 0).numpy()
+        k8_cases = [(kind, am, "pcr", {}) for kind in ("call", "put")
                     for am in (False, True)]
-        k8_cases += [("call", False, "thomas"), ("put", True, "thomas")]
-        for kind, am, method in k8_cases:
-            ops, tab, kw, prices = self.k8_setup(kind, am, method)
+        k8_cases += [("call", False, "thomas", {}),
+                     ("put", True, "thomas", {}),
+                     (mixed, True, "pcr", dict(strikes=ragged)),
+                     ("put", True, "pcr", dict(N_S=1025)),
+                     (mixed, True, "thomas", dict(strikes=ragged, N_t=32))]
+        for kind, am, method, shape in k8_cases:
+            ops, tab, kw, prices = self.k8_setup(kind, am, method, **shape)
             k = flv.fd_lv(*ops, tab, **kw)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -664,11 +707,12 @@ class PdeSlice:
             p = flv._fd_lv_plain(*ops, tab, **kw)
             end.record()
             end.synchronize()
-            if (kind, am, method) == ("call", False, "thomas"):
+            if method == "thomas" and not am and not shape:  # the call
                 self.plain_thomas_ms = start.elapsed_time(end)
             dprice = float(abs(prices(k) - prices(p)).max())
-            case = (f"{method} {kind} american={am} {len(self.strikes)} x "
-                    f"{self.N_S - 1} x {self.N_T}")
+            label = kind if isinstance(kind, str) else "calls and puts"
+            case = (f"{method} {label} american={am} {k.shape[1]} x "
+                    f"{kw['m']} x {kw['n_t']}")
             print(f"phase 3 fd_lv {case}: max |price difference| "
                   f"{dprice:.3e}; plain version {start.elapsed_time(end):.1f}"
                   f" ms [{self.card}]")
@@ -725,6 +769,7 @@ class PdeSlice:
         for fn in pde_fns.values():
             fn.launches = 0
         tth.tridiag_solve_kernel.launches_by_shape.clear()
+        flv.fd_lv.launches_by_method = dict.fromkeys(flv.METHODS, 0)
         print("phase 5 main path, PDE:")
         t0 = time.perf_counter()
         spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
@@ -842,10 +887,18 @@ class PdeSlice:
         if sum(self.k7_shapes.values()) != launches["tridiag_pcr_kernel"]:
             raise AssertionError(f"K7 launches by shape {self.k7_shapes} "
                                  "do not add up to its count")
+        self.k8_methods = dict(flv.fd_lv.launches_by_method)
+        if sum(self.k8_methods.values()) != launches["fd_lv_kernel"]:
+            raise AssertionError(f"K8 launches by method {self.k8_methods} "
+                                 "do not add up to its count")
         print(f"  PDE path {time.perf_counter() - t0:.2f} s; launches in this "
               f"process: {launches}; K7 launches by (rows, systems): "
-              f"{dict(self.k7_shapes)}")
-        for name, count in launches.items():
+              f"{dict(self.k7_shapes)}; K8 launches by method: "
+              f"{self.k8_methods}")
+        counts = dict(launches, **{f"fd_lv_kernel {method}": count
+                                   for method, count
+                                   in self.k8_methods.items()})
+        for name, count in counts.items():
             if count == 0:
                 raise AssertionError(f"{name} was not launched on the PDE "
                                      "path")
@@ -904,17 +957,22 @@ class PdeSlice:
         print(f"phase 6 dense torch.linalg.solve vs K7: max |x difference| "
               f"{gap:.3e}")
         for method in ("pcr", "thomas"):
-            ops, tab, kw, _ = self.k8_setup("call", False, method)
-            times[("k8", method)] = cuda_ms(lambda: flv.fd_lv(*ops, tab,
-                                                              **kw))
-            if method == "pcr":
+            for kind, am, tag in (("put", True, "american put"),
+                                  ("call", False, "call")):
+                ops, tab, kw, _ = self.k8_setup(kind, am, method)
+                times[(f"k8 {tag}", method)] = cuda_ms(
+                    lambda: flv.fd_lv(*ops, tab, **kw))
+            plan_kw = {k: kw[k] for k in ("n_t", "m", "m_pad", "theta",
+                                          "method")}
+            times[("k8 plan", method)] = cuda_ms(
+                lambda: flv.fd_lv_plan(ops[0], tab, **plan_kw))
+            if method == "pcr":   # the European calls
                 times[("k8plain", method)] = cuda_ms(
                     lambda: flv._fd_lv_plain(*ops, tab, **kw), reps=3)
         times[("k8plain", "thomas")] = self.plain_thomas_ms
-        times[("ladder auto", "call")] = cuda_ms(
-            lambda: self.ladder("auto"), reps=3)
-        times[("ladder fused", "call")] = cuda_ms(
-            lambda: self.ladder("fused"), reps=3)
+        for solver in ("auto", "fused", "fused_thomas"):
+            times[(f"ladder {solver}", "call")] = cuda_ms(
+                lambda: self.ladder(solver), reps=3)
         for (what, size), ms in times.items():
             print(f"phase 6 time {what} {size}: {ms:.4f} ms [{self.card}]")
 
@@ -957,7 +1015,9 @@ class PdeSlice:
             "ladder auto": (lambda: self.ladder("auto"),
                             times[("ladder auto", "call")]),
             "ladder fused": (lambda: self.ladder("fused"),
-                             times[("ladder fused", "call")])}
+                             times[("ladder fused", "call")]),
+            "ladder fused_thomas": (lambda: self.ladder("fused_thomas"),
+                                    times[("ladder fused_thomas", "call")])}
         for label, (fn, ref_ms) in profiled.items():
             wall, busy, n_k, _ = device_busy(fn)
             print(f"phase 6 profile {label}: device busy {busy:.4f} ms "
@@ -974,6 +1034,7 @@ class PdeSlice:
         n, batch = self.K7_SHAPE
         m, B = self.N_S - 1, len(self.strikes)
         k7_ops = 10 * n * batch
+        k8_bytes = 4 * (self.N_T * (m + 1) + (m + 1) * B + 2 * B + 6)
         return [
             {"name": "tridiag_pcr_kernel", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/thomas.cu",
@@ -1011,16 +1072,25 @@ class PdeSlice:
              "replaces": "optpricer_tpu/ops/pallas_fd_lv.py:63",
              "launches": launches["fd_lv_kernel"],
              "max_abs_err": worst["fd_lv"][1],
-             "ms": times[("k8", "pcr")],
+             "ms": times[("k8 call", "pcr")],
              "plain_ms": times[("k8plain", "pcr")],
              **dict(zip(("bound_ms", "bound_by"), bound(
-                 ops_k8_ladder(B, m, self.N_T),
-                 4 * (self.N_T * (m + 1) + (m + 1) * B + 2 * B + 6)))),
+                 ops_k8_ladder(B, m, self.N_T), k8_bytes))),
              "library_ms": None,
              "shape": f"PCR, {B} European calls x {m} rows x {self.N_T} "
                       "steps",
-             "ms_thomas": times[("k8", "thomas")],
-             "plain_ms_thomas": times[("k8plain", "thomas")]},
+             "launches_by_method": self.k8_methods,
+             "ms_thomas": times[("k8 call", "thomas")],
+             "bound_ms_thomas": bound(ops_k8_ladder(B, m, self.N_T),
+                                      k8_bytes)[0],
+             "plain_ms_thomas": times[("k8plain", "thomas")],
+             "ms_american_put": times[("k8 american put", "pcr")],
+             "ms_thomas_american_put": times[("k8 american put", "thomas")],
+             "bound_ms_american_put": bound(ops_k8_ladder(
+                 B, m, self.N_T, american=True), k8_bytes)[0],
+             "pre_kernel": "fd_lv_plan_kernel",
+             "pre_kernel_ms": times[("k8 plan", "pcr")],
+             "pre_kernel_ms_thomas": times[("k8 plan", "thomas")]},
         ]
 
 
@@ -1522,6 +1592,15 @@ class Config5Slice:
 
 
 
+# phase 5's K6 calls besides the [basket-path] book: key -> (``k6`` args,
+# (pairs, steps))
+K6_OTHER_SHAPES = (
+    ("16_assets_barrier", (16, "basket_barrier", "up-and-in", 1.1),
+     (1 << 18, 64)),
+    ("1_asset_worstof_2p20", (1, "worstof_barrier", "up-and-out", 1.3),
+     (1 << 20, 64)))
+
+
 def ops_k6_path_step(a: int, antithetic: bool, barrier: bool) -> float:
     """K6 per path pair and step, by the least work of its function: the
     draws, ⌈a/2⌉ Threefry blocks (80) and Box-Muller pairs (a log32, a sqrt,
@@ -2000,6 +2079,12 @@ class MultiAssetLsvSlice:
         seed, params, run = self.k6(10, "asian_basket")
         self.times[("k6", "main")] = cuda_ms(
             lambda: tbk.basket_mc(seed, params, **run))
+        # phase 5's other K6 shapes: the 16-asset basket barrier (three
+        # calls) and the 1-asset worst-of barrier at 2^20 pairs
+        for key, args, shape in K6_OTHER_SHAPES:
+            seed, params, run = self.k6(*args, shape=shape)
+            self.times[("k6", key)] = cuda_ms(
+                lambda: tbk.basket_mc(seed, params, **run))
         for scheme, model in self.models.items():
             seed, params, run = self.k4_lsv(
                 model, self.LSV_PRICE["n_paths"],
@@ -2008,7 +2093,10 @@ class MultiAssetLsvSlice:
                 lambda: pmc.path_mc(seed, params, **run))
         print(f"phase 6 time K6 [basket-path] 2^18 pairs x 64 x 10 assets: "
               f"{self.times[('k6', 'main')]:.4f} ms, plain (one call, phase "
-              f"3) {self.times[('k6plain', 'main')]:.4f} ms [{self.card}]")
+              f"3) {self.times[('k6plain', 'main')]:.4f} ms; "
+              + "; ".join(f"{key} {self.times[('k6', key)]:.4f} ms"
+                          for key, _, _ in K6_OTHER_SHAPES)
+              + f" [{self.card}]")
         for scheme in self.models:
             print(f"phase 6 time K4-lsv {scheme} up-and-out 2^20 x 96: "
                   f"{self.times[('k4 lsv', scheme)]:.4f} ms, plain (one call,"
@@ -2043,7 +2131,13 @@ class MultiAssetLsvSlice:
                  8 + 4 * (7 + 4 * a + a * a) + 4 * 6))),
              "library_ms": None,
              "shape": f"[basket-path] asian, {a} assets, {n} pairs x "
-                      f"{steps} steps, antithetic"},
+                      f"{steps} steps, antithetic",
+             **{f"ms_{key}": self.times[("k6", key)]
+                for key, _, _ in K6_OTHER_SHAPES},
+             **{f"bound_ms_{key}": bound(
+                 shape[0] * shape[1] * ops_k6_path_step(args[0], True, True),
+                 8 + 4 * (7 + 4 * args[0] + args[0] ** 2) + 4 * 6)[0]
+                for key, args, shape in K6_OTHER_SHAPES}},
             {"name": "path_mc_kernel lsv", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/path_mc.cu",
              "replaces": "optpricer_tpu/ops/pallas_path_mc.py:68",
@@ -2450,7 +2544,7 @@ def main():
 
     # phase 6: time
     times = {}
-    for n in (1 << 30, 1 << 24):
+    for n in (1 << 30, 1 << 24, 1_000_000):   # 1M: phase 5's two 1M calls
         reps, n_prog = tmc._plan_grid(n, 2 * tmc.TILE)
         params = tmc._terminal_params(n, *market, True).to(dev)
         kw = dict(n_programs=n_prog, reps=reps, antithetic=True)
@@ -2509,7 +2603,9 @@ def main():
                     bound((1 << 24) * OPS_K1_DRAW, 36))),
          "library_ms": None, "shape": "2^24 base draws, antithetic",
          "ms_2p30": times[("k1", 1 << 30)],
-         "bound_ms_2p30": bound((1 << 30) * OPS_K1_DRAW, 36)[0]},
+         "bound_ms_2p30": bound((1 << 30) * OPS_K1_DRAW, 36)[0],
+         "ms_1M": times[("k1", 1_000_000)],
+         "bound_ms_1M": bound(1_000_000 * OPS_K1_DRAW, 36)[0]},
         {"name": "terminal_qmc_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/terminal_mc.cu",
          "replaces": "optpricer_tpu/ops/pallas_mc.py:214",
@@ -2564,6 +2660,8 @@ K7_NAMES = re.compile(r"\b(?:tridiag_\w+_kernel|thomas_kernel)\b")
 K4_KERNEL = re.compile(
     r"path_mc_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E(?:Li(\d+)E)?E")
 LV_MILSTEIN = 6
+# an fd_lv kernel instantiation's mangled bool template arguments
+K8_KERNEL = re.compile(r"(fd_lv_[a-z]+_kernel)I((?:Lb[01]E)+)E")
 
 
 def k4_label(m: re.Match) -> str | None:
@@ -2591,7 +2689,7 @@ def k4_label(m: re.Match) -> str | None:
 def ptxas_k4_k7(report: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
     from a verbose build's report, for K4's LV_MILSTEIN and ``K4_TIMED``
-    instantiations and K7's kernels."""
+    instantiations and K7's and K8's kernels."""
     lines = report.splitlines()
     found = {}
     for i, line in enumerate(lines[:-2]):
@@ -2599,9 +2697,13 @@ def ptxas_k4_k7(report: str) -> dict:
         k4 = m and K4_KERNEL.search(m.group(1))
         k7 = m and re.search(r"(tridiag_\w+?_kernel|thomas_kernel)I([fd])",
                              m.group(1))
+        k8 = m and K8_KERNEL.search(m.group(1))
         key = k4_label(k4) if k4 else (
             f"{k7.group(1)}<{dict(f='float', d='double')[k7.group(2)]}>"
             if k7 else None)
+        if k8:
+            flags = re.findall(r"Lb([01])E", k8.group(2))
+            key = f"{k8.group(1)}<{', '.join(flags)}>"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", lines[i + 1])
         regs = re.search(r"Used (\d+) registers", lines[i + 2])
@@ -2714,6 +2816,7 @@ def ab_turn(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch import _build
+    from optpricer_tpu_torch.ops import fd_lv as flv
     from optpricer_tpu_torch.ops import path_mc as pmc
     from optpricer_tpu_torch.ops import thomas as tth
 
@@ -2775,6 +2878,25 @@ def ab_turn(tree: Path) -> dict:
             lambda: pmc.path_mc(seed, params, **run))
 
     pde = PdeSlice(dev, card)
+    # K8 on the ladder: both forms, European calls and American puts, the
+    # layer's bytes hashed for the bit-for-bit comparison across turns
+    out["k8 layers"] = {}
+    for method in ("pcr", "thomas"):
+        for kind, am, tag in (("call", False, "call"),
+                              ("put", True, "american put")):
+            ops, tab, kw, _ = pde.k8_setup(kind, am, method)
+            layer = flv.fd_lv(*ops, tab, **kw).cpu().numpy()
+            out["k8 layers"][f"{method} {tag}"] = hashlib.sha256(
+                layer.tobytes()).hexdigest()
+            out[f"k8 {method} {tag} ms"] = cuda_ms(
+                lambda: flv.fd_lv(*ops, tab, **kw))
+    for solver in ("fused", "fused_thomas"):
+        fn = lambda: pde.ladder(solver)
+        fn()
+        out[f"wall ladder {solver} {pde.N_STRIKES} x {pde.N_S} x "
+            f"{pde.N_T} ms"] = statistics.median(
+                timed(fn)[1] * 1e3 for _ in range(21))
+
     n, batch = pde.K7_SHAPE
     f64, f32 = torch.float64, torch.float32
     calls = {}
@@ -2824,7 +2946,7 @@ def ab_turn(tree: Path) -> dict:
 
 
 AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
-                "sass", "k4 sums timed", "k4 sums 2^18")
+                "sass", "k4 sums timed", "k4 sums 2^18", "k8 layers")
 
 
 def ab(other: Path):
@@ -2861,7 +2983,8 @@ def ab(other: Path):
                       for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
                   + ", ".join(f"{v:.4f}" for v in values))
-    for key in [f"k4 {label} ms" for label in K4_TIMED] \
+    k8_keys = [k for k in first if k.startswith("k8 ") and k.endswith(" ms")]
+    for key in [f"k4 {label} ms" for label in K4_TIMED] + k8_keys \
             + [k for k in first if k.startswith("wall ")]:
         ms = {side: [t[key] for s, t in turns if s == side]
               for side in ("other", "this")}
@@ -2914,6 +3037,13 @@ def ab(other: Path):
         print(f"k4 {scheme} at the desk's call: the 21 sums are "
               f"{'equal' if same else 'NOT equal'} bit for bit across the "
               "turns")
+    for case in first["k8 layers"]:
+        digests = [t["k8 layers"][case] for _, t in turns]
+        same = all(d == digests[0] for d in digests)
+        print(f"k8 {case} {PdeSlice.N_STRIKES} x {PdeSlice.N_S - 1} x "
+              f"{PdeSlice.N_T}: the layer is "
+              f"{'equal' if same else 'NOT equal'} bit for bit across the "
+              f"turns (SHA-256 {', '.join(d[:12] for d in digests)})")
     print(json.dumps({"turns": [dict(t, side=s) for s, t in turns]}))
 
 

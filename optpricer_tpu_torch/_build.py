@@ -54,8 +54,9 @@ _SIGNATURES = {
                            _I, _I, _I, _P),
     "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                          _L, _L, _P, _I, _I, _I, _P),
-    "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                        _I, _P),
+    "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                        _I, _I, _P),
+    "optpricer_fd_lv_plan": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "optpricer_basket_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P),
 }

@@ -29,13 +29,23 @@ to 0. The strikes are not padded: there is no lane tile on the card, and
 ``b_tile`` and ``interpret`` are accepted for the reference's signature and
 ignored.
 
-``fd_lv`` launches the kernel for tensors on a CUDA device and counts the
-launch in ``fd_lv.launches``; for tensors on the CPU it runs the plain
+``fd_lv`` launches ``fd_lv_plan_kernel`` and then the march for tensors
+on a CUDA device, and counts the launch in ``fd_lv.launches`` and by method
+in ``fd_lv.launches_by_method``; for tensors on the CPU it runs the plain
 torch version ``_fd_lv_plain``, which repeats the kernel's f32 arithmetic
 operation by operation (with ``ops/fastmath.exp32``). Any other device
 raises. There is no fallback: a failed build or launch raises.
+
+The pre-kernel writes the march's strike-independent terms once per
+launch (``csrc/fd_lv.cu``, "plan"); ``_fd_lv_plan_plain`` is its plain
+version and ``_fd_lv_march_plain`` the march of every strike from that
+plan, which gives ``_fd_lv_plain``'s layer bit for bit. ``_launch_plan``
+is the kernels' grid and the plan's size, as ``optpricer_fd_lv`` computes
+them.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,12 +57,22 @@ from .fastmath import exp32
 from .grid import build_grid
 from .terminal_mc import _stream
 
-__all__ = ["fd_lv_ladder_kernel", "fd_lv", "METHODS"]
+__all__ = ["fd_lv_ladder_kernel", "fd_lv", "fd_lv_plan", "METHODS"]
 
 GROUP = 8                      # the reference's grid-row padding
 METHODS = {"pcr": 0, "thomas": 1}
 _MAX_PCR_ROWS = 1024           # one thread per row in one block
 _F32 = torch.float32
+# csrc/fd_lv.cu's constants
+PCR_STRIKES = 8                # strikes a PCR block
+THOMAS_STRIKES = 8             # strikes a Thomas block
+THOMAS_THREADS = 128           # threads (four warps) a Thomas block
+PLAN_WORDS = 8                 # plan floats per (step, row)
+MAX_SMEM = 232_448             # dynamic shared memory a block may use
+# a Thomas block's shared words per row: two steps' plan (2 x 2 float4),
+# the strikes' layer and d' columns, S
+THOMAS_ROW_WORDS = 16 + 2 * THOMAS_STRIKES + 1
+THOMAS_SMEM_ROWS = MAX_SMEM // (THOMAS_ROW_WORDS * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +180,121 @@ def _fd_lv_plain(params, K, sign, sig_tab, *, n_t: int, m: int, m_pad: int,
     return V
 
 
+def _plan_offsets(n_t: int, m_pad: int):
+    """(start of exp32(−r·τ), start of S) in a plan of ``_launch_plan``'s
+    ``plan_floats`` words: the (n_t, m_pad, PLAN_WORDS) terms first."""
+    disc = n_t * m_pad * PLAN_WORDS
+    return disc, disc + n_t + 1
+
+
+def _fd_lv_plan_plain(params, sig_tab, *, n_t: int, m: int, m_pad: int,
+                      theta: float, method: str) -> torch.Tensor:
+    """Plain version of ``fd_lv_plan_kernel``: f32[plan_floats], the
+    strike-independent terms of every (march step, row) in the kernel's
+    layout (``csrc/fd_lv.cu``), by ``_fd_lv_plain``'s operations."""
+    dev = params.device
+    x_min, dx, dt, r, q = (params[i] for i in range(5))
+    e = float(np.float32(1.0 - theta)) * dt
+    td = float(np.float32(theta)) * dt
+    rows = torch.arange(m_pad, device=dev)
+    interior = (rows < m).to(_F32)
+    row0 = (rows == 0).to(_F32)
+    rowL = (rows == m - 1).to(_F32)
+    zero = torch.zeros((), dtype=_F32, device=dev)
+
+    sig = sig_tab.flip(0)                      # march order: step i, n_t-1-i
+    alpha = 0.5 * sig * sig / (dx * dx)
+    beta = (r - q - 0.5 * sig * sig) / (2.0 * dx)
+    AL = (alpha - beta) * interior
+    CL = (alpha + beta) * interior
+    bL = -(AL + CL) - r * interior
+    b_lhs = 1.0 + td * (AL + CL + r * interior)
+    words = [1.0 + e * bL, e * AL, e * CL, td * AL * row0, td * CL * rowL]
+    if method == "pcr":
+        rb0 = 1.0 / b_lhs
+        words += [rb0, -td * AL * (rows != 0).to(_F32) * rb0,
+                  -td * CL * (rows != m - 1).to(_F32) * rb0]
+    else:
+        a_lhs = torch.where(rows == 0, zero, -td * AL)
+        c_lhs = -td * CL
+        rcp = torch.empty_like(b_lhs)
+        cback = torch.empty_like(b_lhs)
+        cp_prev = torch.zeros_like(b_lhs[:, 0])
+        for j in range(m_pad):
+            rcp[:, j] = 1.0 / (b_lhs[:, j] - a_lhs[:, j] * cp_prev)
+            cp_prev = c_lhs[:, j] * rcp[:, j]
+            cback[:, j] = zero if j == m_pad - 1 else cp_prev
+        words += [cback, a_lhs, rcp]
+    tau = torch.arange(1, n_t + 1, dtype=_F32, device=dev) * dt
+    disc = exp32(torch.cat([(-r * zero).view(1), -r * tau]))
+    S = exp32(x_min + (rows.to(_F32) + 1.0) * dx)
+    return torch.cat([torch.stack(words, dim=-1).reshape(-1), disc, S])
+
+
+def _fd_lv_march_plain(plan, params, K, sign, *, n_t: int, m: int,
+                       m_pad: int, american: bool,
+                       method: str) -> torch.Tensor:
+    """The (m_pad, B) layer at t = 0 from a plan (``_fd_lv_plan_plain``'s
+    or the kernel's): the march's per-strike substitution, as the kernels
+    run it. Equal to ``_fd_lv_plain`` bit for bit."""
+    dev = params.device
+    x_min, dx = params[0], params[1]
+    o_disc, o_S = _plan_offsets(n_t, m_pad)
+    words = plan[:o_disc].view(n_t, m_pad, PLAN_WORDS)
+    disc = plan[o_disc:o_S]
+    S = plan[o_S:].view(-1, 1)
+    interior = (torch.arange(m_pad, device=dev) < m).to(_F32).view(-1, 1)
+    S_min = torch.exp(x_min)
+    S_max = torch.exp(x_min + float(m + 1) * dx)
+    Kr = K.view(1, -1)
+    sg = sign.view(1, -1)
+    is_call = sg > 0.0
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    intrinsic = torch.maximum(sg * (S - Kr), zero) * interior
+
+    def bc_pair(dsc):
+        disc_K = Kr * dsc
+        left = torch.where(is_call, zero, torch.maximum(disc_K - S_min, zero))
+        right = torch.where(is_call, torch.maximum(S_max - disc_K, zero),
+                            zero)
+        return left, right
+
+    V = intrinsic
+    bc_l_old, bc_r_old = bc_pair(disc[0])
+    for i in range(n_t):
+        f1, eA, eC, tA0, tCL, w5, w6, w7 = (words[i, :, k].view(-1, 1)
+                                            for k in range(PLAN_WORDS))
+        bc_l_new, bc_r_new = bc_pair(disc[i + 1])
+        Vm1 = torch.cat([bc_l_old, V[:-1]])
+        Vp1 = _shift_up(V, 1)
+        Vp1[m - 1] = bc_r_old[0]
+        D = f1 * V + eA * Vm1 + eC * Vp1 + tA0 * bc_l_new + tCL * bc_r_new
+        if method == "pcr":
+            D, A, C = D * w5, w6, w7
+            for k in range((m_pad - 1).bit_length()):
+                sft = 1 << k
+                am, cm, dm = (_shift_down(x, sft) for x in (A, C, D))
+                ap, cpv, dpv = (_shift_up(x, sft) for x in (A, C, D))
+                rcp = 1.0 / (1.0 - A * cm - C * ap)
+                A, C, D = (-rcp * A * am, -rcp * C * cpv,
+                           rcp * (D - A * dm - C * dpv))
+            V = D
+        else:
+            dp = torch.zeros_like(D[0])
+            for j in range(m_pad):
+                dp = (D[j] - w6[j] * dp) * w7[j]
+                D[j] = dp
+            V = torch.empty_like(D)
+            x = torch.zeros_like(D[0])
+            for j in range(m_pad - 1, -1, -1):
+                x = D[j] - w5[j] * x
+                V[j] = x
+        if american:
+            V = torch.maximum(V, intrinsic)
+        bc_l_old, bc_r_old = bc_l_new, bc_r_new
+    return V
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
@@ -186,18 +321,63 @@ def _check(params, K, sign, sig_tab, n_t, m, m_pad, method):
         raise ValueError(f"unsupported device {params.device}")
 
 
+class LaunchPlan(NamedTuple):
+    """``optpricer_fd_lv``'s launch of the march: strikes a block, blocks,
+    threads a block, dynamic shared-memory bytes, the plan's f32 words
+    (the pre-kernel runs one block of 256 threads per step) and the f32
+    words of the Thomas scratch (0 where the columns fit in shared
+    memory)."""
+    strikes_per_block: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+    plan_floats: int
+    scratch_floats: int
+
+
+def _launch_plan(method: str, n_strikes: int, m_pad: int,
+                 n_t: int) -> LaunchPlan:
+    """The grid of ``fd_lv_pcr_kernel`` / ``fd_lv_thomas_kernel`` for
+    ``n_strikes`` strikes on ``m_pad`` rows, as ``csrc/fd_lv.cu`` computes
+    it. PCR: ``PCR_STRIKES`` strikes a block, one thread per row, the
+    layers, a, c and the strikes' d in shared memory. Thomas:
+    ``THOMAS_STRIKES`` strikes a block of ``THOMAS_THREADS``, which form
+    the rhs together, one lane a strike running its substitutions; up to
+    ``THOMAS_SMEM_ROWS``
+    rows, shared memory holds two steps' plan, the strikes' layer and d'
+    columns and S; above them the plan is read from device memory and the
+    columns are the output and an (m_pad, B) scratch."""
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {sorted(METHODS)}, got "
+                         f"{method!r}")
+    if method == "pcr" and m_pad > _MAX_PCR_ROWS:
+        raise ValueError(f"pcr takes m_pad <= {_MAX_PCR_ROWS}, got {m_pad}")
+    plan_floats = _plan_offsets(n_t, m_pad)[1] + m_pad
+    if method == "pcr":
+        g = PCR_STRIKES
+        return LaunchPlan(g, -(-n_strikes // g), m_pad,
+                          (3 * g + 4) * m_pad * 4, plan_floats, 0)
+    g = THOMAS_STRIKES
+    in_smem = m_pad <= THOMAS_SMEM_ROWS
+    return LaunchPlan(g, -(-n_strikes // g), THOMAS_THREADS,
+                      THOMAS_ROW_WORDS * m_pad * 4 if in_smem else 0,
+                      plan_floats, 0 if in_smem else m_pad * n_strikes)
+
+
 def fd_lv(params, K, sign, sig_tab, *, n_t: int, m: int, m_pad: int,
           theta: float, american: bool, method: str = "pcr") -> torch.Tensor:
     """f32[m_pad, B]: the interior layer at t = 0 of every strike's march.
 
     ``params`` f32[6] (x_min, dx, dt, r, q, T); ``K`` and ``sign`` (+1 call,
     −1 put) f32[B]; ``sig_tab`` f32[n_t, m_pad], row n the σ column of step
-    n. Kernels ``fd_lv_pcr_kernel`` / ``fd_lv_thomas_kernel`` in
-    ``csrc/fd_lv.cu``; they replace
+    n. Kernels ``fd_lv_plan_kernel``, then ``fd_lv_pcr_kernel`` /
+    ``fd_lv_thomas_kernel`` in ``csrc/fd_lv.cu``; they replace
     ``optpricer_tpu/ops/pallas_fd_lv.py:_fd_lv_kernel`` (launched from
-    ``_run_fd_lv``). PCR: one block per strike, one thread per row, the
-    levels in shared memory. Thomas: one thread per strike, V and c' in an
-    (m_pad, B) scratch. Both bound by operations (see the source).
+    ``_run_fd_lv``). The pre-kernel computes the strike-independent terms
+    (for Thomas the factorisation too) once per step; PCR runs
+    ``PCR_STRIKES`` strikes a block, Thomas ``THOMAS_STRIKES`` a block, one
+    lane a strike's substitutions, the plan staged in shared memory
+    (``_launch_plan``).
     """
     _check(params, K, sign, sig_tab, n_t, m, m_pad, method)
     kw = dict(n_t=n_t, m=m, m_pad=m_pad, theta=theta, american=american,
@@ -206,24 +386,52 @@ def fd_lv(params, K, sign, sig_tab, *, n_t: int, m: int, m_pad: int,
         return _fd_lv_plain(params, K, sign, sig_tab, **kw)
     dev = params.device
     B = K.shape[0]
+    plan = _launch_plan(method, B, m_pad, n_t)
     out = torch.empty((m_pad, B), dtype=_F32, device=dev)
-    scratch = torch.empty((m_pad, B) if method == "thomas" else (1,),
-                          dtype=_F32, device=dev)
+    table = torch.empty(plan.plan_floats, dtype=_F32, device=dev)
+    scratch = torch.empty(max(plan.scratch_floats, 1), dtype=_F32,
+                          device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.optpricer_fd_lv(
             params.data_ptr(), K.data_ptr(), sign.data_ptr(),
-            sig_tab.data_ptr(), out.data_ptr(), scratch.data_ptr(), n_t, m,
-            m_pad, B, float(np.float32(1.0 - theta)),
-            float(np.float32(theta)), int(bool(american)), METHODS[method],
-            _stream(dev))
+            sig_tab.data_ptr(), out.data_ptr(), table.data_ptr(),
+            scratch.data_ptr(), n_t, m, m_pad, B,
+            float(np.float32(1.0 - theta)), float(np.float32(theta)),
+            int(bool(american)), METHODS[method], _stream(dev))
     if err != 0:
         raise RuntimeError(f"fd_lv kernel launch failed: CUDA error {err}")
     fd_lv.launches += 1
+    fd_lv.launches_by_method[method] += 1
     return out
 
 
 fd_lv.launches = 0
+fd_lv.launches_by_method = {method: 0 for method in METHODS}
+
+
+def fd_lv_plan(params, sig_tab, *, n_t: int, m: int, m_pad: int,
+               theta: float, method: str = "pcr") -> torch.Tensor:
+    """f32[plan_floats]: the plan ``fd_lv`` computes before its march, by
+    ``fd_lv_plan_kernel`` alone on a CUDA device and by
+    ``_fd_lv_plan_plain`` on the CPU (same layout, ``csrc/fd_lv.cu``)."""
+    K = torch.ones(1, dtype=_F32, device=params.device)
+    _check(params, K, K, sig_tab, n_t, m, m_pad, method)
+    if params.device.type == "cpu":
+        return _fd_lv_plan_plain(params, sig_tab, n_t=n_t, m=m, m_pad=m_pad,
+                                 theta=theta, method=method)
+    dev = params.device
+    table = torch.empty(_launch_plan(method, 1, m_pad, n_t).plan_floats,
+                        dtype=_F32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.optpricer_fd_lv_plan(
+            params.data_ptr(), sig_tab.data_ptr(), table.data_ptr(), n_t, m,
+            m_pad, float(np.float32(1.0 - theta)), float(np.float32(theta)),
+            METHODS[method], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fd_lv plan launch failed: CUDA error {err}")
+    return table
 
 
 # ---------------------------------------------------------------------------

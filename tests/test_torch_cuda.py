@@ -13,8 +13,11 @@ and the path kernel's signed Greek sums within 2e-5·√(n·ΣY²). The PDE
 kernels: the batched tridiagonal solve (K7) against the plain Thomas
 solve to rtol 1e-10 in f64 and 2e-5 in f32, with an absolute floor of
 rtol·max|x|, the fused local-vol march (K8) within 2e-5 of its plain
-version. The path kernel's Dupire branches and the book kernel (K3) at
-rtol 2e-5 too, and so the basket kernel (K6) and the path kernel's LSV
+version (PCR and Thomas, calls and puts mixed, European and American, 1,
+9 and 1 025 strikes on 8, 512 and 1 024 rows, Thomas also past its
+shared-memory rows) and its pre-kernel's plan equal to the plain plan.
+The path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5
+too, and so the basket kernel (K6) and the path kernel's LSV
 branches, and the path kernel's per-path grid at one, two and four reps;
 its Box-Muller sincosf is held to cosf and sinf bit for bit on every
 angle it can draw.
@@ -219,24 +222,75 @@ def _smile(S, t):
     return 0.2 + 0.1 * torch.exp(-((torch.log(S / 100.0)) ** 2)) + 0.05 * t
 
 
-@pytest.mark.parametrize("method", ["pcr", "thomas"])
-@pytest.mark.parametrize("kind, american", [("call", False), ("put", True)])
-def test_fd_lv_kernel_matches_plain(cuda_device, method, kind, american):
-    N_S, N_t = 512, 32
+def _fd_lv_ladder(device, n_strikes, N_S, N_t=32):
+    """K8's operands for a ladder of calls and puts alternating (a call
+    first), strikes 70..130, on ``device``."""
+    calls = np.arange(n_strikes) % 2 == 0
     (x_np, dt, _, _, params, K, sign, m, m_pad) = tlv._kernel_inputs(
-        100.0, np.linspace(70.0, 130.0, 200), 1.0, 0.04, 0.01, kind,
+        100.0, np.linspace(70.0, 130.0, n_strikes), 1.0, 0.04, 0.01, calls,
         N_S=N_S, N_t=N_t, S_max_mult=4.0, ref_vol=0.3)
-    tab = tlv._sigma_table(_smile, x_np, dt, N_S, N_t, m_pad, cuda_device)
-    ops = [torch.from_numpy(t).to(cuda_device) for t in (params, K, sign)]
-    kw = dict(n_t=N_t, m=m, m_pad=m_pad, theta=0.5, american=american,
-              method=method)
+    tab = tlv._sigma_table(_smile, x_np, dt, N_S, N_t, m_pad, device)
+    ops = [torch.from_numpy(t).to(device) for t in (params, K, sign)]
+    return ops, tab, dict(n_t=N_t, m=m, m_pad=m_pad, theta=0.5)
+
+
+# K8 ladders: 1 strike, a PCR block and one more, 1 025 (a ragged last
+# block); m_pad 8 (m = 8), 512 (m = 511, the main path's) and 1 024
+# (m = 1 020, PCR's largest)
+@pytest.mark.parametrize("method", ["pcr", "thomas"])
+@pytest.mark.parametrize("american", [False, True])
+@pytest.mark.parametrize("n_strikes", [1, tlv.PCR_STRIKES + 1, 1025])
+@pytest.mark.parametrize("N_S", [9, 512, 1021])
+def test_fd_lv_kernel_matches_plain(cuda_device, method, american,
+                                    n_strikes, N_S):
+    ops, tab, kw = _fd_lv_ladder(cuda_device, n_strikes, N_S)
+    kw = dict(kw, american=american, method=method)
     before = tlv.fd_lv.launches
+    by_method = tlv.fd_lv.launches_by_method[method]
     got = tlv.fd_lv(*ops, tab, **kw)
     torch.cuda.synchronize()
     assert tlv.fd_lv.launches == before + 1
+    assert tlv.fd_lv.launches_by_method[method] == by_method + 1
     ref = tlv._fd_lv_plain(*ops, tab, **kw)
+    assert got.shape == (kw["m_pad"], n_strikes)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0.0, atol=2e-5)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_fd_lv_thomas_beyond_shared_memory(cuda_device, american):
+    """Above ``THOMAS_SMEM_ROWS`` rows the Thomas kernel reads the plan
+    from device memory and keeps its columns in the output and a scratch:
+    the same layer as the plain version."""
+    N_S = tlv.THOMAS_SMEM_ROWS + 10
+    ops, tab, kw = _fd_lv_ladder(cuda_device, tlv.THOMAS_STRIKES + 3, N_S,
+                                 N_t=4)
+    assert tlv._launch_plan("thomas", 11, kw["m_pad"], 4).smem_bytes == 0
+    kw = dict(kw, american=american, method="thomas")
+    got = tlv.fd_lv(*ops, tab, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, tlv._fd_lv_plain(*ops, tab, **kw),
+                               rtol=0.0, atol=2e-5)
+
+
+@pytest.mark.parametrize("method", ["pcr", "thomas"])
+@pytest.mark.parametrize("N_S", [9, 512, 1021])
+def test_fd_lv_plan_kernel_matches_plain(cuda_device, method, N_S):
+    """The pre-kernel's plan equals its plain version on the card exactly:
+    the same correctly rounded f32 operations (torch's CUDA division and
+    reciprocal are IEEE, nothing is contracted), and its march from the
+    kernel's plan is the kernel's layer."""
+    ops, tab, kw = _fd_lv_ladder(cuda_device, 9, N_S, N_t=17)
+    got = tlv.fd_lv_plan(ops[0], tab, **kw, method=method)
+    ref = tlv._fd_lv_plan_plain(ops[0], tab, **kw, method=method)
+    assert torch.equal(got, ref)
+    march = dict(n_t=kw["n_t"], m=kw["m"], m_pad=kw["m_pad"],
+                 american=True, method=method)
+    layer = tlv.fd_lv(*ops, tab, **dict(kw, american=True, method=method))
+    torch.testing.assert_close(
+        layer, tlv._fd_lv_march_plain(got, *ops, **march), rtol=0.0,
+        atol=2e-5)
 
 
 def test_pde_entry_points_launch_the_kernels(cuda_device):
