@@ -11,7 +11,8 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    nvcc per source, all started together) and print the build seconds,
    ptxas' registers and spills for every kernel instantiation, and the
    resident blocks per SM (the CUDA runtime's occupancy) and waves of K4's
-   timed instantiations (``K4_TIMED``) at their shapes.
+   timed instantiations (``K4_TIMED``) and of K6 at its three phase-5
+   shapes (``K6_SHAPES``).
 3. kernel vs plain — each kernel's wrapper against its plain torch version
    on the same card and inputs:
    * the terminal kernel (K1) at 2^20 and a ragged 1 000 003 draws for
@@ -56,7 +57,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    * the basket kernel (K6) at the `[basket-path]` shape (10 assets, 2^18
      pairs x 64 steps, Asian) and for 1, 3 and 16 assets x the Asian, the
      worst-of and basket barriers up/down x in/out (with a rebate) at
-     2^16 + 123 pairs x 16 steps, antithetic on and off for 3 assets;
+     2^16 + 123 pairs x 16 steps, antithetic on and off for 3 assets; and
+     every asset count 1-16 (each its own instantiation) with a payoff
+     each at 1, 2 and 4 reps (``K6_REPS``: 2^16, 2^18 and 3·2^18 pairs +
+     123 x 16 steps), antithetic for the even counts;
    * K4's lsv and lsv_qe branches on the calibrated tables at 2^20 x 96
      (up-and-out 130), on a fixed 16-step table for the five payoffs x
      antithetic on/off at 2^16 + 123 paths, and up-and-out 125 there on a
@@ -173,7 +177,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    versions timed once, in phase 3), K6 also at phase 5's 16-asset basket
    barrier (2^18 x 64) and 1-asset worst-of (2^20 x 64); the wall of
    lsv_calibrate, of the 100-asset basket_price_mc and of lsv_greeks_mc
-   (phase 5's runs).
+   (phase 5's runs); the walls (median of 21) of the user calls around K6
+   and K3: basket_exotic_mc on the `[basket-path]` book and on the
+   16-asset basket barrier, and euro_price_mc_batch on 1 000 contracts x
+   1M.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -191,7 +198,8 @@ single PyTorch call computes). K7's ``max_abs_err`` is in solution units,
 K8's in price units, K3's the largest over the book's contracts. K7's
 entry also has its launches by (rows, systems) on the PDE path, K8's its
 launches by method, both forms' times for calls and American puts and the
-pre-kernel's. The last line is ``{"ok": true, "device": {...}}``.
+pre-kernel's; K6's its resident blocks per SM at each shape. The last line
+is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --ab OTHER_TREE
 
@@ -216,12 +224,19 @@ torch.profiler) of the "auto" ladder, the PSOR put, the European call and
 (1 024 strikes x 511 rows x 512 steps) for European calls and American
 puts, each form's layer compared bit for bit across the turns (a SHA-256
 of its bytes), and the host-clock walls (median of 21) of the "fused" and
-"fused_thomas" ladders; the resident blocks per SM and waves
-of ``K4_TIMED`` (none for a tree without the path kernel's occupancy
-query); and, from each turn that builds its tree's library, ptxas'
-registers and spills of K7, K8, K4 ``LV_MILSTEIN`` and ``K4_TIMED``, and the
-static SASS instruction count of ``K4_TIMED``'s step-pair loop by class
-(``cuobjdump -sass``). The static count holds code a step pair seldom
+"fused_thomas" ladders; K6 at ``K6_SHAPES`` and K3 at 1 000 contracts x
+2^20 (``ab_k3_k6``), each ``ms``, K6's 6 sums at the two one-rep shapes
+compared bit for bit across the turns and at the 4-rep shape this vs
+other, K3's (n_ktiles, 10, 128) sums by SHA-256 across the turns, and the
+walls (median of 21) of basket_exotic_mc at ``[basket-path]`` and the
+16-asset barrier and of euro_price_mc_batch at 1 000 x 1M; the resident
+blocks per SM and waves of ``K4_TIMED`` and of K6 at ``K6_SHAPES`` (none
+for a tree without the kernel's occupancy query); and, from each turn
+that builds its tree's library, ptxas' registers and spills of K7, K8, K4
+``LV_MILSTEIN`` and ``K4_TIMED`` and of every K3 and K6 instantiation, and
+the static SASS instruction count of ``K4_TIMED``'s step-pair loop, of
+K6's step loop at ``K6_SHAPES`` and of K3's rep loops (full and tail) by
+class (``cuobjdump -sass``). The static count holds code a step pair seldom
 runs (the division and sin/cos slow paths), so it is not the count of
 instructions issued, and the time it gives at one instruction per lane
 and cycle is no bound on the kernel's.
@@ -229,6 +244,7 @@ and cycle is no bound on the kernel's.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import io
 import json
 import math
@@ -488,6 +504,13 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def wall_ms(fn, reps: int = 21) -> float:
+    """Median host-clock milliseconds of ``fn`` over ``reps`` calls after a
+    warm-up, each ending in a synchronize."""
+    fn()
+    return statistics.median(timed(fn)[1] * 1e3 for _ in range(reps))
 
 
 def device_busy(fn, names=None):
@@ -1261,6 +1284,15 @@ class Config5Slice:
         cv[-self.DEEP:] = plain[-self.DEEP:]
         return cv
 
+    def book_call(self):
+        """The user's book call that phase 5 makes: euro_price_mc_batch on
+        the 1 000 contracts at 1M paths each, with the dual CV."""
+        from optpricer_tpu_torch.ops import mc_batch as tmb
+
+        args = self.book()
+        return lambda: tmb.euro_price_mc_batch(*args, n_paths=1_000_000,
+                                               seed=3, device=self.dev)
+
     def k3(self, n_paths, antithetic):
         """(operands, kwargs, book columns) of one K3 call on the book."""
         from optpricer_tpu_torch.ops import mc_batch as tmb
@@ -1549,6 +1581,9 @@ class Config5Slice:
         for what in ("k3", "k3plain"):
             print(f"phase 6 time {what} 1000 contracts x 2^20: "
                   f"{times[(what, '1000 x 2^20')]:.4f} ms [{self.card}]")
+        print(f"phase 6 wall euro_price_mc_batch 1000 contracts x 1M, dual "
+              f"CV (median of 21): {wall_ms(self.book_call()):.4f} ms "
+              f"[{self.card}]")
         _, secs = timed(lambda: self.desk_surface())
         print(f"phase 6 wall fit_svi_surface (3 x 21 quotes, batched LM): "
               f"{secs * 1e3:.4f} ms [{self.card}]")
@@ -1599,6 +1634,34 @@ K6_OTHER_SHAPES = (
      (1 << 18, 64)),
     ("1_asset_worstof_2p20", (1, "worstof_barrier", "up-and-out", 1.3),
      (1 << 20, 64)))
+# all three, the [basket-path] book first
+K6_SHAPES = (("basket_path", (10, "asian_basket"), (1 << 18, 64)),
+             *K6_OTHER_SHAPES)
+# phase 3's K6 path pairs at 16 steps: 1, 2 and 4 reps of 17, 33 and 49
+# programs, each with a ragged last tile
+K6_REPS = {1: (1 << 16) + 123, 2: (1 << 18) + 123, 4: 3 * (1 << 18) + 123}
+
+
+def k6_plain_kw(run: dict) -> dict:
+    """``run`` without the kernel's ``host_params``: the plain version's
+    keyword arguments."""
+    return {k: v for k, v in run.items() if k != "host_params"}
+
+
+def k6_waves(dev) -> dict:
+    """key -> (resident blocks per SM, grid blocks, waves) of K6's
+    instantiation at each of ``K6_SHAPES`` on this card."""
+    from optpricer_tpu_torch.ops import basket_mc as tbk
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for key, (a, payoff, *_), (n, _) in K6_SHAPES:
+        per_sm = tbk.blocks_per_sm(a, tbk.PAYOFF_IDS[payoff], True)
+        reps, n_prog = tmc._plan_grid(n, tbk.TILE)
+        blocks, _ = tbk._launch_plan(n_prog, reps)
+        out[key] = (per_sm, blocks, blocks / (per_sm * sms))
+    return out
 
 
 def ops_k6_path_step(a: int, antithetic: bool, barrier: bool) -> float:
@@ -1665,7 +1728,8 @@ class MultiAssetLsvSlice:
     def k6(self, a, payoff, btype="up-and-out", frac=1.0, anti=True,
            shape=None, rebate=0.0, seed=3):
         """(seed, params, run kwargs) of one K6 call on ``book(a)``; the
-        barrier at ``frac`` times the level at t = 0."""
+        barrier at ``frac`` times the level at t = 0. The kernel's kwargs
+        hold the host copy of params; ``k6_plain_kw`` drops it."""
         import numpy as np
 
         from optpricer_tpu_torch.ops import basket_mc as tbk
@@ -1682,11 +1746,36 @@ class MultiAssetLsvSlice:
                                    np.linalg.cholesky(corr), frac * lvl,
                                    rebate, True, payoff, up)
         reps, n_prog = tmc._plan_grid(n, tbk.TILE)
-        return (tmc._seed_pair(seed, self.dev), params.to(self.dev),
-                dict(n_programs=n_prog, reps=reps, n_assets=a,
-                     n_steps=n_steps, antithetic=anti,
-                     payoff_id=tbk.PAYOFF_IDS[payoff], barrier_up=up,
-                     knock_in=btype.endswith("in")))
+        run = dict(n_programs=n_prog, reps=reps, n_assets=a,
+                   n_steps=n_steps, antithetic=anti,
+                   payoff_id=tbk.PAYOFF_IDS[payoff], barrier_up=up,
+                   knock_in=btype.endswith("in"))
+        # the host copy of params, as the public entry passes it (a tree
+        # whose kernel reads params on the card takes none)
+        if "host_params" in inspect.signature(tbk.basket_mc).parameters:
+            run["host_params"] = params
+        return tmc._seed_pair(seed, self.dev), params.to(self.dev), run
+
+    def user_calls(self) -> dict:
+        """label -> the user's K6 call at two of ``K6_SHAPES``, as phase 5
+        makes it: basket_exotic_mc on the [basket-path] book, and on the
+        16-asset basket barrier (up-and-in at 110% of the basket)."""
+        import optpricer_tpu_torch as tp
+
+        S0s, w, K, sig, corr = self.book()
+        S16, w16, K16, sig16, corr16 = self.book(16)
+        base = dict(n_steps=self.BASKET["n_steps"],
+                    n_paths=self.BASKET["n_paths"], device=self.dev)
+        return {
+            "basket_exotic_mc [basket-path] asian 10 assets 2^18 x 64":
+            lambda: tp.basket_exotic_mc(
+                S0s, w, K, 1.0, 0.03, sigmas=sig, corr=corr,
+                payoff="asian_basket", seed=self.BASKET["seed"], **base),
+            "basket_exotic_mc basket barrier up-and-in 16 assets 2^18 x 64":
+            lambda: tp.basket_exotic_mc(
+                S16, w16, K16, 1.0, 0.03, sigmas=sig16, corr=corr16,
+                payoff="basket_barrier", barrier=1.1 * float(S16 @ w16),
+                barrier_type="up-and-in", seed=11, **base)}
 
     def surface(self, device=None):
         """bench.py:400-403's 3-slice SVI surface."""
@@ -1765,8 +1854,8 @@ class MultiAssetLsvSlice:
         def k6_check(what, setup):
             seed, params, run = setup
             k = tbk.basket_mc(seed, params, **run)
-            p, ms = event_ms(lambda: tbk._basket_mc_plain(seed, params,
-                                                          **run))
+            p, ms = event_ms(lambda: tbk._basket_mc_plain(
+                seed, params, **k6_plain_kw(run)))
             rel = compare(k, p, what)
             # price units: the plain mean ΣX / n of each
             record("basket", rel, *(float(s[1] / s[0]) for s in (k, p)),
@@ -1788,6 +1877,17 @@ class MultiAssetLsvSlice:
                              f"{self.SMALL[0]} x {self.SMALL[1]}",
                              self.k6(a, payoff, btype, frac, anti,
                                      self.SMALL, rebate))
+        # every instantiated asset count, a payoff each, at 1, 2 and 4 reps
+        for a in range(1, tbk.MAX_ASSETS + 1):
+            payoff, btype, frac, rebate = cases[a % len(cases)]
+            for reps, n in K6_REPS.items():
+                setup = self.k6(a, payoff, btype, frac, a % 2 == 0,
+                                (n, self.SMALL[1]), rebate)
+                if setup[2]["reps"] != reps:
+                    raise AssertionError(f"{n} pairs: {setup[2]['reps']} "
+                                         f"reps, not {reps}")
+                k6_check(f"basket a={a} {payoff} {btype} anti={a % 2 == 0} "
+                         f"{n} x {self.SMALL[1]} ({reps} reps)", setup)
 
         def k4_check(what, setup):
             seed, params, run = setup
@@ -2079,6 +2179,7 @@ class MultiAssetLsvSlice:
         seed, params, run = self.k6(10, "asian_basket")
         self.times[("k6", "main")] = cuda_ms(
             lambda: tbk.basket_mc(seed, params, **run))
+        self.waves = k6_waves(self.dev)
         # phase 5's other K6 shapes: the 16-asset basket barrier (three
         # calls) and the 1-asset worst-of barrier at 2^20 pairs
         for key, args, shape in K6_OTHER_SHAPES:
@@ -2111,6 +2212,9 @@ class MultiAssetLsvSlice:
                   f"{self.times[key] * 1e3:.4f} ms [{self.card}]")
         print(f"phase 6 wall basket_price_mc 100 assets 2^19 pairs f64 "
               f"(phase 5's run): {self.wall_100 * 1e3:.4f} ms [{self.card}]")
+        for label, fn in self.user_calls().items():
+            print(f"phase 6 wall {label} (median of 21): {wall_ms(fn):.4f} "
+                  f"ms [{self.card}]")
 
     def kernel_entries(self, launches, worst):
         n, steps = self.BASKET["n_paths"], self.BASKET["n_steps"]
@@ -2137,7 +2241,10 @@ class MultiAssetLsvSlice:
              **{f"bound_ms_{key}": bound(
                  shape[0] * shape[1] * ops_k6_path_step(args[0], True, True),
                  8 + 4 * (7 + 4 * args[0] + args[0] ** 2) + 4 * 6)[0]
-                for key, args, shape in K6_OTHER_SHAPES}},
+                for key, args, shape in K6_OTHER_SHAPES},
+             "blocks_per_sm": self.waves["basket_path"][0],
+             **{f"blocks_per_sm_{key}": self.waves[key][0]
+                for key, _, _ in K6_OTHER_SHAPES}},
             {"name": "path_mc_kernel lsv", "route": "cuda",
              "source": "optpricer_tpu_torch/csrc/path_mc.cu",
              "replaces": "optpricer_tpu/ops/pallas_path_mc.py:68",
@@ -2187,12 +2294,16 @@ def main():
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> "
           f"{lib.relative_to(ROOT)}")
     for line in report.getvalue().splitlines():  # empty if already built
-        if "Function properties" in line or "spill" in line or "Used" in line:
+        if line.startswith("--- ") or "Function properties" in line \
+                or "spill" in line or "Used" in line:
             print("  " + line.strip())
     for label, (per_sm, blocks, waves, _) in k4_waves(dev).items():
         dynamics, _, _, n, n_steps = K4_TIMED[label]
         print(f"phase 2 K4 {label} ({n} x {n_steps}): {per_sm} resident "
               f"blocks per SM, {blocks} blocks, {waves:.2f} waves")
+    for key, (per_sm, blocks, waves) in k6_waves(dev).items():
+        print(f"phase 2 K6 {key}: {per_sm} resident blocks per SM, {blocks} "
+              f"blocks, {waves:.2f} waves")
 
     # phase 3: kernels against their plain versions, on the card
     market = MARKET
@@ -2662,6 +2773,23 @@ K4_KERNEL = re.compile(
 LV_MILSTEIN = 6
 # an fd_lv kernel instantiation's mangled bool template arguments
 K8_KERNEL = re.compile(r"(fd_lv_[a-z]+_kernel)I((?:Lb[01]E)+)E")
+# a basket_mc_kernel instantiation's: payoff, antithetic, asset count (the
+# bucket's largest in a tree that buckets the counts)
+K6_KERNEL = re.compile(r"basket_mc_kernelILi(\d)ELb([01])ELi(\d+)EE")
+K6_PAYOFFS = ("asian_basket", "worstof_barrier", "basket_barrier")
+# a mc_batch_kernel instantiation's: antithetic
+K3_KERNEL = re.compile(r"mc_batch_kernelILb([01])EE")
+
+
+def k3_k6_label(name: str) -> str | None:
+    """The ``--ab`` name of a K3 or K6 kernel instantiation's mangled
+    ``name``, or None."""
+    m = K6_KERNEL.search(name)
+    if m:
+        return (f"basket_mc_kernel<{K6_PAYOFFS[int(m[1])]}, anti={m[2]}, "
+                f"{m[3]} assets>")
+    m = K3_KERNEL.search(name)
+    return m and f"mc_batch_kernel<anti={m[1]}>"
 
 
 def k4_label(m: re.Match) -> str | None:
@@ -2689,7 +2817,8 @@ def k4_label(m: re.Match) -> str | None:
 def ptxas_k4_k7(report: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
     from a verbose build's report, for K4's LV_MILSTEIN and ``K4_TIMED``
-    instantiations and K7's and K8's kernels."""
+    instantiations, K7's and K8's kernels and every instantiation of K3 and
+    K6."""
     lines = report.splitlines()
     found = {}
     for i, line in enumerate(lines[:-2]):
@@ -2704,6 +2833,8 @@ def ptxas_k4_k7(report: str) -> dict:
         if k8:
             flags = re.findall(r"Lb([01])E", k8.group(2))
             key = f"{k8.group(1)}<{', '.join(flags)}>"
+        if m and key is None:
+            key = k3_k6_label(m.group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", lines[i + 1])
         regs = re.search(r"Used (\d+) registers", lines[i + 2])
@@ -2739,25 +2870,45 @@ def sass_class(opcode: str) -> str:
     return "other"
 
 
-def sass_step_loops(lib: Path) -> dict:
-    """label -> instruction counts by class of the step-pair loop of each
-    ``K4_TIMED`` instantiation in ``lib`` (``cuobjdump -sass``): the static
-    instructions from the target of the smallest backward branch whose
-    span holds a MUFU instruction (the Box-Muller square root, log32's
-    division) to that branch, with the backward branches inside it
-    (``inner_loops``) and its CALLs (the division and sin/cos slow
-    paths)."""
+def sass_text(lib: Path) -> str:
+    """``cuobjdump -sass`` of the library ``lib``."""
     from optpricer_tpu_torch import _build
 
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=900).stdout
+
+
+def k4_sass_label(name: str) -> str | None:
+    m = K4_KERNEL.search(name)
+    label = m and k4_label(m)
+    return None if not label or "LV_MILSTEIN" in label else label
+
+
+def k3_k6_sass_label(name: str) -> str | None:
+    """The K3 and K6 instantiations of the main path: K3 antithetic, K6 at
+    ``K6_SHAPES``' asset counts and payoffs, antithetic."""
+    label = k3_k6_label(name)
+    main = {f"basket_mc_kernel<{payoff}, anti=1, {a} assets>"
+            for _, (a, payoff, *_), _ in K6_SHAPES}
+    return label if label in main | {"mc_batch_kernel<anti=1>"} else None
+
+
+def sass_step_loops(text: str, labeller=k4_sass_label,
+                    innermost: bool = False) -> dict:
+    """label -> instruction counts by class of the loop of each kernel
+    that ``labeller`` names in ``text`` (``sass_text``): the static
+    instructions from the target of the smallest backward branch whose
+    span holds a MUFU instruction (the Box-Muller square root, log32's
+    division) to that branch, with the backward branches inside it
+    (``inner_loops``) and its CALLs (the division and sin/cos slow paths).
+    ``innermost``: a list of every such loop that holds no other, in
+    address order (K3's full and tail rep loops), not the smallest."""
     out = {}
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        m = K4_KERNEL.search(chunk.split(None, 1)[0])
-        label = m and k4_label(m)
-        if not label or "LV_MILSTEIN" in label:
+        label = labeller(chunk.split(None, 1)[0])
+        if not label:
             continue
         insts, labels = [], {}
         for line in chunk.splitlines():
@@ -2785,15 +2936,23 @@ def sass_step_loops(lib: Path) -> dict:
         if not with_mufu:
             out[label] = None
             continue
-        j, i = min(with_mufu, key=lambda ji: ji[1] - ji[0])
-        counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion",
-                                 "memory", "other")}
-        for o in ops[j:i + 1]:
-            counts[sass_class(o)] += 1
-        counts["total"] = i - j + 1
-        counts["calls"] = sum(o.startswith("CALL") for o in ops[j:i + 1])
-        counts["inner_loops"] = sum(j < jj and ii < i for jj, ii in loops)
-        out[label] = counts
+
+        def counted(j, i):
+            counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion",
+                                     "memory", "other")}
+            for o in ops[j:i + 1]:
+                counts[sass_class(o)] += 1
+            counts["total"] = i - j + 1
+            counts["calls"] = sum(o.startswith("CALL") for o in ops[j:i + 1])
+            counts["inner_loops"] = sum(j < jj and ii < i for jj, ii in loops)
+            return counts
+
+        if innermost:
+            out[label] = [counted(j, i) for j, i in sorted(with_mufu)
+                          if not any(j <= jj and ii <= i and (jj, ii) != (j, i)
+                                     for jj, ii in with_mufu)]
+        else:
+            out[label] = counted(*min(with_mufu, key=lambda ji: ji[1] - ji[0]))
     return out
 
 
@@ -2839,7 +2998,9 @@ def ab_turn(tree: Path) -> dict:
            "k4 occupancy": k4_waves(dev) if hasattr(pmc, "blocks_per_sm")
            else {}}
     if report.getvalue():  # this turn built the library
-        out["sass"] = sass_step_loops(_build.library_path())
+        text = sass_text(_build.library_path())
+        out["sass"] = sass_step_loops(text)
+        out["sass k3 k6"] = sass_step_loops(text, k3_k6_sass_label, True)
 
     multi = MultiAssetLsvSlice(dev, card)
     out["k4 sums timed"], out["k4 sums 2^18"] = {}, {}
@@ -2876,6 +3037,7 @@ def ab_turn(tree: Path) -> dict:
         out[f"k4 {scheme} sums"] = [float(v).hex() for v in sums]
         out[f"k4 {scheme} ms"] = cuda_ms(
             lambda: pmc.path_mc(seed, params, **run))
+    out.update(ab_k3_k6(dev, multi, desk))
 
     pde = PdeSlice(dev, card)
     # K8 on the ladder: both forms, European calls and American puts, the
@@ -2945,19 +3107,81 @@ def ab_turn(tree: Path) -> dict:
     return out
 
 
+def ab_k3_k6(dev, multi, desk) -> dict:
+    """``ab_turn``'s K3 and K6 numbers: K6 at ``K6_SHAPES`` (its 6 sums as
+    hex at one rep, as floats at the 1-asset call's four) and K3 at 1 000
+    contracts x 2^20 (the SHA-256 of its (n_ktiles, 10, 128) sums), each
+    ``ms``; the host-clock walls (median of 21) of the user calls around
+    them (``user_calls``, ``book_call``); K6's resident blocks per SM and
+    waves (none for a tree without its occupancy query)."""
+    from optpricer_tpu_torch.ops import basket_mc as tbk
+    from optpricer_tpu_torch.ops import mc_batch as tmb
+
+    out = {"k6 sums": {}, "k6 sums 4 reps": {}}
+    for key, args, shape in K6_SHAPES:
+        seed, params, run = multi.k6(*args, shape=shape)
+        sums = tbk.basket_mc(seed, params, **run).cpu()
+        if run["reps"] == 1:
+            out["k6 sums"][key] = [float(v).hex() for v in sums]
+        else:
+            out["k6 sums 4 reps"][key] = [float(v) for v in sums]
+        out[f"k6 {key} ms"] = cuda_ms(
+            lambda: tbk.basket_mc(seed, params, **run))
+    ops, kw, _ = desk.k3(1 << 20, True)
+    out["k3 sums"] = hashlib.sha256(
+        tmb.mc_batch(*ops, **kw).cpu().numpy().tobytes()).hexdigest()
+    out["k3 1000 x 2^20 ms"] = cuda_ms(lambda: tmb.mc_batch(*ops, **kw))
+    for label, fn in [*multi.user_calls().items(),
+                      ("euro_price_mc_batch 1000 x 1M dual CV",
+                       desk.book_call())]:
+        out[f"wall {label} ms"] = wall_ms(fn)
+    out["k6 occupancy"] = k6_waves(dev) if hasattr(tbk, "blocks_per_sm") \
+        else {}
+    return out
+
+
 AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
-                "sass", "k4 sums timed", "k4 sums 2^18", "k8 layers")
+                "sass", "k4 sums timed", "k4 sums 2^18", "k8 layers",
+                "k6 sums 4 reps", "k6 occupancy", "sass k3 k6")
+
+
+def ab_issue_ms(label: str, counts: dict, turn: dict) -> float:
+    """Milliseconds that the loop's static instructions take at one a lane
+    and cycle on the turn's card, issued once per rep or step of the loop
+    ``label`` names at the main path's shape: a K3 rep is a base-draw pair,
+    1 024 lanes (1 000 contracts, padded) x 2^19 of them at 2^20 draws a
+    contract; a K6 step is one step of one path pair. A loop unrolled by
+    the compiler holds several: counted by its MUFU instructions (a rep or
+    a step's Box-Muller pairs each take one for log32's division and one
+    for the square root)."""
+    from optpricer_tpu_torch.ops import basket_mc as tbk
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    per_loop = counts["mufu"] // 2
+    if label.startswith("mc_batch"):
+        iterations = 1024 * (1 << 20) // 2
+    else:
+        per_loop //= (int(label.split(", ")[-1].split()[0]) + 1) // 2
+        key = next(k for k, (a, payoff, *_), _ in K6_SHAPES
+                   if label == f"basket_mc_kernel<{payoff}, anti=1, {a} "
+                   f"assets>")
+        n, n_steps = dict((k, sh) for k, _, sh in K6_SHAPES)[key]
+        reps, n_prog = tmc._plan_grid(n, tbk.TILE)
+        iterations = n_prog * reps * tbk.TILE * n_steps
+    return (counts["total"] / per_loop * iterations
+            / (turn["sms"] * 128 * turn["sm_clock_max_mhz"] * 1e6) * 1e3)
 
 
 def ab(other: Path):
     """Run ``ab_turn`` on ``other`` and on this tree in the turns
     ``AB_TURNS``, one process each, and print every number side by side,
-    the ratio other / this of K4's timed calls and of the user calls'
-    walls in the slowest and the fastest pairing of turns, the ptxas lines
-    and the SASS counts of each tree's turn that built it, the resident
-    blocks and waves of K4's timed instantiations, and whether K4's sums
-    are equal bit for bit across the turns. The last line is one JSON
-    object with every turn's numbers."""
+    the ratio other / this of K4's, K8's, K6's and K3's timed calls and of
+    the user calls' walls in the slowest and the fastest pairing of turns,
+    the ptxas lines and the SASS counts of each tree's turn that built it,
+    the resident blocks and waves of K4's timed instantiations and of K6,
+    and whether K4's, K8's, K6's (one rep) and K3's results are equal bit
+    for bit across the turns. The last line is one JSON object with every
+    turn's numbers."""
     from optpricer_tpu_torch.ops import path_mc as pmc
     from optpricer_tpu_torch.ops import terminal_mc as tmc
 
@@ -2983,7 +3207,8 @@ def ab(other: Path):
                       for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
                   + ", ".join(f"{v:.4f}" for v in values))
-    k8_keys = [k for k in first if k.startswith("k8 ") and k.endswith(" ms")]
+    k8_keys = [k for k in first if k.startswith(("k8 ", "k6 ", "k3 "))
+               and k.endswith(" ms")]
     for key in [f"k4 {label} ms" for label in K4_TIMED] + k8_keys \
             + [k for k in first if k.startswith("wall ")]:
         ms = {side: [t[key] for s, t in turns if s == side]
@@ -3004,6 +3229,23 @@ def ab(other: Path):
                 turn["k4 occupancy"].items():
             print(f"k4 {side} {label}: {per_sm} resident blocks per SM, "
                   f"{blocks} blocks, {waves:.2f} waves")
+    seen = set()
+    for side, turn in turns:
+        if side in seen:
+            continue
+        seen.add(side)
+        for key, (per_sm, blocks, waves) in turn["k6 occupancy"].items():
+            print(f"k6 {side} {key}: {per_sm} resident blocks per SM, "
+                  f"{blocks} blocks, {waves:.2f} waves")
+    for side, turn in turns:
+        for label, loops in turn.get("sass k3 k6", {}).items():
+            for i, counts in enumerate(loops or []):
+                print(f"sass {side} {label}: loop {i + 1} of {len(loops)} "
+                      + ", ".join(f"{k} {v}" for k, v in counts.items())
+                      + f"; {ab_issue_ms(label, counts, turn):.4f} ms at "
+                      f"the main path's shape if each static instruction "
+                      f"issued once an iteration (one a lane and cycle, 4 "
+                      f"schedulers an SM)")
     for side, turn in turns:
         for label, counts in turn.get("sass", {}).items():
             if counts is None:
@@ -3037,6 +3279,23 @@ def ab(other: Path):
         print(f"k4 {scheme} at the desk's call: the 21 sums are "
               f"{'equal' if same else 'NOT equal'} bit for bit across the "
               "turns")
+    for key in first["k6 sums"]:
+        sums = [t["k6 sums"][key] for _, t in turns]
+        print(f"k6 {key}: the 6 sums (one rep) are "
+              f"{'equal' if all(v == sums[0] for v in sums) else 'NOT equal'}"
+              f" bit for bit across the turns")
+    for key in first["k6 sums 4 reps"]:
+        this = [t["k6 sums 4 reps"][key] for s, t in turns if s == "this"]
+        that = [t["k6 sums 4 reps"][key] for s, t in turns if s == "other"]
+        rel = max(abs(x - y) / abs(y) for a in this for b in that
+                  for x, y in zip(a, b) if y != 0.0)
+        print(f"k6 {key}: the 6 sums (4 reps) this vs other max rel "
+              f"{rel:.3e}")
+    digests = [t["k3 sums"] for _, t in turns]
+    print(f"k3 1000 x 2^20: the (n_ktiles, 10, 128) sums are "
+          f"{'equal' if all(d == digests[0] for d in digests) else 'NOT equal'}"
+          f" bit for bit across the turns (SHA-256 "
+          f"{', '.join(d[:12] for d in digests)})")
     for case in first["k8 layers"]:
         digests = [t["k8 layers"][case] for _, t in turns]
         same = all(d == digests[0] for d in digests)

@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -59,6 +61,7 @@ _SIGNATURES = {
     "optpricer_fd_lv_plan": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     "optpricer_basket_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P),
+    "optpricer_basket_mc_occupancy": (_I, _I, _I, _P),
 }
 
 
@@ -90,7 +93,7 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists.
 
     ``verbose`` prints ptxas' register and spill report of every kernel,
-    one block per source.
+    one block per source headed by the seconds its nvcc took.
     """
     lib = library_path()
     if lib.exists():
@@ -99,6 +102,7 @@ def build(verbose: bool = False) -> Path:
     nvcc = find_nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
         procs = {}
         for name, flags in SOURCES.items():
             obj = str(Path(tmp) / f"{Path(name).stem}.o")
@@ -108,13 +112,16 @@ def build(verbose: bool = False) -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
         failed = []
-        for name, (cmd, _, proc) in procs.items():
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n"
-                              f"{' '.join(cmd)}\n{err}")
-            elif verbose:
-                print(f"--- {name}\n{err}", end="")
+        # each source's own seconds: its nvcc waited on in a thread
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = pool.map(_finish, [proc for _, _, proc in procs.values()])
+            for (name, (cmd, _, proc)), (err, secs) in zip(procs.items(),
+                                                          done):
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{err}")
+                elif verbose:
+                    print(f"--- {name} ({secs - t0:.1f} s)\n{err}", end="")
         if failed:
             raise RuntimeError("\n".join(failed))
         out = str(Path(tmp) / "lib.so")
@@ -126,6 +133,12 @@ def build(verbose: bool = False) -> Path:
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(out, lib)
     return lib
+
+
+def _finish(proc: subprocess.Popen):
+    """(stderr, perf_counter at its end) of a running nvcc."""
+    _, err = proc.communicate()
+    return err, time.perf_counter()
 
 
 @functools.cache

@@ -23,25 +23,32 @@
 //   program rows in program order, like ops/stats.combine_scan. No atomics:
 //   one seed gives bitwise-identical stats on every run.
 //
-// What bounds it: integer and SFU throughput, as for terminal_mc_kernel. A
-// base-draw pair costs one Threefry-2x32-20 block, a log32, a sqrt, a cos
-// and a sin, and two exp32 (four under antithetic sampling); device memory
-// sees the 8 floats of each lane's contract and the 16-float row each block
-// writes.
+// What bounds it: integer, FP32 and SFU issue, as for terminal_mc_kernel.
+// A base-draw pair costs one Threefry-2x32-20 block, a log32 (with its IEEE
+// division), a sqrt and one sincosf, and two exp32 (four under antithetic
+// sampling) with their payoffs, moments and a Kahan step; device memory sees
+// the 8 floats of each lane's contract and the 16-float row each block
+// writes. So the body is cut to the instructions it needs: one sincosf for
+// the Box-Muller pair, which shares the range reduction that cosf and sinf
+// each carry; one product sig z for both antithetic exponents; and a
+// block-uniform split of the programs, in which a full program (every draw
+// below n_paths: all but the last, below 2^24 tiles) forms no draw index,
+// compare or weighted product.
 //
 // Rounding. As for the path kernel, the file is built without FMA
-// contraction (-fmad=false, see _build.py) and the Box-Muller angle is
-// cosf/sinf of the f32 product 2*pi*u2, as in the TPU kernel, so every
-// per-draw operation rounds as in the plain torch version
-// (ops/mc_batch.py:_mc_batch_plain). A contract's in-the-money indicator is
-// a discontinuous function of the draw: with the same rounding no draw
-// flips it between the two, which matters for a contract whose sums hold
-// few in-the-money draws.
+// contraction (-fmad=false, see _build.py) and the Box-Muller angle is the
+// f32 product 2*pi*u2, as in the TPU kernel; its one sincosf returns the
+// bits of cosf and sinf on every angle 2*pi*u2 can take
+// (tests/test_torch_cuda.py), so every per-draw operation rounds as in the
+// plain torch version (ops/mc_batch.py:_mc_batch_plain). A contract's
+// in-the-money indicator is a discontinuous function of the draw: with the
+// same rounding no draw flips it between the two, which matters for a
+// contract whose sums hold few in-the-money draws.
 //
 // The tail mask is an integer compare of the lane's draw index against
 // n_paths (the f32 params' value, as the TPU kernel masks); below 2^24
 // tiles, which the wrapper asserts, it equals the TPU kernel's f32 remainder
-// compare.
+// compare. A full program's weights are all 1 (ops/mc_batch._full_programs).
 
 #include <cuda_runtime.h>
 
@@ -67,40 +74,89 @@ struct Contract {
   float K, sign, S0, mu, sig, df;
 };
 
-__device__ __forceinline__ void observe(float z, const Contract &c, float &X,
+// (X, Y1, Y2) of the terminal spot S0 exp32(e): the discounted payoff, spot
+// and in-the-money indicator.
+__device__ __forceinline__ void observe(float e, const Contract &c, float &X,
                                         float &Y1, float &Y2) {
-  const float ST = c.S0 * exp32(c.mu + c.sig * z);
+  const float ST = c.S0 * exp32(e);
   const float d = c.sign * (ST - c.K);
   X = c.df * fmaxf(d, 0.0f);
   Y1 = c.df * ST;
   Y2 = c.df * (d > 0.0f ? 1.0f : 0.0f);
 }
 
-// One sample of a branch into the 10 sums; under antithetic sampling
-// (f(z) + f(-z)) / 2 is ONE observation.
-template <bool ANTI>
-__device__ __forceinline__ void add_branch(float z, float w,
-                                           const Contract &c, float *s) {
+// The 10 moments m of one sample of a branch; under antithetic sampling
+// (f(z) + f(-z)) / 2 is ONE observation. The exponents mu + sig z and
+// mu + sig (-z) are mu + p and mu - p with p = sig z formed once: sig (-z)
+// = -(sig z) and a + (-b) = a - b exactly. FULL: the draw's weight is 1
+// (a program no draw of which passes n_paths), and X * 1 = X exactly, so
+// the weighted moments are the moments.
+template <bool ANTI, bool FULL>
+__device__ __forceinline__ void branch(float z, float w, const Contract &c,
+                                       float *m) {
+  const float p = c.sig * z;
   float X, Y1, Y2;
-  observe(z, c, X, Y1, Y2);
+  observe(c.mu + p, c, X, Y1, Y2);
   if (ANTI) {
     float Xm, Y1m, Y2m;
-    observe(-z, c, Xm, Y1m, Y2m);
+    observe(c.mu - p, c, Xm, Y1m, Y2m);
     X = 0.5f * (X + Xm);
     Y1 = 0.5f * (Y1 + Y1m);
     Y2 = 0.5f * (Y2 + Y2m);
   }
-  const float WX = X * w, WY1 = Y1 * w, WY2 = Y2 * w;
-  s[0] += w;
-  s[1] += WX;
-  s[2] += WX * X;
-  s[3] += WY1;
-  s[4] += WY1 * Y1;
-  s[5] += WX * Y1;
-  s[6] += WY2;
-  s[7] += WY2 * Y2;
-  s[8] += WX * Y2;
-  s[9] += WY1 * Y2;
+  const float WX = FULL ? X : X * w;
+  const float WY1 = FULL ? Y1 : Y1 * w;
+  const float WY2 = FULL ? Y2 : Y2 * w;
+  m[0] = FULL ? 1.0f : w;
+  m[1] = WX;
+  m[2] = WX * X;
+  m[3] = WY1;
+  m[4] = WY1 * Y1;
+  m[5] = WX * Y1;
+  m[6] = WY2;
+  m[7] = WY2 * Y2;
+  m[8] = WX * Y2;
+  m[9] = WY1 * Y2;
+}
+
+// One thread's rep loop: Kahan-sums its row's 10 sums over the reps. FULL:
+// every draw of the program lies below n_paths, so no draw needs its index
+// or its weight. A rep's sums are m1 + m2: (0 + m1) + m2 differs from it
+// at most in the sign of a zero, and a Kahan step from acc = +0 takes +0
+// and -0 to the same acc and comp (acc and comp are never -0), so the
+// sums keep their bits without the 10 adds to zero. Unrolled by two, acc
+// and comp alternate between two sets of registers instead of being moved
+// back at the end of each rep.
+template <bool ANTI, bool FULL>
+__device__ __forceinline__ void rep_loop(uint32_t key0, uint32_t key1,
+                                         uint32_t elem, const Contract &c,
+                                         long long first, long long n,
+                                         int reps, float *acc, float *comp) {
+#pragma unroll 2
+  for (int j = 0; j < reps; ++j) {
+    uint32_t bits_a, bits_b;
+    threefry2x32(key0, key1, elem, static_cast<uint32_t>(j), bits_a, bits_b);
+    // Box-Muller; u2 without the +0.5, as in the TPU kernel
+    const float u1 = (static_cast<float>(bits_a >> 8) + 0.5f) * TINY;
+    const float u2 = static_cast<float>(bits_b >> 8) * TINY;
+    const float rad = sqrtf(-2.0f * log32(u1));
+    const float theta = TWO_PI * u2;
+    float sn, cs;
+    sincosf(theta, &sn, &cs);
+    // z1 is this row's draw in the rep's first half-tile, z2 in its second
+    float w1 = 1.0f, w2 = 1.0f;
+    if (!FULL) {
+      const long long g1 = first + static_cast<long long>(j) * (2 * BLOCK_R);
+      w1 = g1 < n ? 1.0f : 0.0f;
+      w2 = g1 + BLOCK_R < n ? 1.0f : 0.0f;
+    }
+    float m1[NSTAT], m2[NSTAT], s[NSTAT];
+    branch<ANTI, FULL>(rad * cs, w1, c, m1);
+    branch<ANTI, FULL>(rad * sn, w2, c, m2);
+#pragma unroll
+    for (int k = 0; k < NSTAT; ++k) s[k] = m1[k] + m2[k];
+    kahan_step<NSTAT>(acc, comp, s);
+  }
 }
 
 template <bool ANTI>
@@ -120,33 +176,19 @@ mc_batch_kernel(const int *seed, const float *par, const float *kparams,
   const Contract c{kp[0], kp[LANES], kp[2 * LANES], kp[3 * LANES],
                    kp[4 * LANES], kp[5 * LANES]};
   const long long n = static_cast<long long>(par[0]);
+  // the program's draws: (pid * reps + j) * 2 * BLOCK_R + row (+ BLOCK_R)
+  const long long first = static_cast<long long>(pid) * reps * (2 * BLOCK_R);
 
   float acc[NSTAT], comp[NSTAT];
 #pragma unroll
   for (int k = 0; k < NSTAT; ++k) acc[k] = comp[k] = 0.0f;
-
-  for (int j = 0; j < reps; ++j) {
-    uint32_t bits_a, bits_b;
-    threefry2x32(key0, key1, elem, static_cast<uint32_t>(j), bits_a, bits_b);
-    // Box-Muller; u2 without the +0.5, as in the TPU kernel
-    const float u1 = (static_cast<float>(bits_a >> 8) + 0.5f) * TINY;
-    const float u2 = static_cast<float>(bits_b >> 8) * TINY;
-    const float rad = sqrtf(-2.0f * log32(u1));
-    const float theta = TWO_PI * u2;
-    const float cs = cosf(theta), sn = sinf(theta);
-    // z1 is this row's draw in the rep's first half-tile, z2 in its second
-    const long long g1 =
-        (static_cast<long long>(pid) * reps + j) * (2LL * BLOCK_R) + row;
-    const float w1 = g1 < n ? 1.0f : 0.0f;
-    const float w2 = g1 + BLOCK_R < n ? 1.0f : 0.0f;
-
-    float s[NSTAT];
-#pragma unroll
-    for (int k = 0; k < NSTAT; ++k) s[k] = 0.0f;
-    add_branch<ANTI>(rad * cs, w1, c, s);
-    add_branch<ANTI>(rad * sn, w2, c, s);
-    kahan_step<NSTAT>(acc, comp, s);
-  }
+  // block-uniform: every program but the last is full below 2^24 tiles
+  if (first + static_cast<long long>(reps) * (2 * BLOCK_R) <= n)
+    rep_loop<ANTI, true>(key0, key1, elem, c, first + row, n, reps, acc,
+                         comp);
+  else
+    rep_loop<ANTI, false>(key0, key1, elem, c, first + row, n, reps, acc,
+                          comp);
   block_row<NSTAT, THREADS>(
       acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
 }

@@ -28,7 +28,10 @@ Names, JAX → port:
 tensors on a CUDA device and counts the launch in ``basket_mc.launches``;
 for tensors on the CPU it runs the plain torch version ``_basket_mc_plain``,
 which walks all programs and reps of the grid at once, one step at a time.
-Any other device raises.
+Any other device raises. The kernel takes its constants in a
+kernel-parameter struct that ``_pack_params`` packs from the host copy of
+``params`` (the public entry builds it there, so the main path copies
+nothing back from the card); its grid is ``_launch_plan``'s.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ from .path_mc import _sqrt32
 from .swprng import threefry2x32
 from .terminal_mc import _MAX_TILE_INDEX, _plan_grid, _seed_pair, _stream
 
-__all__ = ["basket_path_sumstats_kernel", "basket_mc", "TILE", "NSTAT",
-           "PAYOFF_IDS", "MAX_ASSETS"]
+__all__ = ["basket_path_sumstats_kernel", "basket_mc", "blocks_per_sm",
+           "TILE", "NSTAT", "PAYOFF_IDS", "MAX_ASSETS"]
 
 BLOCK_R = 32
 LANES = 128
@@ -66,6 +69,13 @@ _BLOCKS_PER_PROGRAM = TILE // _THREADS
 _TINY = 2.0 ** -24
 _TWO_PI = float(np.float32(6.283185307179586))
 _FLAG_BITS = {"barrier_up": 1, "knock_in": 2}
+# csrc/basket_mc.cu BasketParams: the 7 scalars of params and a pad word,
+# then S0, drift, voldt and w of MAX_ASSETS assets each, then the lower
+# triangle of the Cholesky factor, row i at i(i+1)/2
+_STRUCT_SCALARS = 8
+_STRUCT_FIELDS = ("S0", "drift", "voldt", "w")
+_STRUCT_CHOL = _STRUCT_SCALARS + len(_STRUCT_FIELDS) * MAX_ASSETS
+_STRUCT_WORDS = _STRUCT_CHOL + MAX_ASSETS * (MAX_ASSETS + 1) // 2
 
 
 def _n_params(n_assets: int) -> int:
@@ -98,6 +108,36 @@ def _build_params(n_paths, n_steps, S0s, w, K, T, r, qs, sigmas, chol,
                  sigmas[i] * np.sqrt(dt), w[i]]
     vals += list(np.asarray(chol, np.float64).reshape(-1))
     return torch.tensor(np.asarray(vals, np.float64), dtype=MC_DTYPE)
+
+
+def _pack_params(host_params: torch.Tensor, n_assets: int) -> np.ndarray:
+    """f32[_STRUCT_WORDS]: the kernel-parameter struct ``BasketParams`` of
+    ``csrc/basket_mc.cu`` from the host f32 params of ``_build_params``
+    (the same f32 values, moved: asset i's S0, drift, voldt and w to slot i
+    of their field, the factor's lower triangle row by row); unused slots
+    are 0."""
+    a = n_assets
+    v = host_params.numpy()
+    out = np.zeros(_STRUCT_WORDS, np.float32)
+    out[:_P_ASSETS] = v[:_P_ASSETS]
+    per_asset = v[_P_ASSETS:_P_ASSETS + 4 * a].reshape(a, 4)
+    for f in range(len(_STRUCT_FIELDS)):
+        lo = _STRUCT_SCALARS + f * MAX_ASSETS
+        out[lo:lo + a] = per_asset[:, f]
+    chol = v[_P_ASSETS + 4 * a:].reshape(a, a)
+    out[_STRUCT_CHOL:_STRUCT_CHOL + a * (a + 1) // 2] = \
+        chol[np.tril_indices(a)]
+    return out
+
+
+def _launch_plan(n_programs: int, reps: int):
+    """(blocks, rows per program) of ``basket_mc_kernel``'s grid, as
+    ``optpricer_basket_mc`` launches it: a block of 128 path pairs per
+    (program, rep, block in tile), block index (program·reps + rep)·32 +
+    block. Each block writes one stats row; the first combine pass
+    Kahan-sums a program's rows in (rep, block) order."""
+    rows = reps * _BLOCKS_PER_PROGRAM
+    return n_programs * rows, rows
 
 
 def _check_inputs(seed, params, n_programs, reps, n_assets, n_steps,
@@ -255,20 +295,40 @@ def _basket_mc_plain(seed, params, *, n_programs: int, reps: int,
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
+def blocks_per_sm(n_assets: int, payoff_id: int, antithetic: bool) -> int:
+    """Resident blocks per SM of the instantiation ``basket_mc`` launches
+    for these arguments (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current card)."""
+    import ctypes
+
+    lib = _build.load()
+    n = ctypes.c_int(0)
+    err = lib.optpricer_basket_mc_occupancy(
+        int(n_assets), int(payoff_id), int(bool(antithetic)),
+        ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"basket_mc_kernel occupancy query failed: CUDA "
+                           f"error {err}")
+    return n.value
+
+
 def basket_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
               reps: int, n_assets: int, n_steps: int, antithetic: bool,
-              payoff_id: int, barrier_up: bool,
-              knock_in: bool) -> torch.Tensor:
+              payoff_id: int, barrier_up: bool, knock_in: bool,
+              host_params: torch.Tensor | None = None) -> torch.Tensor:
     """f32[6] basket path sums over the (n_programs, reps) grid.
 
     Kernel ``basket_mc_kernel`` in ``csrc/basket_mc.cu``; it replaces
     ``optpricer_tpu/ops/pallas_basket_mc.py:_basket_kernel`` (launched from
-    ``_run_basket_kernel``). One thread owns one (program, element) path
-    pair and loops over reps and steps with every asset's spot for both
-    legs in registers; it is bound by integer and SFU issue (⌈a/2⌉
-    Threefry blocks and Box-Muller pairs a step, a exp32 per leg) and by
-    the a(a+1)/2 multiply-adds of the correlation chain; the per-asset
-    scalars and the Cholesky factor sit in shared memory.
+    ``_run_basket_kernel``). One thread owns one (program, rep, element)
+    path pair with every asset's spot for both legs in registers
+    (``_launch_plan``), under an instantiation for exactly ``n_assets``
+    assets; it is bound by integer and SFU issue (⌈a/2⌉ Threefry blocks
+    and Box-Muller pairs a step, a exp32 per leg) and by the a(a+1)/2
+    multiply-adds of the correlation chain, whose factor and per-asset
+    scalars come from the constant bank, a kernel-parameter struct.
+    ``host_params``: ``params``' values in host memory, from which that
+    struct is packed; when not given they are copied from ``params``.
     """
     _check_inputs(seed, params, n_programs, reps, n_assets, n_steps,
                   payoff_id)
@@ -278,15 +338,22 @@ def basket_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
     if params.device.type == "cpu":
         return _basket_mc_plain(seed, params, **kw)
     dev = params.device
+    if host_params is None:
+        host_params = params.cpu()
+    if host_params.device.type != "cpu" or host_params.dtype != MC_DTYPE \
+            or host_params.shape != params.shape:
+        raise ValueError("host_params must be params' float32 values on the "
+                         "host")
+    struct = _pack_params(host_params.contiguous(), n_assets)
     flags = sum(bit for name, bit in _FLAG_BITS.items() if kw[name])
-    block_rows = torch.empty((n_programs * _BLOCKS_PER_PROGRAM, _ROW),
-                             dtype=MC_DTYPE, device=dev)
+    blocks, _ = _launch_plan(n_programs, reps)
+    block_rows = torch.empty((blocks, _ROW), dtype=MC_DTYPE, device=dev)
     prog_rows = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
     out = torch.empty((_ROW,), dtype=MC_DTYPE, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.optpricer_basket_mc(
-            seed.data_ptr(), params.data_ptr(), block_rows.data_ptr(),
+            seed.data_ptr(), struct.ctypes.data, block_rows.data_ptr(),
             prog_rows.data_ptr(), out.data_ptr(), n_programs, reps,
             n_assets, n_steps, int(payoff_id), flags, int(bool(antithetic)),
             _stream(dev))
@@ -334,4 +401,5 @@ def basket_path_sumstats_kernel(
                      n_programs=n_programs, reps=reps, n_assets=a,
                      n_steps=int(n_steps), antithetic=bool(antithetic),
                      payoff_id=PAYOFF_IDS[payoff], barrier_up=barrier_up,
-                     knock_in=barrier_type.endswith("in"))
+                     knock_in=barrier_type.endswith("in"),
+                     host_params=params)

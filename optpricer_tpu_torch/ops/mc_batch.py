@@ -88,6 +88,15 @@ def _plan(n_paths: int):
     return int(reps), int(n_programs)
 
 
+def _full_programs(n_paths: int, n_programs: int, reps: int) -> int:
+    """How many of the grid's programs are full: the first ones, whose
+    every draw (pid·reps + j)·2·256 + row (+ 256) lies below n_paths, so
+    that each weight is 1 and the kernel's block-uniform full body forms no
+    draw index or weight. Below 2^24 tiles only the last program can hold
+    a draw past n_paths."""
+    return min(n_programs, int(n_paths) // (reps * 2 * BLOCK_R))
+
+
 def _check_inputs(seed, params, kparams, n_programs, reps):
     if n_programs < 1 or reps < 1:
         raise ValueError(f"empty grid: n_programs={n_programs}, reps={reps} "
@@ -186,12 +195,13 @@ def mc_batch(seed: torch.Tensor, params: torch.Tensor, kparams: torch.Tensor,
 
     Kernel ``mc_batch_kernel`` in ``csrc/mc_batch.cu``; it replaces
     ``optpricer_tpu/ops/pallas_mc_batch.py:_mc_batch_kernel`` (launched from
-    ``_run_batch_kernel``). Bound by integer and SFU throughput (a Threefry
-    block, a log/sqrt/cos/sin and two or four exp32 per base-draw pair),
-    like ``terminal_mc``: a block of 256 threads (one per row) owns one
-    (program, ktile, lane), Kahan-sums over reps in registers and reduces
-    its rows in a fixed tree; a second pass combines the programs of each
-    lane in order, with no atomics.
+    ``_run_batch_kernel``). Bound by instruction issue (a Threefry
+    block, a log32, a sqrt, one sincosf and two or four exp32 per
+    base-draw pair), like ``terminal_mc``: a block of 256 threads (one per
+    row) owns one (program, ktile, lane), Kahan-sums over reps in
+    registers and reduces its rows in a fixed tree; a second pass combines
+    the programs of each lane in order, with no atomics. A full program
+    (``_full_programs``) runs a body with no draw index or weight.
     """
     _check_inputs(seed, params, kparams, n_programs, reps)
     if params.device.type == "cpu":

@@ -17,8 +17,11 @@ version (PCR and Thomas, calls and puts mixed, European and American, 1,
 9 and 1 025 strikes on 8, 512 and 1 024 rows, Thomas also past its
 shared-memory rows) and its pre-kernel's plan equal to the plain plan.
 The path kernel's Dupire branches and the book kernel (K3) at rtol 2e-5
-too, and so the basket kernel (K6) and the path kernel's LSV
-branches, and the path kernel's per-path grid at one, two and four reps;
+too, and so the basket kernel (K6, every asset count it instantiates
+separately at one, two and four reps; at one rep the recorded sums of the
+`[basket-path]` book and the 16-asset barrier bit for bit) and the path
+kernel's LSV branches, and the path kernel's per-path grid at one, two and
+four reps;
 its Box-Muller sincosf is held to cosf and sinf bit for bit on every
 angle it can draw.
 """
@@ -342,11 +345,18 @@ def _book(B=1000, seed=0):
             np.where(np.arange(B) % 2 == 0, "call", "put"))
 
 
-@pytest.mark.parametrize("n_paths", [1 << 20, 1_000_003])
+# n_paths -> the full programs of its grid: every one (2^20, 3 x 16 x 512),
+# all but the last (1 000 003), none (511)
+_BOOK_GRIDS = {1 << 20: 16, 1_000_003: 15, 24_576: 16, 511: 0}
+
+
+@pytest.mark.parametrize("n_paths", list(_BOOK_GRIDS))
 @pytest.mark.parametrize("antithetic", [True, False])
 def test_book_kernel_matches_plain(cuda_device, n_paths, antithetic):
     kparams, _ = tmb.batch_kparams(*_book())
     reps, n_programs = tmb._plan(n_paths)
+    assert tmb._full_programs(n_paths, n_programs, reps) \
+        == _BOOK_GRIDS[n_paths]
     ops = (torch.tensor([7], dtype=torch.int32, device=cuda_device),
            torch.tensor([float(n_paths)], device=cuda_device),
            torch.from_numpy(kparams).to(cuda_device))
@@ -394,22 +404,30 @@ def _basket_setup(a, payoff, btype, anti, device, n=(1 << 16) + 123,
                         knock_in=btype.endswith("in"))
 
 
-@pytest.mark.parametrize("a", [1, 3, 8, 16])
+# path pairs at 16 steps -> reps of the grid
+_BASKET_REPS = {(1 << 16) + 123: 1, (1 << 18) + 123: 2,
+                3 * (1 << 18) + 123: 4}
+
+
+@pytest.mark.parametrize("a", [1, 2, 3, 4, 5, 8, 9, 10, 12, 16])
 @pytest.mark.parametrize("payoff, btype", [
     ("asian_basket", "down-and-in"), ("worstof_barrier", "down-and-out"),
     ("worstof_barrier", "up-and-in"), ("basket_barrier", "up-and-out"),
     ("basket_barrier", "down-and-in")])
 @pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("n", list(_BASKET_REPS))
 def test_basket_kernel_matches_plain(cuda_device, a, payoff, btype,
-                                     antithetic):
-    params, run = _basket_setup(a, payoff, btype, antithetic, cuda_device)
+                                     antithetic, n):
+    params, run = _basket_setup(a, payoff, btype, antithetic, cuda_device,
+                                n=n)
+    assert run["reps"] == _BASKET_REPS[n]
     seed = tmc._seed_pair(5, cuda_device)
     before = tbk.basket_mc.launches
     got = tbk.basket_mc(seed, params, **run)
     assert tbk.basket_mc.launches == before + 1
     ref = tbk._basket_mc_plain(seed, params, **run)
     k, p = got.double().cpu(), ref.double().cpu()
-    assert k[0] == p[0] == (1 << 16) + 123
+    assert k[0] == p[0] == n
     torch.testing.assert_close(k[1:], p[1:], rtol=RTOL, atol=0.0)
 
 
@@ -419,6 +437,58 @@ def test_basket_kernel_is_deterministic(cuda_device):
     seed = tmc._seed_pair(3, cuda_device)
     assert torch.equal(tbk.basket_mc(seed, params, **run).clone(),
                        tbk.basket_mc(seed, params, **run).clone())
+
+
+# K6's 6 sums at one rep, recorded from the kernel of commit 84a5d63 (one
+# thread per (program, element) looping over the reps, the asset count
+# bucketed) on an NVIDIA H100: bench.py's [basket-path] book (10 assets,
+# 2^18 pairs x 64 steps, seed 3, Asian) through the public entry, and the
+# 16-asset basket barrier (up-and-in at 110% of the basket) of
+# chip_smoke.py's K6_SHAPES. An edit of the kernel must keep them bit for
+# bit, or it changes per-path results.
+BASKET_SUMS = {
+    "basket_path": ("0x1.0000000000000p+18", "0x1.1a4d520000000p+20",
+                    "0x1.dde59e0000000p+22", "0x1.6f0e680000000p+24",
+                    "0x1.0751c80000000p+31", "0x1.9a01300000000p+26"),
+    "16_assets_barrier": ("0x1.0000000000000p+18", "0x1.efd1ea0000000p+20",
+                          "0x1.9289d00000000p+24", "0x1.78d67a0000000p+24",
+                          "0x1.158b760000000p+31", "0x1.73f5180000000p+27"),
+}
+
+
+def _bench_book(a):
+    """bench.py:360-388's book (default_rng(2) spots U(60, 140) and vols
+    U(0.15, 0.4), correlation 0.35, equal weights, K = mean spot) at ``a``
+    assets, drawn as chip_smoke.py's MultiAssetLsvSlice.book draws it."""
+    rng = np.random.default_rng(2)
+    n = max(a, 10)
+    S0s, sig = rng.uniform(60, 140, n)[:a], rng.uniform(0.15, 0.4, n)[:a]
+    corr = 0.35 * np.ones((a, a)) + (1 - 0.35) * np.eye(a)
+    return S0s, np.ones(a) / a, float(S0s.mean()), sig, corr
+
+
+@pytest.mark.parametrize("case", list(BASKET_SUMS))
+def test_basket_kernel_gives_the_recorded_sums(cuda_device, case):
+    if case == "basket_path":
+        S0s, w, K, sig, corr = _bench_book(10)
+        got = tbk.basket_path_sumstats_kernel(
+            3, 1 << 18, 64, S0s, w, K, 1.0, 0.03, None, sig,
+            np.linalg.cholesky(corr), True, payoff="asian_basket",
+            device=cuda_device)
+    else:
+        S0s, w, K, sig, corr = _bench_book(16)
+        params = tbk._build_params(
+            1 << 18, 64, list(S0s), list(w), K, 1.0, 0.03, [0.0] * 16,
+            list(sig), np.linalg.cholesky(corr), 1.1 * float(S0s @ w), 0.0,
+            True, "basket_barrier", True)
+        reps, n_programs = tmc._plan_grid(1 << 18, tbk.TILE)
+        assert reps == 1
+        got = tbk.basket_mc(
+            tmc._seed_pair(3, cuda_device), params.to(cuda_device),
+            n_programs=n_programs, reps=reps, n_assets=16, n_steps=64,
+            antithetic=True, payoff_id=tbk.PAYOFF_IDS["basket_barrier"],
+            barrier_up=True, knock_in=True, host_params=params)
+    assert [float(v).hex() for v in got.cpu()] == list(BASKET_SUMS[case])
 
 
 def _lsv_table(n_steps, scheme):
@@ -567,6 +637,22 @@ def test_path_kernel_occupancy_query(cuda_device):
         per_sm = tpm.blocks_per_sm(dynamics, tpm.PAYOFF_IDS["barrier"],
                                    False, True)
         assert 1 <= per_sm <= 16
+
+
+def test_basket_kernel_occupancy_query(cuda_device):
+    # each instantiation gets at least the blocks it is compiled for
+    import re
+    from pathlib import Path
+
+    src = (Path(tbk.__file__).resolve().parent.parent / "csrc"
+           / "basket_mc.cu").read_text()
+    budget = [int(v) for v in re.search(
+        r"MIN_BLOCKS\[MAX_ASSETS \+ 1\] = \{([^}]*)\}", src)[1].split(",")]
+    for a in range(1, tbk.MAX_ASSETS + 1):
+        for payoff_id in tbk.PAYOFF_IDS.values():
+            for antithetic in (True, False):
+                per_sm = tbk.blocks_per_sm(a, payoff_id, antithetic)
+                assert budget[a] <= per_sm <= 16, (a, payoff_id, antithetic)
 
 
 _SINCOS_CHECK = r"""
