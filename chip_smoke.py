@@ -11,8 +11,9 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    nvcc per source, all started together) and print the build seconds,
    ptxas' registers and spills for every kernel instantiation, and the
    resident blocks per SM (the CUDA runtime's occupancy) and waves of K4's
-   timed instantiations (``K4_TIMED``) and of K6 at its three phase-5
-   shapes (``K6_SHAPES``).
+   timed instantiations (``K4_TIMED``), of K6 at its three phase-5
+   shapes (``K6_SHAPES``), of K1 at 2^30 and of K5 at its two timed
+   shapes.
 3. kernel vs plain — each kernel's wrapper against its plain torch version
    on the same card and inputs:
    * the terminal kernel (K1) at 2^20 and a ragged 1 000 003 draws for
@@ -28,7 +29,9 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      up-and-in and up-and-out there; the vanilla with Greek moments at
      1M x 8; the Heston Euler and SABR β=1 call and put at 1M x 64;
    * the path-QMC kernel (K5) for the five payoffs at 65 536 points x 8
-     replicates x 64 steps (the main path's shape) and x 252 steps;
+     replicates x 64 steps (the main path's shape) and the Asian and the
+     vanilla at 252 steps, each also held bit for bit to the sums that
+     the kernel of commit 95d2791 gave (``QMC_PATH_SUMS``, by SHA-256);
    * the batched tridiagonal kernel (K7, PCR) against the plain Thomas
      solve at (511, 1024) in f64 and f32, at the propagator build's 511 x
      511 in f64 with one coefficient column for every system, at the
@@ -154,11 +157,18 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    launched on it.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
-   draws and its plain version at 2^24; K2 and its plain version at 2^22 points; K4
+   draws and its plain version at 2^24 and 1 000 000; K2 and its plain
+   version at 2^22 points; K4
    and its plain version at the main path's shape, K4 with Greek moments
    there, and K4's Heston Euler and SABR β=1 vanillas at 1M x 64; K5 and
-   its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252; K7 at
-   (511, 1024) in f64 and f32 with its plain version and
+   its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252 (median of
+   3 there; the kernel's sums there held to ``QMC_PATH_SUMS``), also with
+   the start event behind a queued device sleep (the device's time
+   alone); K1's and
+   K5's registers and local memory (``cuobjdump -res-usage``) and the
+   static SASS counts of K1's rep loops and K5's loops by class with the
+   issue time they give (``k1_k5_sass_lines``); K7 at (511, 1024) in f64
+   and f32 with its plain version and
    torch.linalg.solve on the dense (1024, 511, 511) f64 matrices, with
    shared columns, at the ladder's last-axis call, and at (511, 1) and
    (199, 1), median of 21, each twice: like every kernel (the host's launch
@@ -201,13 +211,20 @@ launches by method, both forms' times for calls and American puts and the
 pre-kernel's; K6's its resident blocks per SM at each shape. The last line
 is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --ab OTHER_TREE
+    python3 chip_smoke.py --ab OTHER_TREE [GROUP,...]
 
 compares this tree with another checkout of the repository (the parent
 commit unpacked with ``git archive``, say) instead: one process per turn,
 in the order other, this, this, other, twice (``AB_TURNS``), each
 importing and building its own tree's package and timing it by this
-script's rules (``ab_turn``): K4's timed instantiations (``K4_TIMED``:
+script's rules (``ab_turn``), for the kernel groups named (``AB_GROUPS``,
+all by default): K1 (antithetic Box-Muller) at 2^30 and 1 000 000 draws
+and K5 (the geometric Asian) at 65 536 x 8 x 64 and 2^20 x 8 x 252 with
+their sums by SHA-256 (K5's at every ``K5_CASES`` case, against
+``QMC_PATH_SUMS`` too), the walls (median of 21) of euro_price_mc at 2^30
+and exotic_price_mc(backend="qmc") at 65 536 x 8 x 64, their resident
+blocks per SM and ``cuobjdump -res-usage`` (``ab_k1_k5``); K4's timed
+instantiations (``K4_TIMED``:
 config 3's asian with the geometric CV at 1M x 252 with and without Greek
 moments, lsv and lsv_qe up-and-out 130 at 2^20 x 96 on the calibrated
 tables, the Heston Euler and QE and the SABR β=1 and β=0.5 vanillas at
@@ -235,11 +252,13 @@ for a tree without the kernel's occupancy query); and, from each turn
 that builds its tree's library, ptxas' registers and spills of K7, K8, K4
 ``LV_MILSTEIN`` and ``K4_TIMED`` and of every K3 and K6 instantiation, and
 the static SASS instruction count of ``K4_TIMED``'s step-pair loop, of
-K6's step loop at ``K6_SHAPES`` and of K3's rep loops (full and tail) by
-class (``cuobjdump -sass``). The static count holds code a step pair seldom
-runs (the division and sin/cos slow paths), so it is not the count of
-instructions issued, and the time it gives at one instruction per lane
-and cycle is no bound on the kernel's.
+K6's step loop at ``K6_SHAPES``, of K3's and K1's rep loops (full and
+tail) and of K5's loops (the Sobol words and normals, the bridge) by
+class (``cuobjdump -sass``), with the ALU-pipe ops among them. The
+static count holds code a step pair seldom runs (the division and
+sin/cos slow paths), so it is not the count of instructions issued, and
+the time it gives at one instruction per lane and cycle is no bound on
+the kernel's.
 """
 from __future__ import annotations
 
@@ -352,6 +371,62 @@ def ops_k5_point(n_steps: int) -> float:
     return 58 * n_steps + 65
 
 
+# K5's cases: phase 3's (the five payoffs at 65 536 points x 8 replicates x
+# 64 steps, the Asian and the vanilla at 252 steps) and phase 6's Asian at
+# 2^20 x 8 x 252; "payoff points steps"
+K5_CASES = ([f"{p} 65536 64" for p in ("vanilla", "barrier", "asian",
+                                       "digital", "lookback")]
+            + ["asian 65536 252", "vanilla 65536 252", "asian 1048576 252"])
+# K5's (n_programs, 6) sums at ``K5_CASES`` as the kernel of commit 95d2791
+# (the dense bridge product over a slab of B, the full Sobol ladder a
+# thread) gave them on an NVIDIA H100 80GB HBM3, by SHA-256 of their f32
+# bytes. Any later kernel must give them bit for bit.
+QMC_PATH_SUMS = {
+    "vanilla 65536 64":
+        "891d870dd3e92158cc85dc304308d8840518e762052627316cb06f6979bb18fa",
+    "barrier 65536 64":
+        "445e9e42afd753643d92e5803394da8a98afeabbbb57a27e934f6127a3d521aa",
+    "asian 65536 64":
+        "41e0c4e03854ad262d198dfe2ddb614ca5598789724a413976b83204f3f799fc",
+    "digital 65536 64":
+        "da60608d60c335a45320c99361e5b0eb02c7eacd3fb4c7eeb796728e728df8df",
+    "lookback 65536 64":
+        "ce6670c0400ab04e301ba04ad9ff01eb012c91eb6dafd5fb9bea77fb5a5c1249",
+    "asian 65536 252":
+        "e215d071f5fce1b80c16c367eee975d0acadfe7b74b102900d049d7c98eb7ea8",
+    "vanilla 65536 252":
+        "891d870dd3e92158cc85dc304308d8840518e762052627316cb06f6979bb18fa",
+    "asian 1048576 252":
+        "fbdfd7084212c7ec22695357b7042bfba4d2f4c6acd256b81d3ff886cbea26b9",
+}
+# a terminal_mc_kernel instantiation's mangled template arguments:
+# antithetic, invcdf
+K1_KERNEL = re.compile(r"terminal_mc_kernelILb([01])ELb([01])EE")
+# a qmc_path_kernel instantiation's: the payoff (2 is the Asian)
+K5_KERNEL = re.compile(r"qmc_path_kernelILi(\d)EE")
+
+
+def k5_setup(qmp, dev, payoff, n, d, R=8):
+    """(tensors, kwargs, (R, programs per replicate)) of a K5 call: seed 3,
+    ``MARKET``, barrier 130 up-and-out, 8 replicates; the Asian geometric,
+    driven through ``_kernel_inputs`` and ``qmc_path``, which every tree of
+    the port has."""
+    m_bits, d_pad, reps, ppr = qmp._plan(n, d, R)
+    arrays = qmp._kernel_inputs(3, n, d, *MARKET, n_replicates=R,
+                                barrier=130.0, rebate=0.0, payout=1.0)
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr,
+              n_steps=d, d_pad=d_pad, m_bits=m_bits,
+              payoff_id=qmp.PAYOFF_IDS[payoff], barrier_up=True,
+              knock_in=False, is_call=True,
+              arithmetic=payoff != "asian", fixed_strike=True)
+    return tensors, kw, (R, ppr)
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
 def k4_call(dev, n, n_steps, pay, dyn, anti, greeks, mkt=MARKET):
     """(seed, params, run kwargs, dynamics, geo_ey, market) of one K4 call
     under GBM (``dyn`` empty) or a ``SV_PHASE5``-like dynamics dict."""
@@ -418,6 +493,28 @@ def k4_waves(dev) -> dict:
         blocks, _ = pmc._launch_plan(dynamics, n_prog, reps)
         out[label] = (per_sm, blocks, blocks / (per_sm * sms),
                       n_prog * reps * pmc.TILE)
+    return out
+
+
+def k1_k5_waves(dev) -> dict:
+    """label -> (resident blocks per SM, grid blocks, waves) of K1
+    (antithetic Box-Muller) at 2^30 draws and of K5's Asian at its two
+    timed shapes on this card."""
+    from optpricer_tpu_torch.ops import qmc_path as qmp
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    reps, n_prog = tmc._plan_grid(1 << 30, 2 * tmc.TILE)
+    per_sm = tmc.blocks_per_sm(True, False)
+    blocks = n_prog * tmc._BLOCKS_PER_PROGRAM
+    out = {"K1 anti box-muller 2^30": (per_sm, blocks,
+                                       blocks / (per_sm * sms))}
+    for n, d in ((65_536, 64), (1 << 20, 252)):
+        _, _, reps, ppr = qmp._plan(n, d, 8)
+        per_sm = qmp.blocks_per_sm(qmp.PAYOFF_IDS["asian"], d)
+        blocks = 8 * ppr * reps * qmp._BLOCKS_PER_TILE
+        out[f"K5 asian {n} x 8 x {d}"] = (per_sm, blocks,
+                                          blocks / (per_sm * sms))
     return out
 
 
@@ -2304,6 +2401,10 @@ def main():
     for key, (per_sm, blocks, waves) in k6_waves(dev).items():
         print(f"phase 2 K6 {key}: {per_sm} resident blocks per SM, {blocks} "
               f"blocks, {waves:.2f} waves")
+    occupancy = k1_k5_waves(dev)
+    for key, (per_sm, blocks, waves) in occupancy.items():
+        print(f"phase 2 {key}: {per_sm} resident blocks per SM, {blocks} "
+              f"blocks, {waves:.2f} waves")
 
     # phase 3: kernels against their plain versions, on the card
     market = MARKET
@@ -2403,32 +2504,25 @@ def main():
                  k4_call(dev, 1_000_000, n_steps, pay, dyn, True, greeks,
                          mkt=mkt), pay, signed=K4_SIGNED)
 
-    def k5_setup(payoff, n, d, R=8):
-        m_bits, d_pad, reps, ppr = qmp._plan(n, d, R)
-        arrays = qmp._kernel_inputs(3, n, d, *market, n_replicates=R,
-                                    barrier=130.0, rebate=0.0, payout=1.0)
-        tensors = [torch.from_numpy(a).to(dev) for a in arrays]
-        kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr,
-                  n_steps=d, d_pad=d_pad, m_bits=m_bits,
-                  payoff_id=qmp.PAYOFF_IDS[payoff], barrier_up=True,
-                  knock_in=False, is_call=True,
-                  arithmetic=payoff != "asian", fixed_strike=True)
-        return tensors, kw, (R, ppr, m_bits)
-
     def k5_price(rows, R, ppr):
         reps_stats = rows.double().cpu().numpy().reshape(R, ppr, 6).sum(1)
         return qmp.qmc_path_estimate(reps_stats, SPEC["S0"], SPEC["q"],
                                      SPEC["T"])[0]
 
-    for payoff, n, d in [(p_, 65_536, 64) for p_ in qmp.PAYOFF_IDS] + \
-            [("asian", 65_536, 252), ("vanilla", 65_536, 252)]:
-        tensors, kw, (R, ppr, _) = k5_setup(payoff, n, d)
+    for key in K5_CASES[:-1]:
+        payoff, n, d = key.split()
+        tensors, kw, (R, ppr) = k5_setup(qmp, dev, payoff, int(n), int(d))
         k = qmp.qmc_path(*tensors, **kw)
         p = qmp._qmc_path_plain(*tensors, **kw)
         case = f"{payoff} {n} x 8 x {d}"
         rel = compare(k, p, f"qmc_path {case}")
+        if sha256(k) != QMC_PATH_SUMS[key]:
+            raise AssertionError(f"qmc_path {case}: sums differ from the "
+                                 f"recorded ones (QMC_PATH_SUMS)")
         record("qmc_path", rel, k5_price(k, R, ppr), k5_price(p, R, ppr),
                case)
+    print(f"phase 3 qmc_path: the (n_programs, 6) sums of {len(K5_CASES) - 1}"
+          " cases equal QMC_PATH_SUMS bit for bit")
 
     pde = PdeSlice(dev, card)
     pde.phase3(record)
@@ -2660,8 +2754,9 @@ def main():
         params = tmc._terminal_params(n, *market, True).to(dev)
         kw = dict(n_programs=n_prog, reps=reps, antithetic=True)
         times[("k1", n)] = cuda_ms(lambda: tmc.terminal_mc(seed, params, **kw))
-    times[("k1plain", 1 << 24)] = cuda_ms(
-        lambda: tmc._mc_sumstats_plain(seed, params, **kw))
+        if n < 1 << 30:   # the plain version at 2^24 and 1M
+            times[("k1plain", n)] = cuda_ms(
+                lambda: tmc._mc_sumstats_plain(seed, params, **kw))
     R, n = 16, 1 << 22
     n_rep, reps, ppr = tmc._plan_qmc(n, R)
     params = tmc._terminal_params(n_rep, *market, True).to(dev)
@@ -2690,15 +2785,43 @@ def main():
                       for label in sv_labels) + f" [{card}]")
     k5_bounds = {}
     for n, d in ((65_536, 64), (1 << 20, 252)):
-        tensors, kw5, (R5, _, _) = k5_setup("asian", n, d)
+        tensors, kw5, (R5, _) = k5_setup(qmp, dev, "asian", n, d)
         shape = f"{n} x 8 x {d}"
-        times[("k5", shape)] = cuda_ms(lambda: qmp.qmc_path(*tensors, **kw5))
+        if d > 64 and sha256(qmp.qmc_path(*tensors, **kw5)) != \
+                QMC_PATH_SUMS[K5_CASES[-1]]:
+            raise AssertionError(f"qmc_path asian {shape}: sums differ from "
+                                 "the recorded ones (QMC_PATH_SUMS)")
+        times[("k5", shape)] = cuda_ms(lambda: qmp.qmc_path(*tensors, **kw5),
+                                       reps=3 if d > 64 else 5)
+        times[("k5 device", shape)] = cuda_ms(
+            lambda: qmp.qmc_path(*tensors, **kw5), reps=3 if d > 64 else 5,
+            queued=True)
         times[("k5plain", shape)] = cuda_ms(
             lambda: qmp._qmc_path_plain(*tensors, **kw5),
             reps=3 if d > 64 else 5)
-        in_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        # the kernel reads every input but B, which it reads by its plan
+        in_bytes = sum(t.numel() * t.element_size()
+                       for i, t in enumerate(tensors) if i != 4)
         k5_bounds[shape] = bound(n * R5 * ops_k5_point(d),
                                  in_bytes + kw5["n_programs"] * 6 * 4)
+    print(f"phase 6 time K1 2^30 {times[('k1', 1 << 30)]:.4f} ms, 1M "
+          f"{times[('k1', 1_000_000)]:.4f} ms; K5 asian "
+          + "; ".join(f"{shape} {times[('k5', shape)]:.4f} ms (the device's "
+                      f"time alone {times[('k5 device', shape)]:.4f} ms)"
+                      for shape in k5_bounds) + f" [{card}]")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    text = sass_text(_build.library_path())
+    k1k5 = {"sms": torch.cuda.get_device_properties(dev).multi_processor_count,
+            "sm_clock_max_mhz": float(clock), "sass k1": sass_k1(text),
+            "sass k5": sass_k5(text)}
+    resources = res_usage(_build.library_path(), K1_K5_NAMES)
+    for name, line in resources.items():
+        print(f"phase 6 resources {name}: {line}")
+    for line in k1_k5_sass_lines("phase 6", k1k5):
+        print(line)
     pde.phase6(times)
     desk.phase6(times)
     multi.phase6()
@@ -2716,7 +2839,12 @@ def main():
          "ms_2p30": times[("k1", 1 << 30)],
          "bound_ms_2p30": bound((1 << 30) * OPS_K1_DRAW, 36)[0],
          "ms_1M": times[("k1", 1_000_000)],
-         "bound_ms_1M": bound(1_000_000 * OPS_K1_DRAW, 36)[0]},
+         "plain_ms_1M": times[("k1plain", 1_000_000)],
+         "bound_ms_1M": bound(1_000_000 * OPS_K1_DRAW, 36)[0],
+         "blocks_per_sm": occupancy["K1 anti box-muller 2^30"][0],
+         "waves_2p30": occupancy["K1 anti box-muller 2^30"][2],
+         "resources": {k: v for k, v in resources.items()
+                       if "terminal" in k}},
         {"name": "terminal_qmc_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/terminal_mc.cu",
          "replaces": "optpricer_tpu/ops/pallas_mc.py:214",
@@ -2753,7 +2881,13 @@ def main():
          "library_ms": None, "shape": "asian, 65536 points x 8 x 64 steps",
          "ms_2p20x252": times[("k5", "1048576 x 8 x 252")],
          "plain_ms_2p20x252": times[("k5plain", "1048576 x 8 x 252")],
-         "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0]},
+         "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0],
+         "device_ms": times[("k5 device", "65536 x 8 x 64")],
+         "device_ms_2p20x252": times[("k5 device", "1048576 x 8 x 252")],
+         "blocks_per_sm": occupancy["K5 asian 65536 x 8 x 64"][0],
+         "blocks_per_sm_2p20x252": occupancy["K5 asian 1048576 x 8 x 252"][0],
+         "resources": {k: v for k, v in resources.items()
+                       if "qmc_path" in k}},
     ] + pde.kernel_entries(launches, worst, times) \
         + desk.kernel_entries(launches, worst, times) \
         + multi.kernel_entries(launches, worst)
@@ -2897,8 +3031,8 @@ def k3_k6_sass_label(name: str) -> str | None:
 
 def sass_step_loops(text: str, labeller=k4_sass_label,
                     innermost: bool = False) -> dict:
-    """label -> instruction counts by class of the loop of each kernel
-    that ``labeller`` names in ``text`` (``sass_text``): the static
+    """label -> instruction counts (``sass_counts``) of the loop of each
+    kernel that ``labeller`` names in ``text`` (``sass_text``): the static
     instructions from the target of the smallest backward branch whose
     span holds a MUFU instruction (the Box-Muller square root, log32's
     division) to that branch, with the backward branches inside it
@@ -2906,10 +3040,35 @@ def sass_step_loops(text: str, labeller=k4_sass_label,
     ``innermost``: a list of every such loop that holds no other, in
     address order (K3's full and tail rep loops), not the smallest."""
     out = {}
-    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        label = labeller(chunk.split(None, 1)[0])
+    for name, ops, loops in sass_functions(text):
+        label = labeller(name)
         if not label:
             continue
+        with_mufu = [(j, i) for j, i in loops
+                     if any(o.startswith("MUFU") for o in ops[j:i + 1])]
+        if not with_mufu:
+            out[label] = None
+            continue
+
+        def counted(j, i):
+            return dict(sass_counts(ops[j:i + 1]), inner_loops=sum(
+                j < jj and ii < i for jj, ii in loops))
+
+        if innermost:
+            out[label] = [counted(j, i) for j, i in sorted(with_mufu)
+                          if not any(j <= jj and ii <= i and (jj, ii) != (j, i)
+                                     for jj, ii in with_mufu)]
+        else:
+            out[label] = counted(*min(with_mufu, key=lambda ji: ji[1] - ji[0]))
+    return out
+
+
+def sass_functions(text: str):
+    """(mangled name, opcodes, loops) of each function in ``text``
+    (``sass_text``): its instructions' opcodes (predicates dropped) in
+    address order and its loops, the (target, branch) index pairs of its
+    backward branches."""
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         insts, labels = [], {}
         for line in chunk.splitlines():
             lab = re.match(r"\s*(\.L_x_\d+):", line)
@@ -2931,29 +3090,178 @@ def sass_step_loops(text: str, labeller=k4_sass_label,
             if j is not None and j < i:
                 loops.append((j, i))
         ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for _, t in insts]
-        with_mufu = [(j, i) for j, i in loops
-                     if any(o.startswith("MUFU") for o in ops[j:i + 1])]
-        if not with_mufu:
-            out[label] = None
+        yield chunk.split(None, 1)[0], ops, loops
+
+
+# SASS opcodes that issue to the ALU pipe, at half the FP32 rate on Hopper:
+# the integer ops but IMAD / IMUL (the FMA pipe), and the float compares,
+# selects and min / max
+SASS_ALU = {"IADD3", "IADD", "ISETP", "IABS", "IMNMX", "LOP3", "LOP", "SHF",
+            "SHL", "SHR", "LEA", "PRMT", "SEL", "POPC", "FLO", "BREV", "BMSK",
+            "SGXT", "FSETP", "FSET", "FSEL", "FMNMX", "PLOP3", "P2R", "R2P"}
+
+
+def sass_counts(ops) -> dict:
+    """Instruction counts of ``ops`` by class (``sass_class``), with the
+    ALU-pipe ops (``SASS_ALU``), MUFU.RCP (one a log32 division), FRND
+    (one an exp32), FMUL, LDS, LDG and STS among them."""
+    counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion", "memory",
+                             "other")}
+    for o in ops:
+        counts[sass_class(o)] += 1
+    base = [o.split(".")[0] for o in ops]
+    counts.update(total=len(ops), alu=sum(b in SASS_ALU for b in base),
+                  rcp=sum(o.startswith("MUFU.RCP") for o in ops),
+                  frnd=base.count("FRND"), fmul=base.count("FMUL"),
+                  lds=base.count("LDS"), ldg=base.count("LDG"),
+                  sts=base.count("STS"), calls=base.count("CALL"))
+    return counts
+
+
+def sass_k1(text: str) -> dict:
+    """label -> counts (``sass_counts``) of each rep loop of K1's antithetic
+    Box-Muller instantiation (the full and the tail body's, in address
+    order; one in a tree without the split): the innermost loops that hold
+    a MUFU.RCP, log32's division, one a rep."""
+    out = {}
+    for name, ops, loops in sass_functions(text):
+        m = K1_KERNEL.search(name)
+        if not m or (m[1], m[2]) != ("1", "0"):
             continue
-
-        def counted(j, i):
-            counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion",
-                                     "memory", "other")}
-            for o in ops[j:i + 1]:
-                counts[sass_class(o)] += 1
-            counts["total"] = i - j + 1
-            counts["calls"] = sum(o.startswith("CALL") for o in ops[j:i + 1])
-            counts["inner_loops"] = sum(j < jj and ii < i for jj, ii in loops)
-            return counts
-
-        if innermost:
-            out[label] = [counted(j, i) for j, i in sorted(with_mufu)
-                          if not any(j <= jj and ii <= i and (jj, ii) != (j, i)
-                                     for jj, ii in with_mufu)]
-        else:
-            out[label] = counted(*min(with_mufu, key=lambda ji: ji[1] - ji[0]))
+        rcp = [(j, i) for j, i in loops
+               if any(o.startswith("MUFU.RCP") for o in ops[j:i + 1])]
+        inner = [(j, i) for j, i in sorted(rcp)
+                 if not any(j <= jj and ii <= i and (jj, ii) != (j, i)
+                            for jj, ii in rcp)]
+        out["terminal_mc_kernel<anti=1, box-muller>"] = [
+            sass_counts(ops[j:i + 1]) for j, i in inner]
     return out
+
+
+def sass_k5(text: str) -> list:
+    """The loops of K5's Asian instantiation, each a dict: ``kind``, its
+    own instructions' counts (``sass_counts``, nested loops left out),
+    ``depth`` and ``parent`` (the enclosing loop's index). Kinds, by what a
+    loop's own instructions hold: "normals" (a MUFU.RCP: norminv32's
+    log32 division, one a step), "sobol bits" (a loop inside it, or inside
+    "common", with LDG: the direction numbers of the ladder), "common"
+    (STS and no MUFU outside the bridge: the block-common words),
+    "bridge group" (FRND: an exp32 a column), "bridge terms" (FMUL: the
+    product, "sparse" with an LDS a term, "dense" otherwise), "bridge
+    staging" (STS inside the group: the B slab) or "other"."""
+    for name, ops, loops in sass_functions(text):
+        m = K5_KERNEL.search(name)
+        if not m or m[1] != "2":
+            continue
+        loops = sorted(set(loops))
+        parent = [max((p for p, (jj, ii) in enumerate(loops)
+                       if jj <= j and i <= ii and (jj, ii) != (j, i)),
+                      key=lambda p: loops[p][0], default=None)
+                  for j, i in loops]
+        out = []
+        for q, (j, i) in enumerate(loops):
+            inner = [loops[c] for c, p in enumerate(parent) if p == q]
+            own = [o for t, o in enumerate(ops[j:i + 1], j)
+                   if not any(jj <= t <= ii for jj, ii in inner)]
+            c = sass_counts(own)
+            depth, p = 0, parent[q]
+            while p is not None:
+                depth, p = depth + 1, parent[p]
+            out.append(dict(counts=c, depth=depth, parent=parent[q]))
+        for loop in out:
+            c = loop["counts"]
+            up = out[loop["parent"]]["kind"] if loop["parent"] is not None \
+                else None
+            if c["rcp"]:
+                kind = "normals"
+            elif c["frnd"]:
+                kind = "bridge group"
+            elif c["fmul"] >= 8:
+                kind = "bridge terms " + ("sparse" if c["lds"] >= c["fmul"]
+                                          else "dense")
+            elif c["sts"] and up == "bridge group":
+                kind = "bridge staging"
+            elif c["sts"]:
+                kind = "common"
+            elif c["ldg"] and up in ("normals", "common"):
+                kind = "sobol bits"
+            else:
+                kind = "other"
+            loop["kind"] = kind
+        # parents are listed before their children (sorted by start)
+        for loop in out:
+            if loop["parent"] is not None and loop["kind"] == "other":
+                loop["kind"] = "inside " + out[loop["parent"]]["kind"]
+        return out
+    return []
+
+
+def k5_issue(loops: list, n_steps: int, m_bits: int, width) -> dict:
+    """Instructions a point of K5's Asian issues in each kind of loop
+    (``sass_k5``) at ``n_steps``: each loop's own instructions times its
+    iterations a point, from what one iteration does: steps (a MUFU.RCP
+    each), one group of 8 columns, table entries (8 FMUL each), bits of
+    the ladder (an LDG each), B slab rows (an LDG each) or common words (an
+    STS each). ``width``: the sparse bridge's entries a column (None for
+    the dense product). Loops of one kind at one depth (a loop the
+    compiler versioned) share its iterations evenly."""
+    groups = -(-n_steps // 8)
+    sparse = any(lp["kind"] == "bridge terms sparse" for lp in loops)
+    kinds = [(lp["kind"], lp["depth"]) for lp in loops]
+    per_point = {}
+    for lp in loops:
+        c, kind = lp["counts"], lp["kind"]
+        if kind == "normals":
+            trips = n_steps / c["rcp"]
+        elif kind == "bridge group":
+            trips = groups
+        elif kind == "bridge terms sparse":
+            trips = groups * width / (c["fmul"] / 8)
+        elif kind == "bridge terms dense":
+            trips = 0.0 if sparse else groups * n_steps / (c["fmul"] / 8)
+        elif kind == "bridge staging":
+            trips = groups * (2 * n_steps / 64) / max(1, c["ldg"])
+        elif kind == "common":
+            trips = (n_steps / 64) / max(1, c["sts"])
+        elif kind == "sobol bits":
+            up = loops[lp["parent"]]["kind"]
+            bits = m_bits - 6 if up == "common" else m_bits
+            steps = n_steps / 64 if up == "common" else n_steps
+            trips = steps * bits / max(1, c["ldg"])
+        else:
+            trips = 0.0
+        trips /= kinds.count((kind, lp["depth"]))
+        key = "sobol" if kind in ("normals", "common", "sobol bits") \
+            else "bridge" if kind.startswith("bridge") else "other"
+        for field in ("total", "alu"):
+            per_point[f"{key} {field}"] = per_point.get(
+                f"{key} {field}", 0.0) + c[field] * trips
+    return per_point
+
+
+def res_usage(lib: Path, pattern: re.Pattern) -> dict:
+    """mangled name -> 'REG:.. STACK:.. SHARED:.. LOCAL:..' of each kernel
+    of the library that ``pattern`` matches (``cuobjdump -res-usage``):
+    registers, and local memory (spills) in bytes a thread."""
+    from optpricer_tpu_torch import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-res-usage", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=900).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and "REG:" in line and pattern.search(name):
+            out[name] = " ".join(line.split())
+            name = None
+    return out
+
+
+K1_K5_NAMES = re.compile(r"terminal_mc_kernelILb1ELb0E|qmc_path_kernelILi2E")
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -2969,15 +3277,18 @@ def host_us(fn, reps: int = 200) -> float:
     return us
 
 
-def ab_turn(tree: Path) -> dict:
+AB_GROUPS = ("k1k5", "k4", "k3k6", "pde")
+
+
+def ab_turn(tree: Path, groups=AB_GROUPS) -> dict:
     """One turn of ``--ab``: the numbers of the package in ``tree`` (its
-    kernels built from its own sources), timed by this script's rules."""
+    kernels built from its own sources), timed by this script's rules, for
+    the kernel groups ``groups`` (``AB_GROUPS``: K1 and K5, K4, K3 and K6,
+    the PDE kernels K7 and K8)."""
     sys.path.insert(0, str(tree))
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch import _build
-    from optpricer_tpu_torch.ops import fd_lv as flv
     from optpricer_tpu_torch.ops import path_mc as pmc
-    from optpricer_tpu_torch.ops import thomas as tth
 
     if not Path(tp.__file__).resolve().is_relative_to(tree):
         raise SystemExit(f"chip_smoke --ab: imported {tp.__file__}, not the "
@@ -2996,13 +3307,36 @@ def ab_turn(tree: Path) -> dict:
            "ptxas": ptxas_k4_k7(report.getvalue()),
            # a tree from before the per-path grid has no occupancy query
            "k4 occupancy": k4_waves(dev) if hasattr(pmc, "blocks_per_sm")
-           else {}}
+           and "k4" in groups else {}}
     if report.getvalue():  # this turn built the library
         text = sass_text(_build.library_path())
-        out["sass"] = sass_step_loops(text)
-        out["sass k3 k6"] = sass_step_loops(text, k3_k6_sass_label, True)
-
+        if "k4" in groups:
+            out["sass"] = sass_step_loops(text)
+        if "k3k6" in groups:
+            out["sass k3 k6"] = sass_step_loops(text, k3_k6_sass_label, True)
+        if "k1k5" in groups:
+            out["sass k1"], out["sass k5"] = sass_k1(text), sass_k5(text)
     multi = MultiAssetLsvSlice(dev, card)
+    desk = Config5Slice(dev, card)
+    if "k1k5" in groups:
+        out.update(ab_k1_k5(dev))
+    if "k3k6" in groups:
+        out.update(ab_k3_k6(dev, multi, desk))
+    if "k4" in groups:
+        out.update(ab_k4(dev, multi, desk))
+    if "pde" in groups:
+        out.update(ab_pde(dev, card))
+    return out
+
+
+def ab_k4(dev, multi, desk) -> dict:
+    """``ab_turn``'s K4 numbers: ``K4_TIMED``'s times and sums, the walls
+    of config 3's exotic_price_mc and of lsv_price_mc, and the desk's
+    lv_milstein and lv_euler calls."""
+    import optpricer_tpu_torch as tp
+    from optpricer_tpu_torch.ops import path_mc as pmc
+
+    out = {}
     out["k4 sums timed"], out["k4 sums 2^18"] = {}, {}
     for label, (seed, params, run) in k4_timed_calls(dev, multi).items():
         out["k4 sums timed"][label] = [
@@ -3030,15 +3364,22 @@ def ab_turn(tree: Path) -> dict:
         out["k4 sums 2^18"][label] = [
             float(v).hex() for v in pmc.path_mc(seed, params, **run).cpu()]
 
-    desk = Config5Slice(dev, card)
     for scheme in ("milstein", "log_euler"):
         seed, params, run = desk.desk_k4(desk_svi(), scheme)
         sums = pmc.path_mc(seed, params, **run).cpu()
         out[f"k4 {scheme} sums"] = [float(v).hex() for v in sums]
         out[f"k4 {scheme} ms"] = cuda_ms(
             lambda: pmc.path_mc(seed, params, **run))
-    out.update(ab_k3_k6(dev, multi, desk))
+    return out
 
+
+def ab_pde(dev, card) -> dict:
+    """``ab_turn``'s K7 and K8 numbers and the PDE walls."""
+    import optpricer_tpu_torch as tp
+    from optpricer_tpu_torch.ops import fd_lv as flv
+    from optpricer_tpu_torch.ops import thomas as tth
+
+    out = {}
     pde = PdeSlice(dev, card)
     # K8 on the ladder: both forms, European calls and American puts, the
     # layer's bytes hashed for the bit-for-bit comparison across turns
@@ -3107,6 +3448,74 @@ def ab_turn(tree: Path) -> dict:
     return out
 
 
+def ab_k1_k5(dev) -> dict:
+    """``ab_turn``'s K1 and K5 numbers: K1 (antithetic Box-Muller) at 2^30
+    and 1 000 000 draws and K5 (the geometric Asian) at 65 536 x 8 x 64 and
+    2^20 x 8 x 252, each ``ms`` (median of 5; of 3 at 252 steps) and
+    ``device ms`` (the start event behind a queued device sleep: the
+    device's time alone); their sums by SHA-256 (K1's 13 also as hex;
+    K5's at every ``K5_CASES`` case); the walls (median of 21) of
+    euro_price_mc at 2^30 and of exotic_price_mc(backend="qmc") at 65 536
+    x 8 x 64, and the host time of K5's ``_kernel_inputs`` there; the
+    resident blocks per SM (none for a tree without the occupancy queries)
+    and each kernel's registers and local memory (``cuobjdump
+    -res-usage``)."""
+    import optpricer_tpu_torch as tp
+    from optpricer_tpu_torch import _build
+    from optpricer_tpu_torch.ops import qmc_path as qmp
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    out = {"k1 sums": {}, "k1 sums hex": {}, "k5 sums": {}}
+    for n, label in ((1 << 30, "2^30"), (1_000_000, "1M")):
+        reps, n_prog = tmc._plan_grid(n, 2 * tmc.TILE)
+        params = tmc._terminal_params(n, *MARKET, True).to(dev)
+        seed = tmc._seed_pair(7, dev)
+        kw = dict(n_programs=n_prog, reps=reps, antithetic=True)
+        sums = tmc.terminal_mc(seed, params, **kw)
+        out["k1 sums"][label] = sha256(sums)
+        out["k1 sums hex"][label] = [float(v).hex() for v in sums.cpu()]
+        out[f"k1 {label} ms"] = cuda_ms(
+            lambda: tmc.terminal_mc(seed, params, **kw))
+        out[f"k1 {label} device ms"] = cuda_ms(
+            lambda: tmc.terminal_mc(seed, params, **kw), queued=True)
+    for key in K5_CASES:
+        payoff, n, d = key.split()
+        tensors, kw, _ = k5_setup(qmp, dev, payoff, int(n), int(d))
+        out["k5 sums"][key] = sha256(qmp.qmc_path(*tensors, **kw))
+        if payoff == "asian" and (n, d) in (("65536", "64"),
+                                            ("1048576", "252")):
+            reps = 3 if d == "252" else 5
+            out[f"k5 asian {n} x 8 x {d} ms"] = cuda_ms(
+                lambda: qmp.qmc_path(*tensors, **kw), reps=reps)
+            out[f"k5 asian {n} x 8 x {d} device ms"] = cuda_ms(
+                lambda: qmp.qmc_path(*tensors, **kw), reps=reps,
+                queued=True)
+    spec = tp.OptionSpec(**SPEC)
+    walls = {
+        "euro_price_mc 2^30": lambda: tp.euro_price_mc(
+            spec, "call", n_paths=1 << 30, seed=7, device=dev),
+        "exotic_price_mc qmc geometric asian 65536 x 8 x 64": lambda:
+            tp.exotic_price_mc("asian", *MARKET[:5], sigma=0.2, n_steps=64,
+                               n_paths=65_536, seed=0, backend="qmc",
+                               average_type="geometric", device=dev)}
+    for label, fn in walls.items():
+        out[f"wall {label} ms"] = wall_ms(fn)
+    # the host's share of the qmc wall: the kernel's inputs as numpy
+    out["k5 kernel_inputs 65536 x 8 x 64 us"] = host_us(
+        lambda: qmp._kernel_inputs(0, 65_536, 64, *MARKET, n_replicates=8,
+                                   barrier=0.0, rebate=0.0, payout=1.0),
+        reps=21)
+    occ = {}
+    if hasattr(tmc, "blocks_per_sm"):
+        occ["k1 anti box-muller"] = tmc.blocks_per_sm(True, False)
+    if hasattr(qmp, "blocks_per_sm"):
+        for d in (64, 252):
+            occ[f"k5 asian {d} steps"] = qmp.blocks_per_sm(2, d)
+    out["k1 k5 occupancy"] = occ
+    out["k1 k5 resources"] = res_usage(_build.library_path(), K1_K5_NAMES)
+    return out
+
+
 def ab_k3_k6(dev, multi, desk) -> dict:
     """``ab_turn``'s K3 and K6 numbers: K6 at ``K6_SHAPES`` (its 6 sums as
     hex at one rep, as floats at the 1-asset call's four) and K3 at 1 000
@@ -3142,7 +3551,9 @@ def ab_k3_k6(dev, multi, desk) -> dict:
 
 AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
                 "sass", "k4 sums timed", "k4 sums 2^18", "k8 layers",
-                "k6 sums 4 reps", "k6 occupancy", "sass k3 k6")
+                "k6 sums 4 reps", "k6 occupancy", "sass k3 k6", "sass k1",
+                "sass k5", "k1 sums hex", "k1 k5 occupancy",
+                "k1 k5 resources")
 
 
 def ab_issue_ms(label: str, counts: dict, turn: dict) -> float:
@@ -3158,7 +3569,11 @@ def ab_issue_ms(label: str, counts: dict, turn: dict) -> float:
     from optpricer_tpu_torch.ops import terminal_mc as tmc
 
     per_loop = counts["mufu"] // 2
-    if label.startswith("mc_batch"):
+    if label.startswith("terminal_mc"):
+        # 64 programs x 256 reps x 32 768 elements at 2^30 draws: 2^29
+        # thread-reps, one log32 division (MUFU.RCP) each
+        per_loop, iterations = counts["rcp"], 1 << 29
+    elif label.startswith("mc_batch"):
         iterations = 1024 * (1 << 20) // 2
     else:
         per_loop //= (int(label.split(", ")[-1].split()[0]) + 1) // 2
@@ -3172,47 +3587,102 @@ def ab_issue_ms(label: str, counts: dict, turn: dict) -> float:
             / (turn["sms"] * 128 * turn["sm_clock_max_mhz"] * 1e6) * 1e3)
 
 
-def ab(other: Path):
-    """Run ``ab_turn`` on ``other`` and on this tree in the turns
-    ``AB_TURNS``, one process each, and print every number side by side,
-    the ratio other / this of K4's, K8's, K6's and K3's timed calls and of
-    the user calls' walls in the slowest and the fastest pairing of turns,
-    the ptxas lines and the SASS counts of each tree's turn that built it,
-    the resident blocks and waves of K4's timed instantiations and of K6,
-    and whether K4's, K8's, K6's (one rep) and K3's results are equal bit
-    for bit across the turns. The last line is one JSON object with every
-    turn's numbers."""
-    from optpricer_tpu_torch.ops import path_mc as pmc
-    from optpricer_tpu_torch.ops import terminal_mc as tmc
+def k1_k5_sass_lines(side: str, turn: dict) -> list:
+    """The lines that report K1's rep loops and K5's loops (``sass_k1``,
+    ``sass_k5`` in ``turn``) with the issue time their static counts give
+    at the main path's shapes, at one instruction a lane and cycle, and
+    that of their ALU-pipe ops alone at half that rate."""
+    lines = []
+    issue_line = (" if each static instruction issued once an iteration "
+                  "(one a lane and cycle, 4 schedulers an SM)")
+    for label, loops in turn.get("sass k1", {}).items():
+        for i, counts in enumerate(loops):
+            alu = dict(counts, total=2 * counts["alu"])
+            lines.append(
+                f"sass {side} {label}: rep loop {i + 1} of {len(loops)} "
+                + ", ".join(f"{k} {v}" for k, v in counts.items())
+                + f"; {ab_issue_ms(label, counts, turn):.4f} ms at 2^30"
+                + issue_line + f"; its ALU-pipe ops alone at half that rate "
+                f"{ab_issue_ms(label, alu, turn):.4f} ms")
+    loops = turn.get("sass k5")
+    if loops is None:
+        return lines
+    for i, lp in enumerate(loops):
+        lines.append(f"sass {side} qmc_path_kernel<asian> loop {i + 1} of "
+                     f"{len(loops)} ({lp['kind']}, depth {lp['depth']}): "
+                     + ", ".join(f"{k} {v}" for k, v in lp["counts"].items()))
+    rate = turn["sms"] * 128 * turn["sm_clock_max_mhz"] * 1e6
+    sparse = any(lp["kind"] == "bridge terms sparse" for lp in loops)
+    for n, d in ((65_536, 64), (1 << 20, 252)):
+        m_bits = max(math.ceil(math.log2(n)), 11)
+        per_point = k5_issue(loops, d, m_bits,
+                             (d - 1).bit_length() + 1 if sparse else None)
+        ms = {part: (per_point.get(f"{part} total", 0.0) * 8 * n / rate * 1e3,
+                     2 * per_point.get(f"{part} alu", 0.0) * 8 * n / rate
+                     * 1e3) for part in ("sobol", "bridge")}
+        lines.append(
+            f"sass {side} qmc_path_kernel<asian> at {n} x 8 x {d}: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in per_point.items())
+            + " instructions a point; " + ", ".join(
+                f"{part} {t:.4f} ms (its ALU-pipe ops alone {a:.4f} ms)"
+                for part, (t, a) in ms.items()) + issue_line)
+    return lines
 
+
+def ab(other: Path, groups=AB_GROUPS):
+    """Run ``ab_turn`` on ``other`` and on this tree in the turns
+    ``AB_TURNS``, one process each, for the kernel groups ``groups``, and
+    print (``ab_report``) every number side by side, the ratio
+    other / this of each kernel's timed calls and of the user calls' walls
+    in the slowest and the fastest pairing of turns, the ptxas lines and
+    the SASS counts of each tree's turn that built it (with the issue time
+    they give), the resident blocks and waves, and whether each kernel's
+    results are equal bit for bit across the turns. The last line is one
+    JSON object with every turn's numbers."""
     trees = {"this": ROOT, "other": other.resolve()}
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, side in enumerate(AB_TURNS):
             path = Path(tmp) / f"{i}.json"
             subprocess.run([sys.executable, __file__, "--ab-turn",
-                            str(trees[side]), str(path)], check=True,
-                           env=dict(os.environ, PYTHONPATH=""), timeout=1500)
+                            str(trees[side]), str(path), ",".join(groups)],
+                           check=True, env=dict(os.environ, PYTHONPATH=""),
+                           timeout=1500)
             turns.append((side, json.loads(path.read_text())))
+    ab_report(turns, trees)
+
+
+def ab_report(turns, trees):
+    """``ab``'s lines for the turns ``turns`` ((side, numbers) pairs)."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
     sides = ", ".join(side for side, _ in turns)
     first = turns[0][1]
     print(f"card: {first['card']}; {first['sms']} SMs, max SM clock "
           f"{first['sm_clock_max_mhz']:.0f} MHz; turns: {sides} "
           f"(other = {trees['other']})")
-    for key, value in first.items():
-        if key in AB_NOT_TIMES or key.endswith("sums"):
+    keys = list(dict.fromkeys(k for _, t in turns for k in t))
+    for key in keys:
+        if key in AB_NOT_TIMES or key.endswith("sums") or key == "side":
             continue
+        value = next(t[key] for _, t in turns if key in t)
         for field in value if isinstance(value, dict) else [None]:
-            values = [t[key] if field is None else t[key][field]
-                      for _, t in turns]
+            values = [t.get(key) if field is None
+                      else t.get(key, {}).get(field) for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
-                  + ", ".join(f"{v:.4f}" for v in values))
-    k8_keys = [k for k in first if k.startswith(("k8 ", "k6 ", "k3 "))
-               and k.endswith(" ms")]
-    for key in [f"k4 {label} ms" for label in K4_TIMED] + k8_keys \
+                  + ", ".join("-" if v is None else f"{v:.4f}"
+                              for v in values))
+    timed_keys = [k for k in first if k.startswith(("k1 ", "k5 ", "k8 ",
+                                                    "k6 ", "k3 "))
+                  and k.endswith(" ms")]
+    for key in [f"k4 {label} ms" for label in K4_TIMED
+                if f"k4 {label} ms" in first] + timed_keys \
             + [k for k in first if k.startswith("wall ")]:
-        ms = {side: [t[key] for s, t in turns if s == side]
+        ms = {side: [t[key] for s, t in turns if s == side and key in t]
               for side in ("other", "this")}
+        if not (ms["other"] and ms["this"]):
+            continue
         slow = min(ms["other"]) / max(ms["this"])
         fast = max(ms["other"]) / min(ms["this"])
         print(f"{key[:-3]}: other / this {slow:.3f}x in the slowest pairing "
@@ -3229,23 +3699,25 @@ def ab(other: Path):
                 turn["k4 occupancy"].items():
             print(f"k4 {side} {label}: {per_sm} resident blocks per SM, "
                   f"{blocks} blocks, {waves:.2f} waves")
-    seen = set()
-    for side, turn in turns:
-        if side in seen:
-            continue
-        seen.add(side)
-        for key, (per_sm, blocks, waves) in turn["k6 occupancy"].items():
+        for key, (per_sm, blocks, waves) in \
+                turn.get("k6 occupancy", {}).items():
             print(f"k6 {side} {key}: {per_sm} resident blocks per SM, "
                   f"{blocks} blocks, {waves:.2f} waves")
+        for key, per_sm in turn.get("k1 k5 occupancy", {}).items():
+            print(f"{key} {side}: {per_sm} resident blocks per SM")
+        for name, line in turn.get("k1 k5 resources", {}).items():
+            print(f"resources {side} {name}: {line}")
+    issue_line = (" if each static instruction issued once an iteration "
+                  "(one a lane and cycle, 4 schedulers an SM)")
     for side, turn in turns:
         for label, loops in turn.get("sass k3 k6", {}).items():
             for i, counts in enumerate(loops or []):
                 print(f"sass {side} {label}: loop {i + 1} of {len(loops)} "
                       + ", ".join(f"{k} {v}" for k, v in counts.items())
                       + f"; {ab_issue_ms(label, counts, turn):.4f} ms at "
-                      f"the main path's shape if each static instruction "
-                      f"issued once an iteration (one a lane and cycle, 4 "
-                      f"schedulers an SM)")
+                      f"the main path's shape" + issue_line)
+        for line in k1_k5_sass_lines(side, turn):
+            print(line)
     for side, turn in turns:
         for label, counts in turn.get("sass", {}).items():
             if counts is None:
@@ -3262,57 +3734,85 @@ def ab(other: Path):
                   + f"; {issue_ms:.4f} ms at {n} x {n_steps} if each static "
                   f"instruction issued once a step pair (one a lane and "
                   f"cycle, 4 schedulers an SM)")
-    for label in K4_TIMED:
-        sums = [t["k4 sums 2^18"][label] for _, t in turns]
-        same = all(v == sums[0] for v in sums)
-        this = [t["k4 sums timed"][label] for s, t in turns if s == "this"]
-        that = [t["k4 sums timed"][label] for s, t in turns if s == "other"]
-        rel = max(compare(torch.tensor(a), torch.tensor(b), label,
-                          signed=K4_SIGNED) for a in this for b in that)
-        print(f"k4 {label}: the 21 sums at 2^18 paths (one rep) are "
-              f"{'equal' if same else 'NOT equal'} bit for bit across the "
-              f"turns; at the timed shape this vs other max rel err of the "
-              f"unsigned sums {rel:.3e} (rtol {RTOL})")
-    for scheme in ("milstein", "log_euler"):
-        sums = [t[f"k4 {scheme} sums"] for _, t in turns]
-        same = all(s == sums[0] for s in sums)
-        print(f"k4 {scheme} at the desk's call: the 21 sums are "
-              f"{'equal' if same else 'NOT equal'} bit for bit across the "
-              "turns")
-    for key in first["k6 sums"]:
+
+    def same(values):
+        return "equal" if all(v == values[0] for v in values) else "NOT equal"
+
+    if "k4 sums 2^18" in first:
+        for label in K4_TIMED:
+            sums = [t["k4 sums 2^18"][label] for _, t in turns]
+            this = [t["k4 sums timed"][label] for s, t in turns
+                    if s == "this"]
+            that = [t["k4 sums timed"][label] for s, t in turns
+                    if s == "other"]
+            rel = max(compare(torch.tensor(a), torch.tensor(b), label,
+                              signed=K4_SIGNED) for a in this for b in that)
+            print(f"k4 {label}: the 21 sums at 2^18 paths (one rep) are "
+                  f"{same(sums)} bit for bit across the turns; at the timed "
+                  f"shape this vs other max rel err of the unsigned sums "
+                  f"{rel:.3e} (rtol {RTOL})")
+        for scheme in ("milstein", "log_euler"):
+            sums = [t[f"k4 {scheme} sums"] for _, t in turns]
+            print(f"k4 {scheme} at the desk's call: the 21 sums are "
+                  f"{same(sums)} bit for bit across the turns")
+    for key in first.get("k6 sums", {}):
         sums = [t["k6 sums"][key] for _, t in turns]
-        print(f"k6 {key}: the 6 sums (one rep) are "
-              f"{'equal' if all(v == sums[0] for v in sums) else 'NOT equal'}"
-              f" bit for bit across the turns")
-    for key in first["k6 sums 4 reps"]:
+        print(f"k6 {key}: the 6 sums (one rep) are {same(sums)} bit for bit "
+              f"across the turns")
+    for key in first.get("k6 sums 4 reps", {}):
         this = [t["k6 sums 4 reps"][key] for s, t in turns if s == "this"]
         that = [t["k6 sums 4 reps"][key] for s, t in turns if s == "other"]
         rel = max(abs(x - y) / abs(y) for a in this for b in that
                   for x, y in zip(a, b) if y != 0.0)
         print(f"k6 {key}: the 6 sums (4 reps) this vs other max rel "
               f"{rel:.3e}")
-    digests = [t["k3 sums"] for _, t in turns]
-    print(f"k3 1000 x 2^20: the (n_ktiles, 10, 128) sums are "
-          f"{'equal' if all(d == digests[0] for d in digests) else 'NOT equal'}"
-          f" bit for bit across the turns (SHA-256 "
-          f"{', '.join(d[:12] for d in digests)})")
-    for case in first["k8 layers"]:
+    if "k3 sums" in first:
+        digests = [t["k3 sums"] for _, t in turns]
+        print(f"k3 1000 x 2^20: the (n_ktiles, 10, 128) sums are "
+              f"{same(digests)} bit for bit across the turns (SHA-256 "
+              f"{', '.join(d[:12] for d in digests)})")
+    for label in first.get("k1 sums", {}):
+        digests = [t["k1 sums"][label] for _, t in turns]
+        this = [t["k1 sums hex"][label] for s, t in turns if s == "this"]
+        that = [t["k1 sums hex"][label] for s, t in turns if s == "other"]
+        rel = max((abs(float.fromhex(x) - float.fromhex(y))
+                   / abs(float.fromhex(y)) for a in this for b in that
+                   for x, y in zip(a, b) if float.fromhex(y) != 0.0),
+                  default=0.0)
+        print(f"k1 {label}: the 13 sums are {same(digests)} bit for bit "
+              f"across the turns (SHA-256 "
+              f"{', '.join(d[:12] for d in digests)}); this vs other max "
+              f"rel {rel:.3e} (rtol {RTOL})")
+    for key in first.get("k5 sums", {}):
+        digests = [t["k5 sums"][key] for _, t in turns]
+        recorded = QMC_PATH_SUMS.get(key)
+        print(f"k5 {key}: the (n_programs, 6) sums are {same(digests)} bit "
+              f"for bit across the turns (SHA-256 "
+              f"{', '.join(d[:12] for d in digests)}); "
+              + ("equal to" if recorded == digests[0] else "NOT equal to")
+              + " QMC_PATH_SUMS")
+    for case in first.get("k8 layers", {}):
         digests = [t["k8 layers"][case] for _, t in turns]
-        same = all(d == digests[0] for d in digests)
         print(f"k8 {case} {PdeSlice.N_STRIKES} x {PdeSlice.N_S - 1} x "
-              f"{PdeSlice.N_T}: the layer is "
-              f"{'equal' if same else 'NOT equal'} bit for bit across the "
-              f"turns (SHA-256 {', '.join(d[:12] for d in digests)})")
+              f"{PdeSlice.N_T}: the layer is {same(digests)} bit for bit "
+              f"across the turns (SHA-256 "
+              f"{', '.join(d[:12] for d in digests)})")
     print(json.dumps({"turns": [dict(t, side=s) for s, t in turns]}))
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    if args[:1] == ["--ab-turn"] and len(args) == 3:
-        Path(args[2]).write_text(json.dumps(ab_turn(Path(args[1]).resolve())))
-    elif args[:1] == ["--ab"] and len(args) == 2:
-        ab(Path(args[1]))
+    if args[:1] == ["--ab-turn"] and len(args) in (3, 4):
+        chosen = args[3].split(",") if len(args) == 4 else AB_GROUPS
+        Path(args[2]).write_text(json.dumps(ab_turn(Path(args[1]).resolve(),
+                                                    chosen)))
+    elif args[:1] == ["--ab"] and len(args) in (2, 3):
+        chosen = args[2].split(",") if len(args) == 3 else AB_GROUPS
+        if not set(chosen) <= set(AB_GROUPS):
+            raise SystemExit(f"chip_smoke --ab: groups among {AB_GROUPS}")
+        ab(Path(args[1]), chosen)
     elif not args:
         main()
     else:
-        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE]")
+        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE "
+                         f"[GROUP,...]], GROUP in {AB_GROUPS}")

@@ -48,12 +48,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "optpricer_terminal_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_terminal_qmc": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "optpricer_terminal_mc_occupancy": (_I, _I),
     "optpricer_mc_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_path_mc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
     "optpricer_path_mc_occupancy": (_I, _I, _I, _I, _I, _P),
-    "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _P),
+    "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P),
+    "optpricer_qmc_path_occupancy": (_I, _I),
     "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                          _L, _L, _P, _I, _I, _I, _P),
     "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,

@@ -5,7 +5,8 @@
 //   per-rep loop of the TPU kernels, ops/stats.kahan_add);
 // * block_row: a warp-shuffle tree, then the warps in order, into one row;
 // * combine: a second pass that Kahan-sums consecutive rows in row order,
-//   like ops/stats.combine_scan.
+//   like ops/stats.combine_scan, and scales stat k of each sum by 1/2 or
+//   1/4 where bit k of `half` or `quarter` is set (exact: a power of two).
 //
 // Everything is in an anonymous namespace, so each translation unit that
 // includes this header has its own copy of the kernels.
@@ -55,7 +56,8 @@ __device__ __forceinline__ void block_row(const float *acc, float *row) {
 // in row order; one thread per (segment, stat). Rows are ROW floats apart.
 template <int NSTAT, int ROW>
 __global__ void combine_rows_kernel(const float *rows, int rows_per_seg,
-                                    int n_seg, float *out) {
+                                    int n_seg, float *out, unsigned half,
+                                    unsigned quarter) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_seg * NSTAT) return;
   const int seg = i / NSTAT, k = i % NSTAT;
@@ -67,16 +69,19 @@ __global__ void combine_rows_kernel(const float *rows, int rows_per_seg,
     comp = (t - acc) - y;
     acc = t;
   }
-  out[static_cast<size_t>(seg) * ROW + k] = acc;
+  const float scale =
+      (half >> k) & 1u ? 0.5f : ((quarter >> k) & 1u ? 0.25f : 1.0f);
+  out[static_cast<size_t>(seg) * ROW + k] = acc * scale;
 }
 
 template <int NSTAT, int ROW>
 inline cudaError_t combine(const float *rows, int rows_per_seg, int n_seg,
-                           float *out, cudaStream_t stream) {
+                           float *out, cudaStream_t stream,
+                           unsigned half = 0u, unsigned quarter = 0u) {
   const int threads = 128;
   const int blocks = (n_seg * NSTAT + threads - 1) / threads;
   combine_rows_kernel<NSTAT, ROW><<<blocks, threads, 0, stream>>>(
-      rows, rows_per_seg, n_seg, out);
+      rows, rows_per_seg, n_seg, out, half, quarter);
   return cudaGetLastError();
 }
 

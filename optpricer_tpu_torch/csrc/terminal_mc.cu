@@ -18,13 +18,29 @@
 //   the block rows of each program in block order and, for the terminal
 //   kernel, the program rows in program order, like ops/stats.combine_scan.
 //
-// What bounds them: integer and SFU throughput. Each base draw costs one
-// Threefry-2x32-20 block (~80 integer ops), a log/sqrt/sincospi (or two
-// inverse CDFs) and two or four exp32 polynomials; device memory sees only
-// the 13 floats (padded to 16) each block writes. The design keeps every
-// draw in registers, has no shared-memory traffic inside the loop, and
-// sizes the grid (from _plan_grid) at up to 8192 blocks of 256 threads so
-// the SMs stay full at the large path counts.
+// What bounds them: the issue of their loops' integer, FP32 and SFU
+// instructions. Each base draw costs one Threefry-2x32-20 block (~80
+// integer ops), a log/sqrt/sincospi (or two inverse CDFs) and two or four
+// exp32 polynomials; device memory sees only the 13 floats (padded to 16)
+// each block writes. The design keeps every draw in registers, has no
+// shared-memory traffic inside the loop, and sizes the grid (from
+// _plan_grid) at up to 8192 blocks of 256 threads so the SMs stay full at
+// the large path counts. terminal_mc_kernel's rep loop is cut to the
+// instructions a rep needs:
+// * a block-uniform split of the programs: a full program (every draw
+//   below n_paths: all but the last of a ragged count, below 2^24 tiles;
+//   ops/terminal_mc._full_programs) forms no draw index, compare or
+//   weighted product, and sets its count after the loop;
+// * a rep's first branch writes its moments and the second adds to them,
+//   with no adds to zero;
+// * under antithetic sampling the loop sums f(z) + f(-z), and the last
+//   combine pass scales each stat by its power of two (ANTI_HALF,
+//   ANTI_QUARTER), which gives the halves' sums exactly;
+// * Y2 = df 1{ITM} and Y2 z are selects; the loop is unrolled by two.
+// The file is built with FMA contraction (_build.py), so ptxas may fuse a
+// multiply and an add differently from the plain version
+// (ops/terminal_mc.py:_mc_sumstats_plain), which the sums are held to
+// within a tolerance, not bit for bit.
 //
 // The tail mask is an integer compare of the global draw index against
 // n_paths (read from the f32 params, so it is the same count the TPU kernel
@@ -101,44 +117,90 @@ __device__ __forceinline__ void add_moments(const Obs &o, float w, float *s) {
   s[12] += o.Y2z * w;
 }
 
-// One sample of a branch. Under antithetic sampling (f(z) + f(-z))/2 is ONE
-// observation, the z-moments averaging the products X(z)*z and X(-z)*(-z).
+// Antithetic sampling averages f(z) and f(-z) into ONE observation, the
+// z-moments averaging the products X(z)*z and X(-z)*(-z). The rep loop of
+// terminal_mc_kernel keeps the sums f(z) + f(-z) instead, and the last
+// combine pass scales each stat by (1/2)^degree: 1/2 for the sums of X,
+// Y1, Y2 and the z-moments, 1/4 for the products of two of them, 1 for the
+// count (ANTI_HALF, ANTI_QUARTER). Scaling by a power of two commutes with
+// every rounding here, FMA included, away from under- and overflow, which
+// these moments are far from.
+constexpr unsigned ANTI_HALF = (1u << 1) | (1u << 3) | (1u << 6) |
+                               (1u << 10) | (1u << 11) | (1u << 12);
+constexpr unsigned ANTI_QUARTER = (1u << 2) | (1u << 4) | (1u << 5) |
+                                  (1u << 7) | (1u << 8) | (1u << 9);
+
+// One branch's observables X, Y1, Y2, X*z, X*z^2, Y2*z; under ANTI the
+// sums over z and -z. Y2 = df * 1{ITM} and Y2*z are selects.
 template <bool ANTI>
-__device__ __forceinline__ void add_branch(float z, float w, const Params &p,
-                                           float *s) {
-  Obs o = observe(z, p);
+__device__ __forceinline__ Obs observe_pair(float z, const Params &p) {
+  Obs o;
+  const float ST = p.S0 * exp32(p.mu + p.sig * z);
+  const float d = p.sign * (ST - p.K);
+  o.X = p.df * fmaxf(d, 0.0f);
+  o.Y1 = p.df * ST;
+  o.Y2 = d > 0.0f ? p.df : 0.0f;
+  o.Xz = o.X * z;
+  o.Xz2 = o.Xz * z;
+  o.Y2z = d > 0.0f ? p.df * z : 0.0f;
   if (ANTI) {
-    const Obs m = observe(-z, p);
-    o.X = 0.5f * (o.X + m.X);
-    o.Y1 = 0.5f * (o.Y1 + m.Y1);
-    o.Y2 = 0.5f * (o.Y2 + m.Y2);
-    o.Xz = 0.5f * (o.Xz + m.Xz);
-    o.Xz2 = 0.5f * (o.Xz2 + m.Xz2);
-    o.Y2z = 0.5f * (o.Y2z + m.Y2z);
+    const float mz = -z;
+    const float STm = p.S0 * exp32(p.mu + p.sig * mz);
+    const float dm = p.sign * (STm - p.K);
+    const float Xm = p.df * fmaxf(dm, 0.0f);
+    const float Xmz = Xm * mz;
+    o.X = o.X + Xm;
+    o.Y1 = o.Y1 + p.df * STm;
+    o.Y2 = o.Y2 + (dm > 0.0f ? p.df : 0.0f);
+    o.Xz = o.Xz + Xmz;
+    o.Xz2 = o.Xz2 + Xmz * mz;
+    o.Y2z = o.Y2z + (dm > 0.0f ? p.df * mz : 0.0f);
   }
-  add_moments(o, w, s);
+  return o;
 }
 
-template <bool ANTI, bool INVCDF>
-__global__ void __launch_bounds__(THREADS)
-terminal_mc_kernel(const int *seed, const float *par, int reps,
-                   float *block_rows) {
-  const int local_pid = blockIdx.x / BLOCKS_PER_PROGRAM;
-  const int elem = (blockIdx.x % BLOCKS_PER_PROGRAM) * THREADS + threadIdx.x;
-  // global program id: the stream key, whatever slice of the grid runs here
-  const int pid = local_pid + seed[1];
-  const uint32_t key0 = static_cast<uint32_t>(seed[0]);
-  const uint32_t key1 = static_cast<uint32_t>(pid);
-  const Params p = load_params(par);
-
-  float acc[NSTAT], comp[NSTAT];
+// The 12 moments past the count of one observation with weight w (FULL:
+// w = 1, so no weighted products), written into s[1..12] (FIRST) or added
+// to it, in the stat order of add_moments.
+template <bool FULL, bool FIRST>
+__device__ __forceinline__ void moments(const Obs &o, float w, float *s) {
+  const float WX = FULL ? o.X : o.X * w;
+  const float WY1 = FULL ? o.Y1 : o.Y1 * w;
+  const float WY2 = FULL ? o.Y2 : o.Y2 * w;
+  const float v[NSTAT] = {w,
+                          WX,
+                          WX * o.X,
+                          WY1,
+                          WY1 * o.Y1,
+                          WX * o.Y1,
+                          WY2,
+                          WY2 * o.Y2,
+                          WX * o.Y2,
+                          WY1 * o.Y2,
+                          FULL ? o.Xz : o.Xz * w,
+                          FULL ? o.Xz2 : o.Xz2 * w,
+                          FULL ? o.Y2z : o.Y2z * w};
 #pragma unroll
-  for (int k = 0; k < NSTAT; ++k) acc[k] = comp[k] = 0.0f;
+  for (int k = 1; k < NSTAT; ++k) s[k] = FIRST ? v[k] : s[k] + v[k];
+}
 
+// One thread's rep loop: Kahan-sums its element's 13 sums over the reps.
+// FULL: every draw of the program lies below n_paths (all programs but the
+// last of a ragged count), so no draw needs its index or weight, and the
+// count, 2 a rep, is set after the loop: 2 * reps, the Kahan sum of the
+// 2s exactly (integers below 2^25). A rep's sums are its first branch's
+// moments plus its second's, with no adds to zero: (0 + m1) + m2 differs
+// from m1 + m2 at most in the sign of a zero, and a Kahan step from
+// acc = +0 takes +0 and -0 to the same acc and comp. Unrolled by two.
+template <bool ANTI, bool INVCDF, bool FULL>
+__device__ __forceinline__ void rep_loop(uint32_t key0, uint32_t key1,
+                                         uint32_t elem, const Params &p,
+                                         long long first, int reps,
+                                         float *acc, float *comp) {
+#pragma unroll 2
   for (int j = 0; j < reps; ++j) {
     uint32_t bits_a, bits_b;
-    threefry2x32(key0, key1, static_cast<uint32_t>(elem),
-                 static_cast<uint32_t>(j), bits_a, bits_b);
+    threefry2x32(key0, key1, elem, static_cast<uint32_t>(j), bits_a, bits_b);
     const float u1 = (static_cast<float>(bits_a >> 8) + 0.5f) * TINY;
     float z1, z2;
     if (INVCDF) {
@@ -157,18 +219,48 @@ terminal_mc_kernel(const int *seed, const float *par, int reps,
       z2 = rad * sn;
     }
     // z1 feeds the first tile of this rep, z2 the second
-    const long long g1 =
-        (static_cast<long long>(pid) * reps + j) * (2LL * TILE) + elem;
-    const float w1 = g1 < p.n ? 1.0f : 0.0f;
-    const float w2 = g1 + TILE < p.n ? 1.0f : 0.0f;
-
+    float w1 = 1.0f, w2 = 1.0f;
+    if (!FULL) {
+      const long long g1 = first + static_cast<long long>(j) * (2LL * TILE);
+      w1 = g1 < p.n ? 1.0f : 0.0f;
+      w2 = g1 + TILE < p.n ? 1.0f : 0.0f;
+    }
     float s[NSTAT];
-#pragma unroll
-    for (int k = 0; k < NSTAT; ++k) s[k] = 0.0f;
-    add_branch<ANTI>(z1, w1, p, s);
-    add_branch<ANTI>(z2, w2, p, s);
-    kahan_step<NSTAT>(acc, comp, s);
+    s[0] = FULL ? 0.0f : w1 + w2;
+    moments<FULL, true>(observe_pair<ANTI>(z1, p), w1, s);
+    moments<FULL, false>(observe_pair<ANTI>(z2, p), w2, s);
+    if (FULL)
+      kahan_step<NSTAT - 1>(acc + 1, comp + 1, s + 1);
+    else
+      kahan_step<NSTAT>(acc, comp, s);
   }
+  if (FULL) acc[0] = 2.0f * static_cast<float>(reps);
+}
+
+template <bool ANTI, bool INVCDF>
+__global__ void __launch_bounds__(THREADS)
+terminal_mc_kernel(const int *seed, const float *par, int reps,
+                   float *block_rows) {
+  const int local_pid = blockIdx.x / BLOCKS_PER_PROGRAM;
+  const int elem = (blockIdx.x % BLOCKS_PER_PROGRAM) * THREADS + threadIdx.x;
+  // global program id: the stream key, whatever slice of the grid runs here
+  const int pid = local_pid + seed[1];
+  const uint32_t key0 = static_cast<uint32_t>(seed[0]);
+  const uint32_t key1 = static_cast<uint32_t>(pid);
+  const Params p = load_params(par);
+  // the program's draws: (pid * reps + j) * 2 * TILE + elem (+ TILE)
+  const long long first = static_cast<long long>(pid) * reps * (2LL * TILE);
+
+  float acc[NSTAT], comp[NSTAT];
+#pragma unroll
+  for (int k = 0; k < NSTAT; ++k) acc[k] = comp[k] = 0.0f;
+  // block-uniform: every program but the last is full below 2^24 tiles
+  if (first + static_cast<long long>(reps) * (2LL * TILE) <= p.n)
+    rep_loop<ANTI, INVCDF, true>(key0, key1, static_cast<uint32_t>(elem), p,
+                                 first + elem, reps, acc, comp);
+  else
+    rep_loop<ANTI, INVCDF, false>(key0, key1, static_cast<uint32_t>(elem), p,
+                                  first + elem, reps, acc, comp);
   block_row<NSTAT, THREADS>(
       acc, block_rows + static_cast<size_t>(blockIdx.x) * ROW);
 }
@@ -247,7 +339,8 @@ extern "C" int optpricer_terminal_mc(const void *seed, const void *par,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(combine<NSTAT, ROW>(
       static_cast<const float *>(prog_rows), n_programs, 1,
-      static_cast<float *>(out), s));
+      static_cast<float *>(out), s, antithetic ? ANTI_HALF : 0u,
+      antithetic ? ANTI_QUARTER : 0u));
 }
 
 // Randomised-QMC sums per program. out: f32[n_programs, 16].
@@ -265,4 +358,24 @@ extern "C" int optpricer_terminal_qmc(const void *seed, const void *par,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(combine<NSTAT, ROW>(
       br, BLOCKS_PER_PROGRAM, n_programs, static_cast<float *>(out), s));
+}
+
+// Resident blocks per SM of terminal_mc_kernel<antithetic, invcdf> (the CUDA
+// runtime's occupancy), or -1.
+extern "C" int optpricer_terminal_mc_occupancy(int antithetic, int invcdf) {
+  int blocks = 0;
+  cudaError_t err;
+  if (antithetic && invcdf)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, terminal_mc_kernel<true, true>, THREADS, 0);
+  else if (antithetic)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, terminal_mc_kernel<true, false>, THREADS, 0);
+  else if (invcdf)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, terminal_mc_kernel<false, true>, THREADS, 0);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, terminal_mc_kernel<false, false>, THREADS, 0);
+  return err == cudaSuccess ? blocks : -1;
 }

@@ -26,9 +26,15 @@ Names, JAX → port:
 ``qmc_path`` launches ``qmc_path_kernel`` (``csrc/qmc_path.cu``) for
 tensors on a CUDA device and counts the launch in ``qmc_path.launches``;
 for tensors on the CPU it runs the plain torch version ``_qmc_path_plain``.
-Any other device raises.
+Any other device raises. The kernel reads the bridge by its nonzeros from
+a plan that ``_bridge_plan`` builds on the host, beside B, in
+``_kernel_inputs``; its sparse bridge and block-common Sobol words have
+plain mirrors, ``_bridge_sparse_plain`` and ``_sobol_words_split``.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -54,6 +60,9 @@ PAYOFF_IDS = {"vanilla": 0, "barrier": 1, "asian": 2, "digital": 3,
 _ROW = 8              # kernel stats rows are padded to 8 floats
 _THREADS = 64         # csrc/qmc_path.cu THREADS: points per block
 _BLOCKS_PER_TILE = P_TILE // _THREADS
+_LOW_BITS = 6         # csrc/qmc_path.cu LOW_BITS: Gray-code bits a thread owns
+_JB = 8               # csrc/qmc_path.cu JB: bridge columns per group
+_SLOTS = 32           # csrc/qmc_path.cu SLOTS: normals a thread holds at once
 _MAX_SMEM = 232448    # bytes of shared memory a block can have on Hopper
 _TINY = 2.0 ** -24
 # the plain version's working set: elements of one (points, steps) chunk
@@ -79,6 +88,19 @@ def _plan(n_points: int, n_steps: int, n_replicates: int):
     return int(m_bits), int(d_pad), int(reps), progs_per_rep
 
 
+def _plan_width(n_steps: int) -> int:
+    """Entries a column of the kernel's bridge table: ceil(log2 d) + 1, the
+    most nonzeros a column of the Brownian-bridge matrix holds (time j's
+    ancestors in the bisection schedule and the terminal dimension)."""
+    return (int(n_steps) - 1).bit_length() + 1
+
+
+def _shared_bytes(n_steps: int) -> int:
+    """csrc/qmc_path.cu shared_bytes: a block's slots of normals and its
+    common words."""
+    return (_SLOTS * _THREADS + int(n_steps)) * 4
+
+
 def _replicate_shifts(seed: int, *, R: int, d: int, d_pad: int) -> np.ndarray:
     """(R, d_pad) int32 digital-shift words, zero beyond column d."""
     out = np.zeros((R, d_pad), np.uint32)
@@ -90,29 +112,42 @@ def _replicate_shifts(seed: int, *, R: int, d: int, d_pad: int) -> np.ndarray:
 def _kernel_inputs(seed, n_points, n_steps, S0, K, T, r, q, sigma, *,
                    n_replicates, barrier, rebate, payout):
     """The host arrays of the reference: seed pair (seed, n_last), f32[6]
-    params, V, shifts, B = σA and the drift row, as numpy."""
+    params, V, shifts, B = σA and the drift row, as numpy, then the
+    kernel's plan of B (``_bridge_plan``)."""
     d = int(n_steps)
     m_bits, d_pad, _, _ = _plan(n_points, d, n_replicates)
-    V = np.zeros((m_bits, d_pad), np.uint32)
-    V[:, :d] = direction_numbers(d, m_bits)
+    V, B, plan = _bridge_tables(d, m_bits, float(T), float(sigma))
     shifts = _replicate_shifts(int(seed), R=int(n_replicates), d=d,
                                d_pad=d_pad)
-    A = bridge_matrix(d, float(T))
     c = float(r) - float(q) - 0.5 * float(sigma) ** 2
     t = np.arange(1, d + 1, dtype=np.float64) * (float(T) / d)
-    B = np.zeros((d_pad, d_pad), np.float32)
-    B[:d, :d] = (float(sigma) * A).astype(np.float32)
     drift = np.zeros((1, d_pad), np.float32)
     drift[0, :d] = (np.log(float(S0)) + c * t).astype(np.float32)
     params = np.asarray([S0, K, np.exp(-float(r) * float(T)), barrier,
                          rebate, payout], np.float32)
     seed_pair = np.asarray([int(seed) & 0xFFFFFFFF, int(n_points) - 1],
                            np.uint32).view(np.int32)
-    return seed_pair, params, V.view(np.int32), shifts, B, drift
+    return (seed_pair, params, V.copy(), shifts, B.copy(), drift,
+            plan.copy())
 
 
-def _check_inputs(seed, params, V, shifts, B, drift, *, n_programs, reps,
-                  progs_per_rep, n_steps, d_pad, m_bits):
+@functools.lru_cache(maxsize=16)
+def _bridge_tables(d: int, m_bits: int, T: float, sigma: float):
+    """(V, B, plan) of a shape, σ and T: the direction numbers as int32
+    (m_bits, d_pad), B = σA as f32 (d_pad, d_pad) and its plan. Cached, as
+    none depends on the seed or the market but σ and T; callers get
+    copies."""
+    d_pad = -(-d // LANES) * LANES
+    V = np.zeros((m_bits, d_pad), np.uint32)
+    V[:, :d] = direction_numbers(d, m_bits)
+    V = V.view(np.int32)
+    B = np.zeros((d_pad, d_pad), np.float32)
+    B[:d, :d] = (sigma * bridge_matrix(d, T)).astype(np.float32)
+    return V, B, _bridge_plan(B, V, d)
+
+
+def _check_inputs(seed, params, V, shifts, B, drift, plan=None, *,
+                  n_programs, reps, progs_per_rep, n_steps, d_pad, m_bits):
     if n_programs < 1 or reps < 1 or progs_per_rep < 1:
         raise ValueError("empty grid (n_points must be positive)")
     if n_programs % progs_per_rep:
@@ -120,9 +155,12 @@ def _check_inputs(seed, params, V, shifts, B, drift, *, n_programs, reps,
     if not 1 <= n_steps <= d_pad or d_pad % LANES:
         raise ValueError(f"need 1 <= n_steps <= d_pad, d_pad a multiple of "
                          f"{LANES}; got {n_steps}, {d_pad}")
-    if n_steps * (_THREADS + 8) * 4 > _MAX_SMEM:
+    if _shared_bytes(n_steps) > _MAX_SMEM:
         raise ValueError(f"n_steps={n_steps} needs more shared memory than "
-                         "a block has")
+                         f"a block has ({_MAX_SMEM} bytes)")
+    if not _LOW_BITS <= m_bits <= MAX_M_BITS:
+        raise ValueError(f"m_bits={m_bits} outside [{_LOW_BITS}, "
+                         f"{MAX_M_BITS}]")
     R = n_programs // progs_per_rep
     want = {"seed": (seed, torch.int32, (2,)),
             "params": (params, MC_DTYPE, (6,)),
@@ -130,6 +168,9 @@ def _check_inputs(seed, params, V, shifts, B, drift, *, n_programs, reps,
             "shifts": (shifts, torch.int32, (R, d_pad)),
             "B": (B, MC_DTYPE, (d_pad, d_pad)),
             "drift": (drift, MC_DTYPE, (1, d_pad))}
+    if plan is not None:
+        want["plan"] = (plan, torch.int32,
+                        (_plan_layout(n_steps, _plan_width(n_steps))[1],))
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
@@ -146,15 +187,16 @@ def _check_inputs(seed, params, V, shifts, B, drift, *, n_programs, reps,
 # ---------------------------------------------------------------------------
 # plain torch version (the CPU path and the kernel's on-card reference)
 # ---------------------------------------------------------------------------
-def _qmc_path_plain(seed, params, V, shifts, B, drift, *, n_programs: int,
-                    reps: int, progs_per_rep: int, n_steps: int, d_pad: int,
-                    m_bits: int, payoff_id: int, barrier_up: bool,
-                    knock_in: bool, is_call: bool, arithmetic: bool,
-                    fixed_strike: bool) -> torch.Tensor:
+def _qmc_path_plain(seed, params, V, shifts, B, drift, plan=None, *,
+                    n_programs: int, reps: int, progs_per_rep: int,
+                    n_steps: int, d_pad: int, m_bits: int, payoff_id: int,
+                    barrier_up: bool, knock_in: bool, is_call: bool,
+                    arithmetic: bool, fixed_strike: bool) -> torch.Tensor:
     """Plain version of ``qmc_path``: (n_programs, 6) f32 rows, a chunk of
-    reps at a time. The product z @ B runs as one multiply and one add per
-    step index, in the kernel's order, so logS rounds as in the kernel."""
-    del d_pad
+    reps at a time. The product z @ B runs densely, as one multiply and one
+    add per step index in ascending k, which the kernel's sum over the
+    nonzeros alone keeps bit for bit; the plan is not read."""
+    del d_pad, plan
     dev = params.device
     d = n_steps
     n_last = int(seed[1])
@@ -226,45 +268,193 @@ def _qmc_path_plain(seed, params, V, shifts, B, drift, *, n_programs: int,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# the kernel's plan of B, and plain mirrors of its sparse bridge and split
+# Sobol words
 # ---------------------------------------------------------------------------
-def qmc_path(seed, params, V, shifts, B, drift, *, n_programs: int,
-             reps: int, progs_per_rep: int, n_steps: int, d_pad: int,
-             m_bits: int, payoff_id: int, barrier_up: bool, knock_in: bool,
-             is_call: bool, arithmetic: bool, fixed_strike: bool
-             ) -> torch.Tensor:
+def _plan_layout(n_steps: int, width: int):
+    """((shape, first int) of entries, groups, gen and vlow, ints in all):
+    the plan's int32 array as csrc/qmc_path.cu carve reads it, each part
+    16-byte aligned."""
+    n_groups = -(-int(n_steps) // _JB)
+    layout, at = [], 0
+    for shape in ((n_groups, width, 2 * _JB), (n_groups, 2), (n_steps, 2),
+                  (n_steps, 8)):
+        layout.append((shape, at))
+        at += -(-math.prod(shape) // 4) * 4
+    return tuple(layout), at
+
+
+def _plan_parts(plan, n_steps: int):
+    """(entries, groups, gen, vlow) views of a plan (numpy or torch)."""
+    layout, _ = _plan_layout(n_steps, _plan_width(n_steps))
+    return tuple(plan[at:at + math.prod(shape)].reshape(shape)
+                 for shape, at in layout)
+
+
+def _bridge_plan(B: np.ndarray, V: np.ndarray, n_steps: int) -> np.ndarray:
+    """The plan ``qmc_path_kernel`` reads B by: int32, ``_plan_layout``.
+
+    Dimension k lives from the group (of 8 columns) of its first nonzero
+    column to that of its last; the dimensions, in order of first group
+    (ascending k within one), each take the lowest of ``_SLOTS`` slots
+    free in that group. entries (n_groups, width, 16): entry i of group g
+    holds in column c < 8 the slot offset s·64 of column 8g + c's i-th
+    nonzero (ascending k) and in column 8 + c the bits of B[k, 8g + c];
+    past a column's last nonzero, 0 and +0. groups (n_groups, 2): the
+    group's first gen row and its count. gen (n_steps, 2): (k, slot
+    offset) by first group; rows past the used dimensions are 0. vlow
+    (n_steps, 8): the direction numbers of Gray-code bits 0..5 at each
+    dimension and two zeros. Built from the f32 B, so that an entry that
+    underflows to 0 is skipped. Raises where B is not a bridge the plan
+    can hold: a column with more than ``_plan_width`` nonzeros, or more
+    than ``_SLOTS`` dimensions live in one group."""
+    d = int(n_steps)
+    width = _plan_width(d)
+    n_groups = -(-d // _JB)
+    nz = B[:d, :d] != 0.0
+    counts = nz.sum(axis=0)
+    if int(counts.max()) > width:
+        raise ValueError(f"B has a column of {int(counts.max())} nonzeros, "
+                         f"more than a Brownian bridge's {width} at {d} "
+                         "steps")
+    used = nz.any(axis=1)
+    first = np.where(used, nz.argmax(axis=1) // _JB, -1)
+    last = np.where(used, (d - 1 - nz[:, ::-1].argmax(axis=1)) // _JB, -1)
+    order = np.flatnonzero(used)
+    order = order[np.argsort(first[order], kind="stable")]
+    slot = np.zeros(d, np.int64)
+    until = [-1] * _SLOTS            # the last group of each slot's tenant
+    for k in order.tolist():
+        s = next((s for s in range(_SLOTS) if until[s] < first[k]), None)
+        if s is None:
+            raise ValueError(f"B has more than {_SLOTS} dimensions live in "
+                             f"the group of column {_JB * int(first[k])}")
+        until[s], slot[k] = int(last[k]), s
+    plan = np.zeros(_plan_layout(d, width)[1], np.int32)
+    entries, groups, gen, vlow = _plan_parts(plan, d)
+    jj, kk = np.nonzero(nz.T)        # by column, ascending k within one
+    pos = np.arange(jj.size) - (np.cumsum(counts) - counts)[jj]
+    entries[jj // _JB, pos, jj % _JB] = slot[kk] * _THREADS
+    entries[jj // _JB, pos, _JB + jj % _JB] = B[kk, jj].view(np.int32)
+    bucket = np.searchsorted(first[order], np.arange(n_groups + 1))
+    groups[:, 0], groups[:, 1] = bucket[:-1], np.diff(bucket)
+    gen[:order.size, 0], gen[:order.size, 1] = order, slot[order] * _THREADS
+    vlow[:, :_LOW_BITS] = V[:_LOW_BITS, :d].T
+    return plan
+
+
+def _bridge_sparse_plain(z, plan, *, n_steps: int) -> torch.Tensor:
+    """The kernel's bridge, (..., n_steps) from normals z (..., n_steps),
+    through its slots: per group of 8 columns, the normals first used there
+    stored into their slots (which start at +0), then each column summed
+    over its table entries, a = a + slot·b from +0 in entry order."""
+    entries, groups, gen, _ = (torch.as_tensor(t) for t in
+                               _plan_parts(plan, n_steps))
+    z = z[..., :n_steps]
+    slots = torch.zeros(z.shape[:-1] + (_SLOTS,), dtype=z.dtype,
+                        device=z.device)
+    cols = []
+    for g in range(len(groups)):
+        first, count = (int(v) for v in groups[g])
+        for k, off in gen[first:first + count].tolist():
+            slots[..., off // _THREADS] = z[..., k]
+        a = torch.zeros(z.shape[:-1] + (_JB,), dtype=z.dtype, device=z.device)
+        for i in range(entries.shape[1]):
+            s = entries[g, i, :_JB].long() // _THREADS
+            b = entries[g, i, _JB:].contiguous().view(torch.float32)
+            a = a + slots[..., s] * b
+        cols.append(a)
+    return torch.cat(cols, dim=-1)[..., :n_steps]
+
+
+def _sobol_words_split(idx, V, shift, *, m_bits: int) -> torch.Tensor:
+    """The kernel's Sobol words (..., d) for point indices idx (...): the
+    block-common word (the shift and the direction numbers of Gray-code
+    bits 6 .. m_bits−1 of the block's first point) XOR the direction
+    numbers of the point's own 6 low bits. uint32 values in int64."""
+    idx = idx.to(torch.int64)
+    gray = idx ^ (idx >> 1)
+    first = idx - (idx % _THREADS)
+    gray_hi = first ^ (first >> 1)
+    Vd = V.to(torch.int64) & 0xFFFFFFFF
+    x = (shift.to(torch.int64) & 0xFFFFFFFF).expand(idx.shape + shift.shape)
+    for b in range(_LOW_BITS, m_bits):
+        x = x ^ (((gray_hi >> b) & 1).unsqueeze(-1) * Vd[b])
+    for b in range(_LOW_BITS):
+        x = x ^ (((gray >> b) & 1).unsqueeze(-1) * Vd[b])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+def blocks_per_sm(payoff_id: int, n_steps: int) -> int:
+    """Resident blocks per SM of ``qmc_path_kernel`` for the payoff at
+    ``n_steps`` on the current card (the CUDA runtime's occupancy with the
+    block's dynamic shared memory)."""
+    n = _build.load().optpricer_qmc_path_occupancy(int(payoff_id),
+                                                   int(n_steps))
+    if n < 0:
+        raise RuntimeError("qmc_path occupancy query failed")
+    return n
+
+
+def qmc_path(seed, params, V, shifts, B, drift, plan=None, *,
+             n_programs: int, reps: int, progs_per_rep: int, n_steps: int,
+             d_pad: int, m_bits: int, payoff_id: int, barrier_up: bool,
+             knock_in: bool, is_call: bool, arithmetic: bool,
+             fixed_strike: bool) -> torch.Tensor:
     """f32[n_programs, 6] path-QMC sums, one row per program.
 
     Kernel ``qmc_path_kernel`` in ``csrc/qmc_path.cu``; it replaces
     ``optpricer_tpu/ops/pallas_qmc_path.py:_qmc_path_kernel`` (launched
-    from ``_run_qmc_path``). One thread owns one point: its Sobol words
-    and normals go to shared memory, then it forms each time step's
-    log-spot as a dot product with a column of B, eight columns at a time
-    from a slab the block stages in shared memory (the whole B, 256 KB at
-    252 steps, does not fit). Bound by the n_steps² multiply-adds of that
-    product.
+    from ``_run_qmc_path``). B must be a Brownian bridge σA, and on a CUDA
+    device ``plan`` its plan, ``_bridge_plan(B, V, n_steps)``, which
+    ``_kernel_inputs`` builds beside it: each column's nonzeros in
+    ascending k (a bridge holds at most ⌈log2 d⌉ + 1 a column,
+    ``_plan_width``), and for each dimension a slot of ``_SLOTS`` from the
+    group of 8 columns of its first use to that of its last. The kernel
+    reads B only through the plan; the plain version on the CPU forms the
+    dense product and does not read the plan.
+
+    One thread owns one point of a block of 64: the block XORs the
+    Gray-code bits its points share into one word a step, each thread its
+    own 6 low bits; a thread draws each normal into its slot when its
+    dimension is first used, then forms each step's log-spot from the
+    column's nonzeros alone, eight columns' chains interleaved, in the
+    dense product's k order, so logS keeps the dense product's bits. A
+    block holds 8 KB of slots and n_steps common words: registers (64 a
+    thread, 16 blocks an SM) bound its residency up to about 1 000 steps,
+    shared memory above that (13 blocks an SM at 2 048 steps). Bound by
+    the issue of its instructions: per point and step one norminv32,
+    ~log2(d) + 1 multiply-adds with their shared loads and, for the Asian,
+    one exp32.
     """
     kw = dict(n_programs=n_programs, reps=reps, progs_per_rep=progs_per_rep,
               n_steps=n_steps, d_pad=d_pad, m_bits=m_bits)
-    _check_inputs(seed, params, V, shifts, B, drift, **kw)
+    _check_inputs(seed, params, V, shifts, B, drift, plan, **kw)
     flags = dict(barrier_up=barrier_up, knock_in=knock_in, is_call=is_call,
                  arithmetic=arithmetic, fixed_strike=fixed_strike)
     if params.device.type == "cpu":
         return _qmc_path_plain(seed, params, V, shifts, B, drift,
                                payoff_id=payoff_id, **kw, **flags)
+    if plan is None:
+        raise ValueError("qmc_path_kernel reads B through its plan: pass "
+                         "plan=_bridge_plan(B, V, n_steps)")
     dev = params.device
     bits = sum(_FLAG_BITS[name] for name, on in flags.items() if on)
-    block_rows = torch.empty((n_programs * reps * _BLOCKS_PER_TILE, _ROW),
-                             dtype=MC_DTYPE, device=dev)
-    out = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
+    rows = n_programs * reps * _BLOCKS_PER_TILE
+    # the block rows, then the program rows, in one allocation
+    sums = torch.empty((rows + n_programs, _ROW), dtype=MC_DTYPE, device=dev)
+    out = sums[rows:]
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.optpricer_qmc_path(
             seed.data_ptr(), params.data_ptr(), V.data_ptr(),
-            shifts.data_ptr(), B.data_ptr(), drift.data_ptr(),
-            block_rows.data_ptr(), out.data_ptr(), n_programs, reps,
-            progs_per_rep, n_steps, d_pad, m_bits, int(payoff_id), bits,
-            _stream(dev))
+            shifts.data_ptr(), drift.data_ptr(), plan.data_ptr(),
+            sums.data_ptr(), out.data_ptr(), n_programs, reps, progs_per_rep,
+            n_steps, d_pad, m_bits, _plan_width(n_steps), int(payoff_id),
+            bits, _stream(dev))
     if err != 0:
         raise RuntimeError(f"qmc_path_kernel launch failed: CUDA error {err}")
     qmc_path.launches += 1

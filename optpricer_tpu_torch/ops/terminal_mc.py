@@ -80,6 +80,17 @@ def _plan_grid(n_paths: int, per_rep: int, n_dev: int = 1,
     return int(reps), int(n_programs)
 
 
+def _full_programs(n_paths: int, n_programs: int, reps: int,
+                   offset: int = 0) -> int:
+    """How many of the grid's programs are full: the first ones, whose
+    every draw ((offset + pid)·reps + j)·2·TILE + elem (+ TILE) lies below
+    n_paths, so that each weight is 1 and ``terminal_mc_kernel`` runs its
+    block-uniform body with no draw index, compare or weight. Below 2^24
+    tiles only the last program can hold a draw past n_paths."""
+    full = int(n_paths) // (reps * 2 * TILE) - int(offset)
+    return max(0, min(int(n_programs), full))
+
+
 def _terminal_params(n_paths, S0, K, T, r, q, sigma, is_call) -> torch.Tensor:
     """Host f32[7] (S0, K, μT, σ√T, df, n_paths, sign)."""
     mu = (r - q - 0.5 * sigma * sigma) * T
@@ -249,12 +260,15 @@ def terminal_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
 
     Kernel ``terminal_mc_kernel`` in ``csrc/terminal_mc.cu``; it replaces
     ``optpricer_tpu/ops/pallas_mc.py:_mc_kernel`` (launched from
-    ``_run_kernel``). It is bound by integer and SFU throughput (a Threefry
-    block, a log/sqrt/sincospi and 2-4 exp32 polynomials per base draw)
-    and writes only 16 floats per block of 256 draws-per-rep; one thread
-    per (program, element) keeps the Kahan sums over reps in registers, and
-    a fixed-order block tree plus a second combine pass replace atomics, so
-    a seed's stats are bitwise-reproducible.
+    ``_run_kernel``). It is bound by the issue of its rep loop (a
+    Threefry block, a log/sqrt/sincospi and 2-4 exp32 polynomials per base
+    draw) and writes only 16 floats per block of 256 draws-per-rep; one
+    thread per (program, element) keeps the Kahan sums over reps in
+    registers, and a fixed-order block tree plus a second combine pass
+    replace atomics, so a seed's stats are bitwise-reproducible. The full
+    programs (``_full_programs``: all but the last of a ragged count) run
+    a body with no draw index or weight; antithetic, the loop sums f(z) +
+    f(−z) and the last combine pass halves each stat by its degree.
     """
     _check_inputs(seed, params, n_programs, reps)
     if n_programs * reps >= _MAX_TILE_INDEX:
@@ -281,6 +295,16 @@ def terminal_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
 
 
 terminal_mc.launches = 0
+
+
+def blocks_per_sm(antithetic: bool, invcdf: bool = False) -> int:
+    """Resident blocks per SM of ``terminal_mc_kernel`` on the current card
+    (the CUDA runtime's occupancy for its registers)."""
+    n = _build.load().optpricer_terminal_mc_occupancy(int(bool(antithetic)),
+                                                      int(bool(invcdf)))
+    if n < 0:
+        raise RuntimeError("terminal_mc occupancy query failed")
+    return n
 
 
 def terminal_qmc(seed: torch.Tensor, params: torch.Tensor, *,

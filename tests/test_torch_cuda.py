@@ -21,7 +21,10 @@ too, and so the basket kernel (K6, every asset count it instantiates
 separately at one, two and four reps; at one rep the recorded sums of the
 `[basket-path]` book and the 16-asset barrier bit for bit) and the path
 kernel's LSV branches, and the path kernel's per-path grid at one, two and
-four reps;
+four reps; the path-QMC kernel (K5) at 1 to 2 048 steps, a call without
+B's plan refused, and its sums at chip_smoke.py's K5 cases equal to the
+recorded ones (``QMC_PATH_SUMS``) bit for bit; the terminal kernel's (K1)
+full and tail programs at ragged and whole counts;
 its Box-Muller sincosf is held to cosf and sinf bit for bit on every
 angle it can draw.
 """
@@ -158,6 +161,123 @@ def test_qmc_path_kernel_matches_plain(cuda_device, payoff):
               arithmetic=True, fixed_strike=True)
     _assert_close(tqp.qmc_path(*tensors, **kw),
                   tqp._qmc_path_plain(*tensors, **kw))
+
+
+# K5 as chip_smoke.py's k5_setup drives it: seed 3, S0 100, K 110, T 1,
+# r 0.03, q 0, σ 0.2, barrier 130 (up-and-out), 8 replicates
+K5_MARKET = (100.0, 110.0, 1.0, 0.03, 0.0, 0.2)
+
+
+def _k5_setup(device, payoff, n, d, R=8):
+    m_bits, d_pad, reps, ppr = tqp._plan(n, d, R)
+    arrays = tqp._kernel_inputs(3, n, d, *K5_MARKET, n_replicates=R,
+                                barrier=130.0, rebate=0.0, payout=1.0)
+    tensors = [torch.from_numpy(a).to(device) for a in arrays]
+    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr, n_steps=d,
+              d_pad=d_pad, m_bits=m_bits, payoff_id=tqp.PAYOFF_IDS[payoff],
+              barrier_up=True, knock_in=False, is_call=True,
+              arithmetic=payoff != "asian", fixed_strike=True)
+    return tensors, kw
+
+
+@pytest.mark.parametrize("payoff", ["asian", "vanilla", "barrier"])
+@pytest.mark.parametrize("d", [64, 252, 3, 130])
+def test_qmc_path_kernel_step_counts_match_plain(cuda_device, payoff, d):
+    tensors, kw = _k5_setup(cuda_device, payoff, 65_536, d)
+    _assert_close(tqp.qmc_path(*tensors, **kw),
+                  tqp._qmc_path_plain(*tensors, **kw))
+
+
+@pytest.mark.parametrize("d", [1, 500, 1024, 2048])
+@pytest.mark.parametrize("sigma", [0.0, 0.2])
+def test_qmc_path_kernel_long_bridges_match_plain(cuda_device, d, sigma):
+    m_bits, d_pad, reps, ppr = tqp._plan(4096, d, 2)
+    arrays = tqp._kernel_inputs(3, 4096, d, 100.0, 100.0, 1.0, 0.03, 0.0,
+                                sigma, n_replicates=2, barrier=0.0,
+                                rebate=0.0, payout=1.0)
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    # the floating-strike lookback: its terminal spot and running minimum
+    # are exact functions of every step's logS, which the kernel keeps bit
+    # for bit (an arithmetic Asian's step sum rounds in another order in
+    # the plain version's torch.sum)
+    kw = dict(n_programs=2 * ppr, reps=reps, progs_per_rep=ppr, n_steps=d,
+              d_pad=d_pad, m_bits=m_bits,
+              payoff_id=tqp.PAYOFF_IDS["lookback"], barrier_up=True,
+              knock_in=False, is_call=True, arithmetic=True,
+              fixed_strike=False)
+    _assert_close(tqp.qmc_path(*tensors, **kw),
+                  tqp._qmc_path_plain(*tensors, **kw))
+
+
+@pytest.mark.parametrize("plan", ["missing", "short"])
+def test_qmc_path_kernel_needs_the_plan(cuda_device, plan):
+    tensors, kw = _k5_setup(cuda_device, "asian", 4096, 40)
+    tensors = tensors[:6] if plan == "missing" \
+        else tensors[:6] + [tensors[6][:-4]]
+    with pytest.raises(ValueError, match="plan"):
+        tqp.qmc_path(*tensors, **kw)
+
+
+# K5's (n_programs, 6) sums as the kernel of commit 95d2791 (the dense
+# bridge product over a slab of B, the full Sobol ladder a thread) gave
+# them on an NVIDIA H100, by SHA-256 of their f32 bytes: the five payoffs
+# at 65 536 points x 8 replicates x 64 steps, the Asian and vanilla at 252
+# steps and the Asian at 2^20 x 8 x 252 (chip_smoke.py's K5 cases). The
+# sparse bridge and the split Sobol words must keep them bit for bit.
+QMC_PATH_SUMS = {
+    "vanilla 65536 64":
+        "891d870dd3e92158cc85dc304308d8840518e762052627316cb06f6979bb18fa",
+    "barrier 65536 64":
+        "445e9e42afd753643d92e5803394da8a98afeabbbb57a27e934f6127a3d521aa",
+    "asian 65536 64":
+        "41e0c4e03854ad262d198dfe2ddb614ca5598789724a413976b83204f3f799fc",
+    "digital 65536 64":
+        "da60608d60c335a45320c99361e5b0eb02c7eacd3fb4c7eeb796728e728df8df",
+    "lookback 65536 64":
+        "ce6670c0400ab04e301ba04ad9ff01eb012c91eb6dafd5fb9bea77fb5a5c1249",
+    "asian 65536 252":
+        "e215d071f5fce1b80c16c367eee975d0acadfe7b74b102900d049d7c98eb7ea8",
+    "vanilla 65536 252":
+        "891d870dd3e92158cc85dc304308d8840518e762052627316cb06f6979bb18fa",
+    "asian 1048576 252":
+        "fbdfd7084212c7ec22695357b7042bfba4d2f4c6acd256b81d3ff886cbea26b9",
+}
+
+
+@pytest.mark.parametrize("case", list(QMC_PATH_SUMS))
+def test_qmc_path_kernel_gives_the_recorded_sums(cuda_device, case):
+    import hashlib
+
+    payoff, n, d = case.split()
+    tensors, kw = _k5_setup(cuda_device, payoff, int(n), int(d))
+    got = tqp.qmc_path(*tensors, **kw).cpu().numpy()
+    assert hashlib.sha256(got.tobytes()).hexdigest() == QMC_PATH_SUMS[case]
+
+
+@pytest.mark.parametrize("n", [3 * 2 * tmc.TILE, 1_000_003, 5_000_011,
+                               (1 << 22) + 1])
+@pytest.mark.parametrize("antithetic", [True, False])
+def test_terminal_kernel_full_and_tail_programs(cuda_device, n, antithetic):
+    reps, n_programs = tmc._plan_grid(n, 2 * tmc.TILE)
+    assert tmc._full_programs(n, n_programs, reps) >= n_programs - 1
+    params = tmc._terminal_params(n, *MARKET, True).to(cuda_device)
+    seed = tmc._seed_pair(13, cuda_device)
+    kw = dict(n_programs=n_programs, reps=reps, antithetic=antithetic)
+    got = tmc.terminal_mc(seed, params, **kw)
+    assert float(got[0]) == n
+    _assert_close(got, tmc._mc_sumstats_plain(seed, params, **kw))
+
+
+def test_terminal_and_qmc_path_occupancy_queries(cuda_device):
+    for anti in (True, False):
+        for inv in (True, False):
+            assert 1 <= tmc.blocks_per_sm(anti, inv) <= 8
+    # registers, not shared memory, bound K5 at the main path's step counts;
+    # at 2 048 steps the common words make shared memory bind
+    for payoff_id in tqp.PAYOFF_IDS.values():
+        for d in (64, 252):
+            assert tqp.blocks_per_sm(payoff_id, d) == 16
+        assert 8 <= tqp.blocks_per_sm(payoff_id, 2048) < 16
 
 
 def test_path_launch_counters_count_kernel_launches(cuda_device):

@@ -154,7 +154,7 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="shifts must be"):
         tqp.qmc_path(*t, **dict(kw, n_programs=8))
     with pytest.raises(ValueError, match="shared memory"):
-        tqp.qmc_path(*t, **dict(kw, n_steps=900, d_pad=1024))
+        tqp.qmc_path(*t, **dict(kw, n_steps=56_065, d_pad=56_192))
     with pytest.raises(ValueError, match="unknown payoff"):
         tqp.path_qmc_sumstats_kernel(1, 512, 8, *MARKET, True,
                                      payoff="cliquet", device="cpu")
