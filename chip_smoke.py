@@ -19,7 +19,8 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    * the terminal kernel (K1) at 2^20 and a ragged 1 000 003 draws for
      call/put x antithetic x invcdf, and at the main path's 1M and 2^30;
    * the terminal QMC kernel (K2) at 2^20 (call/put) and 2^22 points x 16
-     replicates;
+     replicates, seed 5, each also held bit for bit to the rows that the
+     kernel of commit 4bc6091 gave (``K2_SUMS``, by SHA-256);
    * the path kernel (K4) at 2^18 + 123 paths x 16 steps for every payoff
      variant x antithetic on/off x Greek moments on/off under GBM, for
      vanilla and barrier under Heston Euler / Heston QE / SABR β=1 /
@@ -32,6 +33,9 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      replicates x 64 steps (the main path's shape) and the Asian and the
      vanilla at 252 steps, each also held bit for bit to the sums that
      the kernel of commit 95d2791 gave (``QMC_PATH_SUMS``, by SHA-256);
+     and the arithmetic Asian at 4 096 points x 2 replicates x 2 048
+     steps, σ = 0.2 and σ = 0, against the plain mirror that sums the
+     steps in step order (``_qmc_path_plain(step_order=True)``);
    * the batched tridiagonal kernel (K7, PCR) against the plain Thomas
      solve at (511, 1024) in f64 and f32, at the propagator build's 511 x
      511 in f64 with one coefficient column for every system, at the
@@ -158,7 +162,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
    draws and its plain version at 2^24 and 1 000 000; K2 and its plain
-   version at 2^22 points; K4
+   version at 2^22 and 2^20 points x 16 (seed 7, the main path's call; the
+   rows at 2^22 held to ``K2_SUMS``), K2 also with the start event behind
+   a queued device sleep, its block size and waves and its static SASS
+   (``k2_issue_lines``); K4
    and its plain version at the main path's shape, K4 with Greek moments
    there, and K4's Heston Euler and SABR β=1 vanillas at 1M x 64; K5 and
    its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252 (median of
@@ -222,8 +229,14 @@ all by default): K1 (antithetic Box-Muller) at 2^30 and 1 000 000 draws
 and K5 (the geometric Asian) at 65 536 x 8 x 64 and 2^20 x 8 x 252 with
 their sums by SHA-256 (K5's at every ``K5_CASES`` case, against
 ``QMC_PATH_SUMS`` too), the walls (median of 21) of euro_price_mc at 2^30
-and exotic_price_mc(backend="qmc") at 65 536 x 8 x 64, their resident
-blocks per SM and ``cuobjdump -res-usage`` (``ab_k1_k5``); K4's timed
+and exotic_price_mc(backend="qmc") at 65 536 x 8 x 64 (also with a fresh
+seed a call, and K5's ``_kernel_inputs`` host time both ways), their
+resident blocks per SM and ``cuobjdump -res-usage`` (``ab_k1_k5``); K2 at
+2^22 and 2^20 points x 16 (``ms``, ``device ms``, its rows by SHA-256 at
+``K2_CASES`` against ``K2_SUMS``), the host time of each part of its call
+(``k2_host_us``), the walls of mc_sumstats_qmc and
+euro_price_mc(backend="qmc") at 2^22, its block size and waves
+(``ab_k2``); K4's timed
 instantiations (``K4_TIMED``:
 config 3's asian with the geometric CV at 1M x 252 with and without Greek
 moments, lsv and lsv_qe up-and-out 130 at 2^20 x 96 on the calibrated
@@ -253,8 +266,9 @@ that builds its tree's library, ptxas' registers and spills of K7, K8, K4
 ``LV_MILSTEIN`` and ``K4_TIMED`` and of every K3 and K6 instantiation, and
 the static SASS instruction count of ``K4_TIMED``'s step-pair loop, of
 K6's step loop at ``K6_SHAPES``, of K3's and K1's rep loops (full and
-tail) and of K5's loops (the Sobol words and normals, the bridge) by
-class (``cuobjdump -sass``), with the ALU-pipe ops among them. The
+tail), of K2's loops (``sass_k2``) and of K5's loops (the Sobol words
+and normals, the bridge) by class (``cuobjdump -sass``), with the ALU-pipe
+ops among them. The
 static count holds code a step pair seldom runs (the division and
 sin/cos slow paths), so it is not the count of instructions issued, and
 the time it gives at one instruction per lane and cycle is no bound on
@@ -399,6 +413,24 @@ QMC_PATH_SUMS = {
     "asian 1048576 252":
         "fbdfd7084212c7ec22695357b7042bfba4d2f4c6acd256b81d3ff886cbea26b9",
 }
+# K2's cases: phase 3's (seed 5: the call and the put at 2^20 points x 16
+# replicates, the call at 2^22 x 16) and the main path's call (seed 7,
+# euro_price_mc(backend="qmc") at 2^22 x 16); "seed kind points replicates"
+K2_CASES = ("5 call 1048576 16", "5 put 1048576 16", "5 call 4194304 16",
+            "7 call 4194304 16")
+# K2's (n_programs, 13) rows at ``K2_CASES`` as the kernel of commit
+# 4bc6091 (one thread per element, a block tree and a combine pass) gave
+# them on an NVIDIA H100 80GB HBM3, by SHA-256 of their f32 bytes.
+K2_SUMS = {
+    "5 call 1048576 16":
+        "4473a6fd6d69fbb2353b3cd4a47868378eadbdeb3fd38679daac183de8dc610d",
+    "5 put 1048576 16":
+        "d54f1ad47d2d658cfd571018085e33904fcf9a9459c130ac1ed5c8de7b9e58be",
+    "5 call 4194304 16":
+        "cea23402e1917cf4291bd548c76f93bd23f34fe9f8859dca060905311e44c7c2",
+    "7 call 4194304 16":
+        "55e0342e094411742b9e1b387a94a0d9044951533232fa69af18cb3e8d413d85",
+}
 # a terminal_mc_kernel instantiation's mangled template arguments:
 # antithetic, invcdf
 K1_KERNEL = re.compile(r"terminal_mc_kernelILb([01])ELb([01])EE")
@@ -421,6 +453,24 @@ def k5_setup(qmp, dev, payoff, n, d, R=8):
               knock_in=False, is_call=True,
               arithmetic=payoff != "asian", fixed_strike=True)
     return tensors, kw, (R, ppr)
+
+
+def k2_setup(dev, case: str):
+    """(seed, params, kwargs, R) of the K2 call a ``K2_CASES`` case names,
+    ``MARKET`` and the grid of ``mc_sumstats_qmc``: seed and params on the
+    card, or, for a tree whose ``terminal_qmc`` takes ``device=``, on the
+    host with ``device`` in kwargs, as its ``mc_sumstats_qmc`` passes
+    them."""
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    seed, kind, n, R = case.split()
+    n_rep, reps, ppr = tmc._plan_qmc(int(n), int(R))
+    kw = dict(n_programs=int(R) * ppr, reps=reps, progs_per_rep=ppr)
+    where = dev
+    if "device" in inspect.signature(tmc.terminal_qmc).parameters:
+        where, kw["device"] = "cpu", dev
+    params = tmc._terminal_params(n_rep, *MARKET, kind == "call").to(where)
+    return tmc._seed_pair(int(seed), where), params, kw, int(R)
 
 
 def sha256(t: torch.Tensor) -> str:
@@ -2436,19 +2486,21 @@ def main():
         rel = compare(k, p, f"terminal {case}")
         record("terminal", rel, *(tmc.terminal_estimate(
             s, *market, is_call, True)[0] for s in (k, p)), case)
-    for (n, R), is_call in [((1 << 20, 16), True), ((1 << 20, 16), False),
-                            ((1 << 22, 16), True)]:
-        n_rep, reps, ppr = tmc._plan_qmc(n, R)
-        params = tmc._terminal_params(n_rep, *market, is_call).to(dev)
-        seed = tmc._seed_pair(5, dev)
-        kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr)
+    for case in K2_CASES[:-1]:
+        seed, params, kw, R = k2_setup(dev, case)
         k = tmc.terminal_qmc(seed, params, **kw)
-        p = tmc._mc_qmc_plain(seed, params, **kw)
-        case = f"n={n} R={R} call={is_call}"
+        p = tmc._mc_qmc_plain(seed.to(dev), params.to(dev),
+                              **{a: v for a, v in kw.items() if a != "device"})
         rel = compare(k, p, f"qmc {case}")
+        if sha256(k) != K2_SUMS[case]:
+            raise AssertionError(f"qmc {case}: rows differ from the recorded "
+                                 "ones (K2_SUMS)")
+        is_call = case.split()[1] == "call"
         record("qmc", rel, *(tmc.qmc_estimate(
-            rows.double().cpu().numpy().reshape(R, ppr, tmc.NSTAT).sum(1),
+            rows.double().cpu().numpy().reshape(R, -1, tmc.NSTAT).sum(1),
             *market, is_call)[0] for rows in (k, p)), case)
+    print(f"phase 3 qmc: the (n_programs, 13) rows of {len(K2_CASES) - 1} "
+          "cases equal K2_SUMS bit for bit")
 
     def k4_check(what, setup, pay, signed=()):
         """The kernel against its plain version on one K4 setup."""
@@ -2523,6 +2575,26 @@ def main():
                case)
     print(f"phase 3 qmc_path: the (n_programs, 6) sums of {len(K5_CASES) - 1}"
           " cases equal QMC_PATH_SUMS bit for bit")
+    # the arithmetic Asian past 252 steps, against the plain mirror that
+    # sums the steps in step order, as the kernel does
+    for sigma in (0.2, 0.0):
+        m_bits, d_pad, reps5, ppr5 = qmp._plan(4096, 2048, 2)
+        arrays = qmp._kernel_inputs(3, 4096, 2048, 100.0, 100.0, 1.0, 0.03,
+                                    0.0, sigma, n_replicates=2, barrier=0.0,
+                                    rebate=0.0, payout=1.0)
+        tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+        kw5 = dict(n_programs=2 * ppr5, reps=reps5, progs_per_rep=ppr5,
+                   n_steps=2048, d_pad=d_pad, m_bits=m_bits,
+                   payoff_id=qmp.PAYOFF_IDS["asian"], barrier_up=True,
+                   knock_in=False, is_call=True, arithmetic=True,
+                   fixed_strike=True)
+        k = qmp.qmc_path(*tensors, **kw5)
+        p = qmp._qmc_path_plain(*tensors, **kw5, step_order=True)
+        case = f"arithmetic asian 4096 x 2 x 2048 sigma={sigma}"
+        record("qmc_path", compare(k, p, f"qmc_path {case}"),
+               *(qmp.qmc_path_estimate(
+                   rows.double().cpu().numpy().reshape(2, ppr5, 6).sum(1),
+                   100.0, 0.0, 1.0)[0] for rows in (k, p)), case)
 
     pde = PdeSlice(dev, card)
     pde.phase3(record)
@@ -2757,13 +2829,32 @@ def main():
         if n < 1 << 30:   # the plain version at 2^24 and 1M
             times[("k1plain", n)] = cuda_ms(
                 lambda: tmc._mc_sumstats_plain(seed, params, **kw))
-    R, n = 16, 1 << 22
-    n_rep, reps, ppr = tmc._plan_qmc(n, R)
-    params = tmc._terminal_params(n_rep, *market, True).to(dev)
-    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr)
-    times[("k2", n)] = cuda_ms(lambda: tmc.terminal_qmc(seed, params, **kw))
-    times[("k2plain", n)] = cuda_ms(
-        lambda: tmc._mc_qmc_plain(seed, params, **kw))
+    k2_threads, k2_waves = {}, {}
+    for case in (K2_CASES[-1], "7 call 1048576 16"):
+        seed2, params2, kw2, _ = k2_setup(dev, case)
+        n = int(case.split()[2])
+        if n == 1 << 22 and sha256(tmc.terminal_qmc(
+                seed2, params2, **kw2)) != K2_SUMS[case]:
+            raise AssertionError(f"qmc {case}: rows differ from the recorded "
+                                 "ones (K2_SUMS)")
+        times[("k2", n)] = cuda_ms(
+            lambda: tmc.terminal_qmc(seed2, params2, **kw2))
+        times[("k2 device", n)] = cuda_ms(
+            lambda: tmc.terminal_qmc(seed2, params2, **kw2), queued=True)
+        plain_kw = {a: v for a, v in kw2.items() if a != "device"}
+        seed2, params2 = seed2.to(dev), params2.to(dev)
+        times[("k2plain", n)] = cuda_ms(
+            lambda: tmc._mc_qmc_plain(seed2, params2, **plain_kw))
+        k2_threads[n] = tmc._qmc_threads(dev.index, kw2["n_programs"],
+                                         kw2["reps"])
+        k2_waves[n] = kw2["n_programs"] / tmc._qmc_clusters(
+            dev.index, k2_threads[n], kw2["reps"])
+    print(f"phase 6 time K2 2^22 x 16 {times[('k2', 1 << 22)]:.4f} ms (the "
+          f"device's time alone {times[('k2 device', 1 << 22)]:.4f} ms), "
+          f"2^20 x 16 {times[('k2', 1 << 20)]:.4f} ms (device "
+          f"{times[('k2 device', 1 << 20)]:.4f} ms); blocks of "
+          f"{k2_threads[1 << 22]} and {k2_threads[1 << 20]} threads "
+          f"[{card}]")
     seed4, params4, run4 = main_k4[:3]
     times[("k4", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4))
@@ -2822,6 +2913,9 @@ def main():
         print(f"phase 6 resources {name}: {line}")
     for line in k1_k5_sass_lines("phase 6", k1k5):
         print(line)
+    for line in k2_issue_lines("phase 6", sass_k2(text), k1k5,
+                               {str(n): t for n, t in k2_threads.items()}):
+        print(line)
     pde.phase6(times)
     desk.phase6(times)
     multi.phase6()
@@ -2844,7 +2938,7 @@ def main():
          "blocks_per_sm": occupancy["K1 anti box-muller 2^30"][0],
          "waves_2p30": occupancy["K1 anti box-muller 2^30"][2],
          "resources": {k: v for k, v in resources.items()
-                       if "terminal" in k}},
+                       if "terminal_mc" in k}},
         {"name": "terminal_qmc_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/terminal_mc.cu",
          "replaces": "optpricer_tpu/ops/pallas_mc.py:214",
@@ -2853,7 +2947,18 @@ def main():
          "ms": times[("k2", 1 << 22)], "plain_ms": times[("k2plain", 1 << 22)],
          **dict(zip(("bound_ms", "bound_by"),
                     bound((1 << 22) * OPS_K2_POINT, 36 + 64 * 13 * 4))),
-         "library_ms": None, "shape": "2^22 points x 16 replicates"},
+         "library_ms": None, "shape": "2^22 points x 16 replicates",
+         "device_ms": times[("k2 device", 1 << 22)],
+         "ms_2p20": times[("k2", 1 << 20)],
+         "device_ms_2p20": times[("k2 device", 1 << 20)],
+         "plain_ms_2p20": times[("k2plain", 1 << 20)],
+         "bound_ms_2p20": bound((1 << 20) * OPS_K2_POINT,
+                                36 + 32 * 13 * 4)[0],
+         "threads_per_block": k2_threads[1 << 22],
+         "threads_per_block_2p20": k2_threads[1 << 20],
+         "waves": k2_waves[1 << 22], "waves_2p20": k2_waves[1 << 20],
+         "resources": {k: v for k, v in resources.items()
+                       if "qmc_kernel" in k}},
         {"name": "path_mc_kernel", "route": "cuda",
          "source": "optpricer_tpu_torch/csrc/path_mc.cu",
          "replaces": "optpricer_tpu/ops/pallas_path_mc.py:68",
@@ -3138,6 +3243,70 @@ def sass_k1(text: str) -> dict:
     return out
 
 
+def sass_k2(text: str) -> dict:
+    """K2's instantiation for two reps or fewer (the main path's; the only
+    one in a tree without the Kahan split): ``loops``, the counts
+    (``sass_counts``) of the innermost loops that hold a MUFU.RCP (one a
+    point: norminv32's log32 division), each with its ``points``, in
+    address order (one rep loop in a tree with a block per 256 elements;
+    the full and the tail row loop in one with a cluster a program), and
+    ``rest``, the counts of the instructions outside every loop."""
+    for name, ops, loops in sass_functions(text):
+        if "terminal_qmc_kernel" not in name or "ILb1E" in name:
+            continue
+        rcp = [(j, i) for j, i in loops
+               if any(o.startswith("MUFU.RCP") for o in ops[j:i + 1])]
+        inner = [(j, i) for j, i in sorted(set(rcp))
+                 if not any(j <= jj and ii <= i and (jj, ii) != (j, i)
+                            for jj, ii in rcp)]
+        looped = {t for j, i in set(loops) for t in range(j, i + 1)}
+        return {"loops": [dict(sass_counts(ops[j:i + 1]),
+                               points=sum(o.startswith("MUFU.RCP")
+                                          for o in ops[j:i + 1]))
+                          for j, i in inner],
+                "rest": sass_counts([o for t, o in enumerate(ops)
+                                     if t not in looped])}
+    return {}
+
+
+def k2_issue_lines(side: str, sass: dict, turn: dict, threads: dict) -> list:
+    """The lines that report K2's SASS (``sass_k2``): its static
+    instructions a point in the first RCP loop (the full body), and the
+    time they give at one instruction a lane and cycle at 2^22 x 16 and
+    2^20 x 16 if each thread issued that loop once an iteration and the
+    instructions outside the loops once. ``threads``: points -> a block's
+    threads (none for a tree that launches a block a 256-element row)."""
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    if not sass.get("loops"):
+        return []
+    loop, rest = sass["loops"][0], sass["rest"]["total"]
+    rate = turn["sms"] * 128 * turn["sm_clock_max_mhz"] * 1e6
+    lines = [f"sass {side} terminal_qmc_kernel: loop {i + 1} of "
+             f"{len(sass['loops'])} " + ", ".join(
+                 f"{k} {v}" for k, v in lp.items())
+             for i, lp in enumerate(sass["loops"])]
+    lines.append(f"sass {side} terminal_qmc_kernel: outside the loops "
+                 + ", ".join(f"{k} {v}" for k, v in sass["rest"].items()))
+    for n in (1 << 22, 1 << 20):
+        _, reps, ppr = tmc._plan_qmc(n, 16)
+        n_prog = 16 * ppr
+        block = threads.get(str(n))
+        if block is None:   # a block a 256-element row, a loop trip a rep
+            n_threads, trips = n_prog * 128 * 256, reps
+        else:               # a cluster a program, a loop trip a row
+            n_threads = n_prog * 8 * block
+            trips = 16 // (block // 64)
+        issued = loop["total"] * trips + rest
+        lines.append(
+            f"sass {side} terminal_qmc_kernel at {n} x 16: "
+            f"{loop['total'] / loop['points']:.1f} static instructions a "
+            f"point in the full loop; {issued} a thread, "
+            f"{issued * n_threads / rate * 1e3:.4f} ms at one a lane and "
+            f"cycle (4 schedulers an SM)")
+    return lines
+
+
 def sass_k5(text: str) -> list:
     """The loops of K5's Asian instantiation, each a dict: ``kind``, its
     own instructions' counts (``sass_counts``, nested loops left out),
@@ -3261,7 +3430,8 @@ def res_usage(lib: Path, pattern: re.Pattern) -> dict:
     return out
 
 
-K1_K5_NAMES = re.compile(r"terminal_mc_kernelILb1ELb0E|qmc_path_kernelILi2E")
+K1_K5_NAMES = re.compile(r"terminal_mc_kernelILb1ELb0E|qmc_path_kernelILi2E"
+                         r"|terminal_qmc_kernel")
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -3316,6 +3486,7 @@ def ab_turn(tree: Path, groups=AB_GROUPS) -> dict:
             out["sass k3 k6"] = sass_step_loops(text, k3_k6_sass_label, True)
         if "k1k5" in groups:
             out["sass k1"], out["sass k5"] = sass_k1(text), sass_k5(text)
+            out["sass k2"] = sass_k2(text)
     multi = MultiAssetLsvSlice(dev, card)
     desk = Config5Slice(dev, card)
     if "k1k5" in groups:
@@ -3505,6 +3676,19 @@ def ab_k1_k5(dev) -> dict:
         lambda: qmp._kernel_inputs(0, 65_536, 64, *MARKET, n_replicates=8,
                                    barrier=0.0, rebate=0.0, payout=1.0),
         reps=21)
+    out.update(ab_k2(dev))
+    # the same with a fresh seed a call: the replicate shifts built anew
+    seeds = iter(range(1_000, 10_000))
+    out["k5 kernel_inputs 65536 x 8 x 64 fresh seed us"] = host_us(
+        lambda: qmp._kernel_inputs(next(seeds), 65_536, 64, *MARKET,
+                                   n_replicates=8, barrier=0.0, rebate=0.0,
+                                   payout=1.0), reps=21)
+    out["wall exotic_price_mc qmc geometric asian 65536 x 8 x 64 fresh "
+        "seed ms"] = wall_ms(
+        lambda: tp.exotic_price_mc("asian", *MARKET[:5], sigma=0.2,
+                                   n_steps=64, n_paths=65_536,
+                                   seed=next(seeds), backend="qmc",
+                                   average_type="geometric", device=dev))
     occ = {}
     if hasattr(tmc, "blocks_per_sm"):
         occ["k1 anti box-muller"] = tmc.blocks_per_sm(True, False)
@@ -3514,6 +3698,108 @@ def ab_k1_k5(dev) -> dict:
     out["k1 k5 occupancy"] = occ
     out["k1 k5 resources"] = res_usage(_build.library_path(), K1_K5_NAMES)
     return out
+
+
+def ab_k2(dev) -> dict:
+    """``ab_k1_k5``'s K2 numbers: its rows by SHA-256 at ``K2_CASES``; its
+    ``ms`` and ``device ms`` (median of 5) at the main path's call and at
+    2^20 x 16; the host microseconds of each part of that call
+    (``k2_host_us``); the walls (median of 21) of mc_sumstats_qmc and
+    euro_price_mc(backend="qmc") at 2^22 x 16."""
+    import optpricer_tpu_torch as tp
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    out = {"k2 sums": {}}
+    for case in K2_CASES:
+        seed, params, kw, _ = k2_setup(dev, case)
+        out["k2 sums"][case] = sha256(tmc.terminal_qmc(seed, params, **kw))
+    for case in ("7 call 4194304 16", "7 call 1048576 16"):
+        seed, params, kw, _ = k2_setup(dev, case)
+        label = " x ".join(case.split()[2:])
+        out[f"k2 {label} ms"] = cuda_ms(
+            lambda: tmc.terminal_qmc(seed, params, **kw))
+        out[f"k2 {label} device ms"] = cuda_ms(
+            lambda: tmc.terminal_qmc(seed, params, **kw), queued=True)
+    out["k2 host us"] = k2_host_us(dev)
+    out["k2 threads"], out["k2 occupancy"] = {}, {}
+    if hasattr(tmc, "_qmc_threads"):
+        for n in (1 << 22, 1 << 20):
+            _, reps, ppr = tmc._plan_qmc(n, 16)
+            threads = tmc._qmc_threads(dev.index, 16 * ppr, reps)
+            clusters = tmc._qmc_clusters(dev.index, threads, reps)
+            out["k2 threads"][str(n)] = threads
+            out["k2 occupancy"][f"{n} x 16"] = (threads, clusters,
+                                               16 * ppr / clusters)
+    spec = tp.OptionSpec(**SPEC)
+    out["wall mc_sumstats_qmc 2^22 x 16 ms"] = wall_ms(
+        lambda: tmc.mc_sumstats_qmc(7, 1 << 22, *MARKET, True,
+                                    n_replicates=16, device=dev))
+    out["wall euro_price_mc qmc 2^22 ms"] = wall_ms(
+        lambda: tp.euro_price_mc(spec, "call", n_paths=1 << 22, seed=7,
+                                 backend="qmc", device=dev))
+    return out
+
+
+def k2_host_us(dev) -> dict:
+    """Host microseconds a call (``host_us``) of each part of K2's call in
+    mc_sumstats_qmc at 2^22 x 16, as the wrapper of commit 4bc6091 makes
+    them: the params and the seed pair sent to the card, the scratch and
+    output allocations, ``_build.load()``, entering ``torch.cuda.device``;
+    the library's entry point alone (buffers made beforehand; in a tree
+    that passes the arguments by value, after ``_qmc_args`` packs them),
+    the whole wrapper ``terminal_qmc``, and the rows' copy to the host, by
+    ``.cpu()`` and into pinned memory."""
+    from optpricer_tpu_torch import _build
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    seed, params, kw, _ = k2_setup(dev, K2_CASES[-1])
+    n_rep, _, _ = tmc._plan_qmc(1 << 22, 16)
+    host = tmc._terminal_params(n_rep, *MARKET, True)
+    n_prog = kw["n_programs"]
+    rows = tmc.terminal_qmc(seed, params, **kw)
+    torch.cuda.synchronize()
+
+    def pinned_copy():
+        out = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        out.copy_(rows, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+
+    def allocations():
+        torch.empty((n_prog * 128, 16), dtype=torch.float32, device=dev)
+        torch.empty((n_prog, 16), dtype=torch.float32, device=dev)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {"params .to(dev)": lambda: host.to(dev),
+             "seed pair .to(dev)": lambda: tmc._seed_pair(7, dev),
+             "allocations": allocations,
+             "_build.load()": _build.load,
+             "torch.cuda.device": device_context}
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if len(_build._SIGNATURES["optpricer_terminal_qmc"]) == 8:
+        # commit 4bc6091's entry point: block rows in a scratch buffer and
+        # a combine pass
+        scratch = torch.empty((n_prog * 128, 16), dtype=torch.float32,
+                              device=dev)
+        buf = torch.empty((n_prog, 16), dtype=torch.float32, device=dev)
+        parts["entry point"] = lambda: lib.optpricer_terminal_qmc(
+            seed.data_ptr(), params.data_ptr(), scratch.data_ptr(),
+            buf.data_ptr(), n_prog, kw["reps"], kw["progs_per_rep"], stream)
+    else:
+        # a cluster a program: the arguments by value, one launch
+        args = tmc._qmc_args(seed, params)
+        threads = tmc._qmc_threads(dev.index, n_prog, kw["reps"])
+        parts["_qmc_args"] = lambda: tmc._qmc_args(seed, params)
+        parts["entry point"] = lambda: lib.optpricer_terminal_qmc(
+            args.ctypes.data, rows.data_ptr(), n_prog, kw["reps"],
+            kw["progs_per_rep"], threads, stream)
+    parts["terminal_qmc"] = lambda: tmc.terminal_qmc(seed, params, **kw)
+    parts["rows.cpu()"] = lambda: rows.cpu()
+    parts["rows to pinned memory"] = pinned_copy
+    return {name: host_us(fn) for name, fn in parts.items()}
 
 
 def ab_k3_k6(dev, multi, desk) -> dict:
@@ -3553,7 +3839,8 @@ AB_NOT_TIMES = ("card", "sm_clock_max_mhz", "sms", "ptxas", "k4 occupancy",
                 "sass", "k4 sums timed", "k4 sums 2^18", "k8 layers",
                 "k6 sums 4 reps", "k6 occupancy", "sass k3 k6", "sass k1",
                 "sass k5", "k1 sums hex", "k1 k5 occupancy",
-                "k1 k5 resources")
+                "k1 k5 resources", "sass k2", "k2 threads",
+                "k2 occupancy")
 
 
 def ab_issue_ms(label: str, counts: dict, turn: dict) -> float:
@@ -3667,14 +3954,17 @@ def ab_report(turns, trees):
         if key in AB_NOT_TIMES or key.endswith("sums") or key == "side":
             continue
         value = next(t[key] for _, t in turns if key in t)
-        for field in value if isinstance(value, dict) else [None]:
+        fields = list(dict.fromkeys(f for _, t in turns
+                                    for f in t.get(key) or {})) \
+            if isinstance(value, dict) else [None]
+        for field in fields:
             values = [t.get(key) if field is None
                       else t.get(key, {}).get(field) for _, t in turns]
             print(f"{key}{'' if field is None else ' ' + field}: "
                   + ", ".join("-" if v is None else f"{v:.4f}"
                               for v in values))
-    timed_keys = [k for k in first if k.startswith(("k1 ", "k5 ", "k8 ",
-                                                    "k6 ", "k3 "))
+    timed_keys = [k for k in first if k.startswith(("k1 ", "k2 ", "k5 ",
+                                                    "k8 ", "k6 ", "k3 "))
                   and k.endswith(" ms")]
     for key in [f"k4 {label} ms" for label in K4_TIMED
                 if f"k4 {label} ms" in first] + timed_keys \
@@ -3705,6 +3995,10 @@ def ab_report(turns, trees):
                   f"{blocks} blocks, {waves:.2f} waves")
         for key, per_sm in turn.get("k1 k5 occupancy", {}).items():
             print(f"{key} {side}: {per_sm} resident blocks per SM")
+        for key, (threads, clusters, waves) in \
+                turn.get("k2 occupancy", {}).items():
+            print(f"k2 {side} {key}: blocks of {threads} threads, "
+                  f"{clusters} clusters of 8 resident, {waves:.2f} waves")
         for name, line in turn.get("k1 k5 resources", {}).items():
             print(f"resources {side} {name}: {line}")
     issue_line = (" if each static instruction issued once an iteration "
@@ -3717,6 +4011,9 @@ def ab_report(turns, trees):
                       + f"; {ab_issue_ms(label, counts, turn):.4f} ms at "
                       f"the main path's shape" + issue_line)
         for line in k1_k5_sass_lines(side, turn):
+            print(line)
+        for line in k2_issue_lines(side, turn.get("sass k2", {}), turn,
+                                   turn.get("k2 threads", {})):
             print(line)
     for side, turn in turns:
         for label, counts in turn.get("sass", {}).items():
@@ -3791,6 +4088,14 @@ def ab_report(turns, trees):
               f"{', '.join(d[:12] for d in digests)}); "
               + ("equal to" if recorded == digests[0] else "NOT equal to")
               + " QMC_PATH_SUMS")
+    for key in first.get("k2 sums", {}):
+        digests = [t["k2 sums"][key] for _, t in turns]
+        recorded = K2_SUMS.get(key)
+        print(f"k2 {key}: the (n_programs, 13) rows are {same(digests)} bit "
+              f"for bit across the turns (SHA-256 "
+              f"{', '.join(d[:12] for d in digests)}); "
+              + ("equal to" if recorded == digests[0] else "NOT equal to")
+              + " K2_SUMS")
     for case in first.get("k8 layers", {}):
         digests = [t["k8 layers"][case] for _, t in turns]
         print(f"k8 {case} {PdeSlice.N_STRIKES} x {PdeSlice.N_S - 1} x "

@@ -47,7 +47,8 @@ _F = ctypes.c_float
 # name -> argtypes of the C entry points in csrc/*.cu
 _SIGNATURES = {
     "optpricer_terminal_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "optpricer_terminal_qmc": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "optpricer_terminal_qmc": (_P, _P, _I, _I, _I, _I, _P),
+    "optpricer_terminal_qmc_clusters": (_I, _I, _P),
     "optpricer_terminal_mc_occupancy": (_I, _I),
     "optpricer_mc_batch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "optpricer_path_mc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -217,8 +217,8 @@ def _check_inputs(seed, params, n_programs, reps, n_steps, dynamics,
     if n_programs * reps >= _MAX_TILE_INDEX:
         raise ValueError("n_paths must stay below 2**24 tiles of TILE paths")
     if dynamics not in DYNAMICS:
-        raise NotImplementedError(
-            f"dynamics {dynamics!r} is not ported (ROADMAP B.3.5)")
+        raise ValueError(f"unknown dynamics {dynamics!r}; known: "
+                         f"{', '.join(DYNAMICS)}")
     if with_greeks and dynamics != "gbm":
         raise ValueError("greek_stats requires GBM dynamics")
     if seed.dtype != torch.int32 or seed.shape != (2,):

@@ -12,7 +12,8 @@ Nothing of shape (points, steps) reaches device memory.
 
 The R replicate shifts are ``jax.random.bits(fold_in(key(seed), i))`` in
 the reference; ``ops/swprng.jax_fold_in_bits`` rebuilds them from the
-port's Threefry, so a seed randomises the same point set the same way.
+port's Threefry, all R in two broadcast passes, so a seed randomises the
+same point set the same way.
 
 Names, JAX → port:
 
@@ -102,10 +103,17 @@ def _shared_bytes(n_steps: int) -> int:
 
 
 def _replicate_shifts(seed: int, *, R: int, d: int, d_pad: int) -> np.ndarray:
-    """(R, d_pad) int32 digital-shift words, zero beyond column d."""
+    """(R, d_pad) int32 digital-shift words, zero beyond column d: row i is
+    ``bits(fold_in(key(seed), i), (d,))``, all R rows in two broadcast
+    Threefry passes (``jax_fold_in_bits``). Cached per (seed, R, d,
+    d_pad); callers get copies."""
+    return _shift_words(int(seed), int(R), int(d), int(d_pad)).copy()
+
+
+@functools.lru_cache(maxsize=16)
+def _shift_words(seed: int, R: int, d: int, d_pad: int) -> np.ndarray:
     out = np.zeros((R, d_pad), np.uint32)
-    for i in range(R):
-        out[i, :d] = jax_fold_in_bits(seed, i, d)
+    out[:, :d] = jax_fold_in_bits(seed, np.arange(R), d)
     return out.view(np.int32)
 
 
@@ -117,8 +125,7 @@ def _kernel_inputs(seed, n_points, n_steps, S0, K, T, r, q, sigma, *,
     d = int(n_steps)
     m_bits, d_pad, _, _ = _plan(n_points, d, n_replicates)
     V, B, plan = _bridge_tables(d, m_bits, float(T), float(sigma))
-    shifts = _replicate_shifts(int(seed), R=int(n_replicates), d=d,
-                               d_pad=d_pad)
+    shifts = _replicate_shifts(seed, R=n_replicates, d=d, d_pad=d_pad)
     c = float(r) - float(q) - 0.5 * float(sigma) ** 2
     t = np.arange(1, d + 1, dtype=np.float64) * (float(T) / d)
     drift = np.zeros((1, d_pad), np.float32)
@@ -191,11 +198,19 @@ def _qmc_path_plain(seed, params, V, shifts, B, drift, plan=None, *,
                     n_programs: int, reps: int, progs_per_rep: int,
                     n_steps: int, d_pad: int, m_bits: int, payoff_id: int,
                     barrier_up: bool, knock_in: bool, is_call: bool,
-                    arithmetic: bool, fixed_strike: bool) -> torch.Tensor:
+                    arithmetic: bool, fixed_strike: bool,
+                    step_order: bool = False) -> torch.Tensor:
     """Plain version of ``qmc_path``: (n_programs, 6) f32 rows, a chunk of
     reps at a time. The product z @ B runs densely, as one multiply and one
     add per step index in ascending k, which the kernel's sum over the
-    nonzeros alone keeps bit for bit; the plan is not read."""
+    nonzeros alone keeps bit for bit; the plan is not read.
+
+    ``step_order``: the Asian's running sums of S and log S are formed one
+    step at a time from +0, in step order, and divided by the step count,
+    as the kernel forms them, not by ``torch.sum``, whose other order
+    parts from the kernel's by more than the f32 round-off of one sum at
+    thousands of steps. A mirror for the tests and ``chip_smoke.py``; the
+    CPU path does not take it."""
     del d_pad, plan
     dev = params.device
     d = n_steps
@@ -234,7 +249,17 @@ def _qmc_path_plain(seed, params, V, shifts, B, drift, plan=None, *,
         S = exp32(logS)
         ST = S[..., d - 1]
         if payoff_id == 2:
-            avg = S.sum(-1) / d if arithmetic else exp32(logS.sum(-1) / d)
+            x = S if arithmetic else logS
+            if step_order:
+                total = torch.zeros_like(x[..., 0])
+                for k in range(d):
+                    total = total + x[..., k]
+                avg = total / torch.tensor(float(d), dtype=MC_DTYPE,
+                                           device=dev)
+            else:
+                avg = x.sum(-1) / d
+            if not arithmetic:
+                avg = exp32(avg)
             pay = vanilla(avg) if fixed_strike \
                 else torch.clamp(sign * (ST - avg), min=0.0)
         elif payoff_id == 4:

@@ -62,17 +62,22 @@ def threefry2x32(key0, key1, ctr0, ctr1):
     return x0, x1
 
 
-def jax_fold_in_bits(seed: int, i: int, d: int) -> np.ndarray:
-    """(d,) uint32: ``bits(fold_in(key(seed), i), (d,), uint32)``.
+def jax_fold_in_bits(seed: int, i, d: int) -> np.ndarray:
+    """(d,) uint32: ``bits(fold_in(key(seed), i), (d,), uint32)``; for a
+    1-D sequence ``i``, (len(i), d), one row per counter.
 
     The steps of JAX's threefry2x32 implementation, in host integers:
     ``key(seed)`` is the pair (high, low) of the seed's 64-bit word;
     ``fold_in`` hashes the counter (0, i) under that key; ``bits`` (the
     partitionable form) hashes the counters (0, j), j < d, under the new
-    key and XORs the two output words.
+    key and XORs the two output words. Each step is one broadcast
+    ``threefry2x32`` pass, whatever the number of counters.
     """
     seed64 = int(seed) & 0xFFFFFFFFFFFFFFFF
-    k0, k1 = threefry2x32(seed64 >> 32, seed64 & _MASK, 0, int(i) & _MASK)
+    rows = np.ndim(i) == 1
+    ctr = torch.as_tensor(np.asarray(i, np.int64).reshape(-1, 1) & _MASK)
+    k0, k1 = threefry2x32(seed64 >> 32, seed64 & _MASK, 0, ctr)
     j = torch.arange(int(d), dtype=torch.int64)
     b0, b1 = threefry2x32(k0, k1, 0, j)
-    return (b0 ^ b1).numpy().astype(np.uint32)
+    out = (b0 ^ b1).numpy().astype(np.uint32)
+    return out if rows else out[0]

@@ -28,10 +28,12 @@ Each wrapper launches its CUDA kernel (``csrc/terminal_mc.cu``) for tensors
 on a CUDA device and counts the launch in its ``launches`` attribute; for
 tensors on the CPU it runs its plain torch version (``_mc_sumstats_plain``,
 ``_mc_qmc_plain``), which computes the same layout tile by tile. Any other
-device raises.
+device raises. ``terminal_qmc`` also takes host tensors with an explicit
+CUDA ``device``: its kernel reads seed and params by value.
 """
 from __future__ import annotations
 
+import functools
 from math import erf, exp, log, sqrt
 
 import numpy as np
@@ -61,6 +63,17 @@ _MASK32 = 0xFFFFFFFF
 # f32 tail compares of the TPU kernels are exact while the tile index fits
 # in the f32 mantissa; the kernels' integer compare equals them there
 _MAX_TILE_INDEX = 1 << 24
+# csrc/terminal_mc.cu's K2 launch: a cluster of _QMC_CLUSTER blocks a
+# program, _QMC_ROWS block rows a block, a group of _QMC_GROUP threads a
+# row, each thread _QMC_ELEMS elements of a row's 32-element warp row
+_QMC_CLUSTER = 8
+_QMC_ROWS = _BLOCKS_PER_PROGRAM // _QMC_CLUSTER
+_QMC_ELEMS = 4
+_QMC_SEG = 32 // _QMC_ELEMS
+_QMC_GROUP = _THREADS // _QMC_ELEMS
+# the block sizes the wrapper chooses from: groups that split a block's rows
+# evenly, up to a row a group
+_QMC_BLOCK_SIZES = tuple(_QMC_GROUP * g for g in (16, 8, 4, 2, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +123,51 @@ def _plan_qmc(n_paths: int, n_replicates: int):
     reps = max(1, -(-n_rep // (TILE * target_progs)))
     progs_per_rep = -(-n_rep // (TILE * reps))
     return n_rep, int(reps), int(progs_per_rep)
+
+
+def _qmc_full_tiles(n_rep: int, reps: int, progs_per_rep: int) -> int:
+    """How many of a replicate's programs are full: the first ones, whose
+    every point (tile_idx·reps + j)·TILE + elem lies below n_rep as the
+    kernel reads it (the f32 count of ``_terminal_params``), so that
+    ``terminal_qmc_kernel`` runs its body with no weight."""
+    n = int(np.float32(n_rep))
+    return max(0, min(int(progs_per_rep), n // (int(reps) * TILE)))
+
+
+def _qmc_args(seed: torch.Tensor, params: torch.Tensor) -> np.ndarray:
+    """int32[9], the words of csrc/terminal_mc.cu's ``QmcArgs``: the seed
+    pair and the bits of the f32 params, from host copies."""
+    return np.concatenate([seed.cpu().numpy(),
+                           params.cpu().numpy().view(np.int32)])
+
+
+@functools.cache
+def _qmc_clusters(device_index: int, threads: int, reps: int) -> int:
+    """Clusters of ``terminal_qmc_kernel`` (its instantiation for reps)
+    that the card holds at once with blocks of ``threads``
+    (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.load().optpricer_terminal_qmc_clusters(
+            threads, reps, ctypes.addressof(n))
+    if err != 0:
+        raise RuntimeError(f"terminal_qmc_kernel occupancy query failed: "
+                           f"CUDA error {err}")
+    return n.value
+
+
+@functools.cache
+def _qmc_threads(device_index: int, n_programs: int, reps: int) -> int:
+    """A block's threads for ``terminal_qmc_kernel``'s n_programs clusters:
+    of ``_QMC_BLOCK_SIZES``, the one at which the card holds the most of
+    the launch's threads at once (its clusters resident,
+    ``_qmc_clusters``, or all n_programs), the smaller on a tie (more
+    clusters resident, fewer rows a thread)."""
+    held = {t: min(n_programs, _qmc_clusters(device_index, t, reps)) * t
+            for t in _QMC_BLOCK_SIZES}
+    return min(held, key=lambda t: (-held[t], t))
 
 
 def _seed_pair(seed: int, device) -> torch.Tensor:
@@ -251,6 +309,70 @@ def _mc_qmc_plain(seed, params, *, n_programs: int, reps: int,
 
 
 # ---------------------------------------------------------------------------
+# plain mirrors of terminal_qmc_kernel's launch (for the tests)
+# ---------------------------------------------------------------------------
+def _qmc_points(n_programs: int, reps: int, progs_per_rep: int,
+                threads: int) -> np.ndarray:
+    """(n_programs, TILE·reps) int64: for each program the in-replicate
+    index of every point its cluster's threads form, in the kernel's index
+    arithmetic (block, thread, row a group takes, element of the thread,
+    rep), so each program's row holds each of its points once."""
+    groups = threads // _QMC_GROUP
+    pid = np.arange(n_programs).reshape(-1, 1, 1, 1, 1, 1)
+    rank = np.arange(_QMC_CLUSTER).reshape(1, -1, 1, 1, 1, 1)
+    t = np.arange(threads).reshape(1, 1, -1, 1, 1, 1)
+    it = np.arange(_QMC_ROWS // groups).reshape(1, 1, 1, -1, 1, 1)
+    i = np.arange(_QMC_ELEMS).reshape(1, 1, 1, 1, -1, 1)
+    j = np.arange(reps).reshape(1, 1, 1, 1, 1, -1)
+    q = t % _QMC_GROUP
+    row = rank * _QMC_ROWS + t // _QMC_GROUP + groups * it
+    local = ((pid % progs_per_rep) * reps * TILE + row * _THREADS
+             + (q // _QMC_SEG) * 32 + q % _QMC_SEG + _QMC_SEG * i + j * TILE)
+    return np.broadcast_to(local, (n_programs, _QMC_CLUSTER, threads,
+                                   _QMC_ROWS // groups, _QMC_ELEMS, reps)
+                           ).reshape(n_programs, -1)
+
+
+def _block_row_plain(v: torch.Tensor) -> torch.Tensor:
+    """``block_row``'s sum (csrc/reduce.cuh) of v (..., 256, k): in each
+    warp of 32, lane l adds lane l + off for off = 16, 8, 4, 2, 1; then
+    0 + warp 0 + ... + warp 7."""
+    w = v.reshape(v.shape[:-2] + (_THREADS // 32, 32, v.shape[-1]))
+    for off in (16, 8, 4, 2, 1):
+        w = w[..., :off, :] + w[..., off:2 * off, :]
+    return _warp_rows(w[..., 0, :])
+
+
+def _qmc_row_plain(v: torch.Tensor) -> torch.Tensor:
+    """``terminal_qmc_kernel``'s sum of a block row v (..., 256, k): a
+    thread's elements l + _QMC_SEG·i of a warp row folded in registers
+    (``qmc_fold``: the even-indexed ones' sum plus the odd-indexed ones'),
+    the shuffle levels below _QMC_SEG, then 0 + warp row 0 + ... + 7."""
+    w = v.reshape(v.shape[:-2] + (_THREADS // 32, _QMC_ELEMS, _QMC_SEG,
+                                  v.shape[-1]))
+
+    def fold(idx):
+        if len(idx) == 1:
+            return w[..., idx[0], :, :]
+        return fold(idx[0::2]) + fold(idx[1::2])
+
+    t = fold(list(range(_QMC_ELEMS)))
+    off = _QMC_SEG // 2
+    while off:
+        t = t[..., :off, :] + t[..., off:2 * off, :]
+        off //= 2
+    return _warp_rows(t[..., 0, :])
+
+
+def _warp_rows(w: torch.Tensor) -> torch.Tensor:
+    """0 + w[..., 0, :] + w[..., 1, :] + ..., in that order."""
+    t = torch.zeros_like(w[..., 0, :])
+    for r in range(w.shape[-2]):
+        t = t + w[..., r, :]
+    return t
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def terminal_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
@@ -308,36 +430,52 @@ def blocks_per_sm(antithetic: bool, invcdf: bool = False) -> int:
 
 
 def terminal_qmc(seed: torch.Tensor, params: torch.Tensor, *,
-                 n_programs: int, reps: int, progs_per_rep: int
-                 ) -> torch.Tensor:
+                 n_programs: int, reps: int, progs_per_rep: int,
+                 device=None) -> torch.Tensor:
     """f32[n_programs, 13] randomised-QMC sums, one row per program.
 
     Kernel ``terminal_qmc_kernel`` in ``csrc/terminal_mc.cu``; it replaces
     ``optpricer_tpu/ops/pallas_mc.py:_mc_qmc_kernel`` (launched from
-    ``_run_qmc_kernel``). Bound by SFU and FMA throughput (one inverse CDF
-    and one exp32 per point, the scramble is a bit reversal and an XOR);
-    the same register-resident per-thread Kahan loop and fixed-order block
-    and program combine as ``terminal_mc``.
+    ``_run_qmc_kernel``). Bound by the issue of its per-point body (one
+    inverse CDF and one exp32 a point; the scramble is a bit reversal and
+    an XOR). A program is one cluster of 8 blocks: a thread Kahan-sums 4
+    elements of a block row over their reps in registers and folds them as
+    the block tree pairs them, the rows go into the leader block's shared
+    memory, and the leader Kahan-sums them in order, in one launch with no
+    scratch. A block's threads are those at which the card holds the most
+    of the launch's threads at once (``_qmc_threads``, from the cluster
+    occupancy query).
+
+    ``device``: where to run, by default ``params``' device; a CPU device
+    runs the plain version ``_mc_qmc_plain``. On a CUDA device the kernel
+    takes seed and params by value (``_qmc_args``): from host tensors as
+    they are, which lets the entry point ``mc_sumstats_qmc`` copy nothing
+    to the card, or from the card's tensors through a copy to the host.
     """
     _check_inputs(seed, params, n_programs, reps)
     if n_programs * reps >= _MAX_TILE_INDEX:
         raise ValueError("the grid must stay below 2**24 tiles")
-    if params.device.type == "cpu":
+    dev = params.device if device is None else torch.device(device)
+    if params.device.type == "cuda" and dev != params.device:
+        raise ValueError(f"params on {params.device}, device={dev}")
+    if dev.type == "cpu":
         return _mc_qmc_plain(seed, params, n_programs=n_programs, reps=reps,
                              progs_per_rep=progs_per_rep)
-    dev = params.device
-    block_rows = torch.empty((n_programs * _BLOCKS_PER_PROGRAM, _ROW),
-                             dtype=MC_DTYPE, device=dev)
-    out = torch.empty((n_programs, _ROW), dtype=MC_DTYPE, device=dev)
-    lib = _build.load()
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    args = _qmc_args(seed, params)
+    out = torch.empty((n_programs, NSTAT), dtype=MC_DTYPE, device=dev)
+    threads = _qmc_threads(dev.index, n_programs, reps)
     with torch.cuda.device(dev):
-        err = lib.optpricer_terminal_qmc(
-            seed.data_ptr(), params.data_ptr(), block_rows.data_ptr(),
-            out.data_ptr(), n_programs, reps, progs_per_rep, _stream(dev))
+        err = _build.load().optpricer_terminal_qmc(
+            args.ctypes.data, out.data_ptr(), n_programs, reps,
+            progs_per_rep, threads, _stream(dev))
     if err != 0:
         raise RuntimeError(f"terminal_qmc_kernel launch failed: CUDA error {err}")
     terminal_qmc.launches += 1
-    return out[:, :NSTAT]
+    return out
 
 
 terminal_qmc.launches = 0
@@ -376,10 +514,11 @@ def mc_sumstats_qmc(seed: int, n_paths: int, S0, K, T, r, q, sigma,
     n_rep, reps, progs_per_rep = _plan_qmc(n_paths, R)
     if n_rep >= 2**31:  # the reference's in-replicate index is int32
         raise ValueError("points per replicate must stay below 2**31")
-    params = _terminal_params(n_rep, S0, K, T, r, q, sigma, is_call).to(dev)
-    rows = terminal_qmc(_seed_pair(seed, dev), params,
+    # built on the host and passed by value: nothing is copied to the card
+    params = _terminal_params(n_rep, S0, K, T, r, q, sigma, is_call)
+    rows = terminal_qmc(_seed_pair(seed, "cpu"), params,
                         n_programs=R * progs_per_rep, reps=reps,
-                        progs_per_rep=progs_per_rep)
+                        progs_per_rep=progs_per_rep, device=dev)
     # host-side f64 per-replicate reduction (few rows, precision cheap)
     rows = rows.cpu().numpy().astype(np.float64)
     return rows.reshape(R, progs_per_rep, NSTAT).sum(axis=1)

@@ -23,8 +23,12 @@ separately at one, two and four reps; at one rep the recorded sums of the
 kernel's LSV branches, and the path kernel's per-path grid at one, two and
 four reps; the path-QMC kernel (K5) at 1 to 2 048 steps, a call without
 B's plan refused, and its sums at chip_smoke.py's K5 cases equal to the
-recorded ones (``QMC_PATH_SUMS``) bit for bit; the terminal kernel's (K1)
-full and tail programs at ragged and whole counts;
+recorded ones (``QMC_PATH_SUMS``) bit for bit, its arithmetic Asian at
+2 048 steps against the step-order plain mirror; the terminal kernel's
+(K1) full and tail programs at ragged and whole counts; the QMC terminal
+kernel's (K2) rows equal to the recorded ones (``K2_SUMS``) bit for bit,
+and to its plain version at tails, one to eight reps and more programs
+than the card holds clusters, one launch counted a call;
 its Box-Muller sincosf is held to cosf and sinf bit for bit on every
 angle it can draw.
 """
@@ -102,6 +106,76 @@ def test_qmc_kernel_matches_plain(cuda_device, is_call):
     kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr)
     _assert_close(tmc.terminal_qmc(seed, params, **kw),
                   tmc._mc_qmc_plain(seed, params, **kw))
+
+
+# K2's (n_programs, 13) rows as the kernel of commit 4bc6091 (a block per
+# 256 elements, a block tree and a combine pass) gave them on an NVIDIA
+# H100, by SHA-256 of their f32 bytes, at chip_smoke.py's K2_CASES ("seed
+# kind points replicates", its market K5_MARKET below). The cluster design
+# must keep them bit for bit.
+K2_SUMS = {
+    "5 call 1048576 16":
+        "4473a6fd6d69fbb2353b3cd4a47868378eadbdeb3fd38679daac183de8dc610d",
+    "5 put 1048576 16":
+        "d54f1ad47d2d658cfd571018085e33904fcf9a9459c130ac1ed5c8de7b9e58be",
+    "5 call 4194304 16":
+        "cea23402e1917cf4291bd548c76f93bd23f34fe9f8859dca060905311e44c7c2",
+    "7 call 4194304 16":
+        "55e0342e094411742b9e1b387a94a0d9044951533232fa69af18cb3e8d413d85",
+}
+
+
+def _k2_setup(case):
+    seed, kind, n, R = case.split()
+    n_rep, reps, ppr = tmc._plan_qmc(int(n), int(R))
+    params = tmc._terminal_params(n_rep, *K5_MARKET, kind == "call")
+    kw = dict(n_programs=int(R) * ppr, reps=reps, progs_per_rep=ppr)
+    return tmc._seed_pair(int(seed), "cpu"), params, kw
+
+
+@pytest.mark.parametrize("case", list(K2_SUMS))
+def test_qmc_kernel_gives_the_recorded_rows(cuda_device, case):
+    import hashlib
+
+    seed, params, kw = _k2_setup(case)
+    # by value from the host, as mc_sumstats_qmc passes them, and from
+    # tensors on the card
+    for got in (tmc.terminal_qmc(seed, params, device=cuda_device, **kw),
+                tmc.terminal_qmc(seed.to(cuda_device),
+                                 params.to(cuda_device), **kw)):
+        assert got.shape == (kw["n_programs"], tmc.NSTAT)
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        assert digest == K2_SUMS[case]
+
+
+@pytest.mark.parametrize("n, R", [(100_000, 16), (1 << 22, 16),
+                                  (3_000_017, 16), (1 << 24, 16),
+                                  (5 * tmc.TILE + 9, 1), (1 << 20, 128)])
+def test_qmc_kernel_rows_match_plain(cuda_device, n, R):
+    """Tails, two reps, more than two reps (the Kahan instantiation), one
+    replicate and more programs than the card holds clusters."""
+    n_rep, reps, ppr = tmc._plan_qmc(n, R)
+    params = tmc._terminal_params(n_rep, *MARKET, True).to(cuda_device)
+    seed = tmc._seed_pair(9, cuda_device)
+    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr)
+    got = tmc.terminal_qmc(seed, params, **kw)
+    want = tmc._mc_qmc_plain(seed, params, **kw)
+    assert float(got[:, 0].sum()) == n_rep * R
+    _assert_close(got, want)
+
+
+def test_qmc_kernel_counts_one_launch_a_call(cuda_device):
+    seed, params, kw = _k2_setup("7 call 4194304 16")
+    before = tmc.terminal_qmc.launches
+    for i in range(3):
+        tmc.terminal_qmc(seed, params, device=cuda_device, **kw)
+        assert tmc.terminal_qmc.launches == before + i + 1
+    tmc.terminal_qmc(seed, params, **kw)        # on the CPU: the plain version
+    tmc.mc_sumstats_qmc(7, 1 << 20, *K5_MARKET, True, device=cuda_device)
+    assert tmc.terminal_qmc.launches == before + 4
+    with pytest.raises(ValueError, match="device"):
+        tmc.terminal_qmc(seed.to(cuda_device), params.to(cuda_device),
+                         device="cpu", **kw)
 
 
 def test_launch_counters_count_kernel_launches(cuda_device):
@@ -207,6 +281,24 @@ def test_qmc_path_kernel_long_bridges_match_plain(cuda_device, d, sigma):
               fixed_strike=False)
     _assert_close(tqp.qmc_path(*tensors, **kw),
                   tqp._qmc_path_plain(*tensors, **kw))
+
+
+@pytest.mark.parametrize("sigma", [0.2, 0.0])
+def test_qmc_path_kernel_arithmetic_asian_past_252_steps(cuda_device, sigma):
+    """The arithmetic Asian at 2 048 steps against the plain mirror that
+    sums the steps in step order, as the kernel does."""
+    n, d, R = 4096, 2048, 2
+    m_bits, d_pad, reps, ppr = tqp._plan(n, d, R)
+    arrays = tqp._kernel_inputs(3, n, d, 100.0, 100.0, 1.0, 0.03, 0.0,
+                                sigma, n_replicates=R, barrier=0.0,
+                                rebate=0.0, payout=1.0)
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr, n_steps=d,
+              d_pad=d_pad, m_bits=m_bits, payoff_id=tqp.PAYOFF_IDS["asian"],
+              barrier_up=True, knock_in=False, is_call=True,
+              arithmetic=True, fixed_strike=True)
+    _assert_close(tqp.qmc_path(*tensors, **kw),
+                  tqp._qmc_path_plain(*tensors, **kw, step_order=True))
 
 
 @pytest.mark.parametrize("plan", ["missing", "short"])

@@ -6,8 +6,8 @@ Dupire ones, whose threads loop over the reps, so a program's stats rows
 (the first combine pass's segment) are reps x 32 or 32. The LSV branches
 stage their leverage table ``LEV_WINDOW`` steps at a time, so the input
 checks put no bound on ``n_steps``; the plain version prices such a table
-as the interpreted TPU kernel does, on one tile. Nothing here launches a
-kernel.
+as the interpreted TPU kernel does, on one tile. An unknown dynamics is
+refused with the known names. Nothing here launches a kernel.
 """
 import re
 from pathlib import Path
@@ -113,3 +113,15 @@ def test_plain_version_prices_past_one_window(scheme):
     assert got[0] == ref[0] == n
     np.testing.assert_allclose(got[1:11], ref[1:11], rtol=2e-5, atol=0.0)
     assert not got[11:].any() and not ref[11:].any()
+
+
+def test_unknown_dynamics_is_refused_with_the_known_names():
+    seed = torch.zeros(2, dtype=torch.int32)
+    params = torch.zeros(tpm.NPARAM, dtype=torch.float32)
+    with pytest.raises(ValueError, match="unknown dynamics 'gbm2'") as err:
+        tpm.path_mc(seed, params, n_programs=1, reps=1, n_steps=8,
+                    antithetic=False, payoff_id=0, barrier_up=True,
+                    knock_out=True, average_geo=False, strike_floating=False,
+                    is_call=True, dynamics="gbm2")
+    for name in tpm.DYNAMICS:
+        assert name in str(err.value)

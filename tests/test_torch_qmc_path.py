@@ -2,7 +2,8 @@
 
 * The Sobol direction numbers, the bridge schedule and matrix, and the
   replicate shift words are host integer / float64 code on both sides and
-  must be exactly equal (the shifts for seeds above 2^31 and 2^32 too).
+  must be exactly equal (the shifts for seeds above 2^31 and 2^32 too, up
+  to 16 replicates x 252 steps; a cached result is handed out as a copy).
 * The plain version against ``path_qmc_sumstats_pallas(..., interpret=True)``
   at 2 048 points × 8 replicates × 8 steps: the same points, so the counts
   agree exactly and every other sum to rtol 2e-5 (XLA:CPU forms z @ B and
@@ -51,11 +52,16 @@ def test_bridge_tables_equal(d):
                                   jqp.bridge_matrix(d, 1.7))
 
 
+@pytest.mark.parametrize("R, d, d_pad", [(8, 12, 128), (16, 252, 256)])
 @pytest.mark.parametrize("seed", SEEDS)
-def test_replicate_shifts_equal(seed):
-    ref = np.asarray(jqp._replicate_shifts(seed, R=8, d=12, d_pad=128))
+def test_replicate_shifts_equal(seed, R, d, d_pad):
+    ref = np.asarray(jqp._replicate_shifts(seed, R=R, d=d, d_pad=d_pad))
+    got = tqp._replicate_shifts(seed, R=R, d=d, d_pad=d_pad)
+    np.testing.assert_array_equal(got, ref)
+    # the words are cached; each call hands out its own copy
+    got[:] = 0
     np.testing.assert_array_equal(
-        tqp._replicate_shifts(seed, R=8, d=12, d_pad=128), ref)
+        tqp._replicate_shifts(seed, R=R, d=d, d_pad=d_pad), ref)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -65,6 +71,9 @@ def test_fold_in_bits_equal_jax(seed):
                               (5,), jnp.uint32)
         np.testing.assert_array_equal(swprng.jax_fold_in_bits(seed, i, 5),
                                       np.asarray(ref))
+        # a sequence of counters gives one row each
+        np.testing.assert_array_equal(
+            swprng.jax_fold_in_bits(seed, [1, i], 5)[1], np.asarray(ref))
 
 
 # (payoff kwargs, is_call)

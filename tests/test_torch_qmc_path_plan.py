@@ -20,7 +20,11 @@ Here, on the CPU, with the plain mirrors of those steps:
   refused;
 * the split words equal the full XOR ladder across block and tile
   boundaries;
-* the kernel's shared-memory limit and its constants.
+* the kernel's shared-memory limit and its constants;
+* the Asian's step-order mirror (``_qmc_path_plain(step_order=True)``,
+  the running sums formed step by step as the kernel forms them, which
+  ``tests/test_torch_cuda.py`` holds the kernel to at 2 048 steps) meets
+  the plain version's ``torch.sum`` average within rtol 2e-5.
 
 Nothing here launches a kernel.
 """
@@ -284,3 +288,24 @@ def test_check_inputs_rejects_too_few_sobol_bits():
     tensors, kw = _check_kw(8)
     with pytest.raises(ValueError, match="m_bits"):
         tqp._check_inputs(*tensors, **dict(kw, m_bits=5))
+
+
+@pytest.mark.parametrize("arithmetic", [True, False])
+@pytest.mark.parametrize("sigma", [0.0, 0.2])
+def test_step_order_average_meets_the_plain_version(arithmetic, sigma):
+    n, d, R = 2048, 96, 2
+    m_bits, d_pad, reps, ppr = tqp._plan(n, d, R)
+    arrays = tqp._kernel_inputs(3, n, d, 100.0, 100.0, 1.0, 0.03, 0.0,
+                                sigma, n_replicates=R, barrier=0.0,
+                                rebate=0.0, payout=1.0)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    kw = dict(n_programs=R * ppr, reps=reps, progs_per_rep=ppr, n_steps=d,
+              d_pad=d_pad, m_bits=m_bits,
+              payoff_id=tqp.PAYOFF_IDS["asian"], barrier_up=True,
+              knock_in=False, is_call=True, arithmetic=arithmetic,
+              fixed_strike=True)
+    plain = tqp._qmc_path_plain(*tensors, **kw)
+    mirror = tqp._qmc_path_plain(*tensors, **kw, step_order=True)
+    assert torch.equal(mirror[:, 0], plain[:, 0])
+    assert torch.isfinite(mirror).all() and (mirror[:, 1] > 0).all()
+    torch.testing.assert_close(mirror, plain, rtol=2e-5, atol=0.0)
