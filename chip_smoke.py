@@ -159,6 +159,38 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    lsv_greeks_mc's delta within 2% + 4 se of a CRN bump; the CLI's lsv
    (surface file, saved model) equal to the same calls. K4 must have been
    launched on it.
+   The closed-form path (``ClosedFormSlice``; it has no kernel of its own):
+   * a Heston board of 8 expiries (0.1-3 y) x 1 024 strikes (60-140) at
+     N = 256 with the ``heston_cos`` golden's parameters, calls and puts,
+     equal to device="cpu" within atol 1e-12 + rtol 1e-10; the golden at
+     rtol 1e-9; put-call parity to 1e-10·S0; bates_price_cos at λ = 0
+     equal to heston_price_cos; heston_greeks_cos' delta and gamma within
+     rtol 1e-5 of central differences (h 0.05) of heston_price_cos;
+     fit_heston on a synthetic 8 x 21 surface (n_cos 128) with rmse < 1e-6
+     and its parameters within 1e-8 of the device="cpu" fit;
+   * config 2's 1 000 American puts (crr_vec, N = 500) inverted by
+     american_implied_vol (crr, N = 500) to σ within 1e-8, NaN only at
+     intrinsic; the same strikes priced at N = 2 000 with r 0.05, q 0.02
+     (tests/test_binomial.py:160-165's market) and inverted through
+     BS2002 within 2e-3 on K 90..110 (the chain's worst printed);
+     bjerksund_stensland_price on the chain equal to device="cpu";
+   * vg/nig/cgmy_price_cos on 1 024 strikes equal to device="cpu" within
+     atol 1e-12 + rtol 1e-10; vg_paths and nig_paths at 200 000 x 252 f64
+     antithetic: e^{−rT}E[S_T] within 4 se of S0 and the ATM call within
+     4 se + 1e-3 of its COS price;
+   * cross_validate at its defaults (max_discrepancy < 0.5) and ["bs",
+     "fdm"] (< 0.1); convergence_analysis (tree order > 0, fdm errors
+     falling); stress_test on an 11 x 11 spot x vol grid equal to
+     device="cpu", its centre the Black-Scholes price; backtest_delta_hedge
+     on gbm_paths 200 000 x 252 rebalancing every step and every 4 steps:
+     mean P&L within 4 se + 0.01 of 0, the P&L's std larger at 4;
+   * profiling.trace around euro_price_mc 1M names terminal_mc_kernel;
+     device_memory reports the card;
+   * the CLI's heston (Bates), american, barrier (fd, double), lookback
+     and levy (nig) as subprocesses started together, each equal to the
+     same call in-process.
+   K1 and K7 must have been launched on it; their counts are the
+   ``launches_closed_form`` of their kernel entries.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
    draws and its plain version at 2^24 and 1 000 000; K2 and its plain
@@ -197,7 +229,9 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    (phase 5's runs); the walls (median of 21) of the user calls around K6
    and K3: basket_exotic_mc on the `[basket-path]` book and on the
    16-asset basket barrier, and euro_price_mc_batch on 1 000 contracts x
-   1M.
+   1M; each closed-form call of phase 5 (median of 3, or one run for a
+   call of more than a second) with its device-busy share under
+   torch.profiler (the CUDA activity alone, its raw events summed).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -2413,7 +2447,443 @@ class MultiAssetLsvSlice:
         ]
 
 
+class ClosedFormSlice:
+    """The closed-form slice: the Heston/Bates COS pricers with their fit
+    and Greeks, the analytic Americans and the American implied vol, the
+    Lévy models, validation and the profiling utilities, through the public
+    API on the card at desk sizes, each held to its ``device="cpu"`` call
+    or an oracle. The slice has no kernel of its own; its path launches K1
+    (validation's Monte Carlo) and K7 (the FD/FEM propagator builds)."""
+
+    MKT = (100.0, 0.04, 0.01)                 # S0, r, q of the Heston board
+    # the heston_cos golden's parameters (tests/golden_cases.py:221-226)
+    HESTON = dict(v0=0.045, kappa=1.8, theta=0.05, xi=0.45, rho=-0.55)
+    EXPIRIES = (0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0)
+    N_STRIKES = 1024
+    LEVY_MKT = (100.0, 1.0, 0.03, 0.0)        # S0, T, r, q
+    VG = dict(sigma=0.2, theta=-0.14, nu=0.2)
+    NIG = dict(alpha=8.0, beta=-4.0, delta=0.4)
+    CGMY = dict(C=0.5, G=5.0, M=9.0, Y=0.8)
+    PATHS = dict(n_paths=200_000, n_steps=252)
+    CONFIG2 = dict(n=1000, N=500, N_fine=2000)   # American puts, lattices
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+        self.strikes = torch.linspace(60.0, 140.0,
+                                      self.N_STRIKES).double().numpy()
+        self.calls = {}   # label -> the slice's user call, for phase 6
+
+    # -- phase 5 ---------------------------------------------------------
+    def board(self, kind, device, bates=False):
+        import optpricer_tpu_torch as tp
+
+        S0, r, q = self.MKT
+        jumps = dict(lam=0.0, mJ=-0.1, sJ=0.15) if bates else {}
+        price = tp.bates_price_cos if bates else tp.heston_price_cos
+        return torch.stack([price(S0, self.strikes, T, r, q, **self.HESTON,
+                                  **jumps, kind=kind, N=256, device=device)
+                            for T in self.EXPIRIES])
+
+    @staticmethod
+    def close(got, want, rtol, atol, what):
+        """Max |got − want| / (atol + rtol·|want|); raises above 1."""
+        got, want = got.double().cpu(), want.double().cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: bad output {got.shape}")
+        worst = float(((got - want).abs()
+                       / (atol + rtol * want.abs())).max())
+        if worst > 1.0:
+            raise AssertionError(f"{what}: |diff| / (atol {atol} + rtol "
+                                 f"{rtol}·|cpu|) reaches {worst:.3f}")
+        return worst
+
+    def heston(self):
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+
+        dev, (S0, r, q), H = self.dev, self.MKT, self.HESTON
+        calls, secs = timed(lambda: self.board("call", dev))
+        puts = self.board("put", dev)
+        worst = max(self.close(self.board(k, dev), self.board(k, "cpu"),
+                               1e-10, 1e-12, f"heston board {k}")
+                    for k in ("call", "put"))
+        T = torch.tensor(self.EXPIRIES, dtype=torch.float64)[:, None]
+        K = torch.tensor(self.strikes)[None, :]
+        parity = (calls.cpu() - puts.cpu() - (S0 * torch.exp(-q * T)
+                                              - K * torch.exp(-r * T)))
+        gap = float(parity.abs().max())
+        golden = float(tp.heston_price_cos(S0, 105.0, 0.75, r, q, **H,
+                                           device=dev))
+        bates0 = torch.equal(self.board("call", dev, bates=True), calls)
+        print(f"  heston board {len(self.EXPIRIES)} expiries x "
+              f"{self.N_STRIKES} strikes, N 256: {secs * 1e3:.3f} ms wall; "
+              f"card vs cpu: largest |diff| / (1e-12 + 1e-10·|cpu|) "
+              f"{worst:.3e}; max |C − P − (S0e^-qT − Ke^-rT)| {gap:.3e}; "
+              f"golden heston_cos {golden:.15f} (goldens.json "
+              f"5.634047782422982); bates λ=0 equal to heston: {bates0}")
+        if gap > 1e-10 * S0:
+            raise AssertionError(f"heston board: put-call parity off by "
+                                 f"{gap:.3e}")
+        if abs(golden - 5.634047782422982) > 1e-9 * 5.634047782422982:
+            raise AssertionError(f"heston_cos golden {golden!r}")
+        if not bates0:
+            raise AssertionError("bates_price_cos with lam=0 differs from "
+                                 "heston_price_cos")
+        shape = f"{len(self.EXPIRIES)} x {self.N_STRIKES}"
+        self.calls[f"heston_price_cos board {shape} calls"] = \
+            lambda: self.board("call", dev)
+        self.calls[f"bates_price_cos board {shape} calls"] = \
+            lambda: self.board("call", dev, bates=True)
+
+        # Greeks against central differences of the price on the card
+        g = tp.heston_greeks_cos(S0, 105.0, 0.75, r, q, **H, device=dev)
+        h = 0.05
+        px = [float(tp.heston_price_cos(S0 + d, 105.0, 0.75, r, q, **H,
+                                        device=dev)) for d in (-h, 0.0, h)]
+        delta_fd = (px[2] - px[0]) / (2.0 * h)
+        gamma_fd = (px[2] - 2.0 * px[1] + px[0]) / (h * h)
+        print(f"  heston_greeks_cos: delta {g['delta']:.10f} (central "
+              f"difference, h {h}: {delta_fd:.10f}), gamma "
+              f"{g['gamma']:.10f} ({gamma_fd:.10f}); vega_v0 "
+              f"{g['vega_v0']:.6f}, theta {g['theta']:.6f}")
+        for name, fd in (("delta", delta_fd), ("gamma", gamma_fd)):
+            if abs(g[name] - fd) > 1e-5 * abs(fd):
+                raise AssertionError(f"heston_greeks_cos {name} {g[name]} "
+                                     f"vs central difference {fd}")
+        self.calls["heston_greeks_cos"] = lambda: tp.heston_greeks_cos(
+            S0, 105.0, 0.75, r, q, **H, device=dev)
+
+        # fit_heston on a synthetic 8 x 21 surface
+        Ts = np.repeat(self.EXPIRIES, 21)
+        Ks = np.tile(np.linspace(80.0, 120.0, 21), len(self.EXPIRIES))
+        px = tp.heston_price_cos(S0, torch.tensor(Ks), torch.tensor(Ts), r,
+                                 q, **H, N=128, device=dev)
+        iv = tp.bs_implied_vol_vec(S0, Ks, Ts, r, q, px, "call",
+                                   device=dev).cpu().numpy()
+        fit, secs = timed(lambda: tp.fit_heston(Ks, Ts, iv, S0, r, q,
+                                                device=dev))
+        fit_cpu = tp.fit_heston(Ks, Ts, iv, S0, r, q, device="cpu")
+        names = ("v0", "kappa", "theta", "xi", "rho")
+        gap = max(abs(fit[k] - fit_cpu[k]) for k in names)
+        off = max(abs(fit[k] - H[k]) for k in names)
+        print(f"  fit_heston 8 x 21 quotes, n_cos 128: rmse "
+              f"{fit['rmse']:.3e}, max |param − cpu fit| {gap:.3e}, max "
+              f"|param − true| {off:.3e} ({secs * 1e3:.3f} ms wall)")
+        if not fit["rmse"] < 1e-6 or gap > 1e-8:
+            raise AssertionError(f"fit_heston: {fit} vs cpu {fit_cpu}")
+        self.calls["fit_heston 8 x 21 quotes"] = lambda: tp.fit_heston(
+            Ks, Ts, iv, S0, r, q, device=dev)
+
+    def american(self):
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        # config 2: 1 000 American puts, K 50..150, N = 500
+        n, N, N_fine = (self.CONFIG2[k] for k in ("n", "N", "N_fine"))
+        K = torch.linspace(50.0, 150.0, n).double().numpy()
+        px = tp.crr_vec(100.0, K, 1.0, 0.03, 0.0, 0.2, "put", N=N,
+                        american=True, device=dev).cpu().numpy()
+        iv, secs = timed(lambda: tp.american_implied_vol(
+            px, 100.0, K, 1.0, 0.03, 0.0, "put", N=N, device=dev))
+        ok = ~np.isnan(iv)
+        intrinsic = np.maximum(K - 100.0, 0.0)
+        err = float(np.abs(iv[ok] - 0.2).max())
+        print(f"  american_implied_vol crr N={N} on config 2's {n} puts: "
+              f"max |σ − 0.2| {err:.3e} over {int(ok.sum())} strikes; "
+              f"{int((~ok).sum())} NaN, all at intrinsic ({secs * 1e3:.3f} "
+              f"ms wall)")
+        if err > 1e-8 or not (px[~ok] <= intrinsic[~ok] + 1e-12).all():
+            raise AssertionError("american_implied_vol crr round trip")
+        self.calls[f"american_implied_vol crr {n} puts N={N}"] = \
+            lambda: tp.american_implied_vol(px, 100.0, K, 1.0, 0.03, 0.0,
+                                            "put", N=N, device=dev)
+        # the same strikes priced as tests/test_binomial.py:160-165 prices
+        # its chain (N = 2 000, r 0.05, q 0.02), inverted through BS2002
+        px2 = tp.crr_vec(100.0, K, 1.0, 0.05, 0.02, 0.2, "put", N=N_fine,
+                         american=True, device=dev).cpu().numpy()
+        iv2, secs = timed(lambda: tp.american_implied_vol(
+            px2, 100.0, K, 1.0, 0.05, 0.02, "put", engine="bs2002",
+            device=dev))
+        ok2 = ~np.isnan(iv2)
+        near = ok2 & (K >= 90.0) & (K <= 110.0)
+        err_near = float(np.abs(iv2[near] - 0.2).max())
+        err_all = float(np.abs(iv2[ok2] - 0.2).max())
+        print(f"  american_implied_vol bs2002 of N={N_fine} lattice puts: max "
+              f"|σ − 0.2| {err_near:.3e} on K 90..110 (the test's span, "
+              f"bound 2e-3), {err_all:.3e} over all {int(ok2.sum())} "
+              f"strikes ({secs * 1e3:.3f} ms wall)")
+        if err_near > 2e-3:
+            raise AssertionError("american_implied_vol bs2002 off the "
+                                 "lattice inverse")
+        self.calls[f"american_implied_vol bs2002 {n} puts"] = \
+            lambda: tp.american_implied_vol(px2, 100.0, K, 1.0, 0.05, 0.02,
+                                            "put", engine="bs2002",
+                                            device=dev)
+        bs = tp.bjerksund_stensland_price(100.0, K, 1.0, 0.05, 0.02,
+                                          sigma=0.2, kind="put", device=dev)
+        worst = self.close(bs, tp.bjerksund_stensland_price(
+            100.0, K, 1.0, 0.05, 0.02, sigma=0.2, kind="put", device="cpu"),
+            1e-12, 1e-13, "bjerksund_stensland_price")
+        print(f"  bjerksund_stensland_price {n} puts card vs cpu: largest "
+              f"|diff| / (1e-13 + 1e-12·|cpu|) {worst:.3e}")
+
+    def levy(self):
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        S0, T, r, q = self.LEVY_MKT
+        cos = {"vg": (tp.vg_price_cos, self.VG),
+               "nig": (tp.nig_price_cos, self.NIG),
+               "cgmy": (tp.cgmy_price_cos, self.CGMY)}
+        for name, (fn, kw) in cos.items():
+            for kind in ("call", "put"):
+                out = fn(S0, self.strikes, T, r, q, **kw, kind=kind,
+                         device=dev)
+                worst = self.close(out, fn(S0, self.strikes, T, r, q, **kw,
+                                           kind=kind, device="cpu"),
+                                   1e-10, 1e-12, f"{name}_price_cos {kind}")
+            print(f"  {name}_price_cos {self.N_STRIKES} strikes: card vs "
+                  f"cpu largest |diff| / (1e-12 + 1e-10·|cpu|) {worst:.3e}")
+            self.calls[f"{name}_price_cos {self.N_STRIKES} strikes"] = \
+                lambda fn=fn, kw=kw: fn(S0, self.strikes, T, r, q, **kw,
+                                        device=dev)
+        n = self.PATHS["n_paths"]
+        for name, fn, kw, cos_fn in (
+                ("vg_paths", tp.vg_paths, self.VG, tp.vg_price_cos),
+                ("nig_paths", tp.nig_paths, self.NIG, tp.nig_price_cos)):
+            paths, secs = timed(lambda: fn(S0, T, r, q, **kw, **self.PATHS,
+                                           seed=7, device=dev))
+            if paths.shape != (self.PATHS["n_steps"] + 1, 2 * n) \
+                    or paths.dtype != torch.float64 \
+                    or not torch.isfinite(paths).all():
+                raise AssertionError(f"{name}: bad paths")
+            ST = paths[-1].clone()
+            del paths
+            disc = math.exp(-r * T)
+            # an antithetic pair shares its clock: one sample a pair
+            mean_pair = disc * 0.5 * (ST[:n] + ST[n:])
+            pay = disc * 0.5 * (torch.clamp(ST[:n] - 100.0, min=0.0)
+                                + torch.clamp(ST[n:] - 100.0, min=0.0))
+            m, se = float(mean_pair.mean()), float(mean_pair.std()) / n**0.5
+            c, c_se = float(pay.mean()), float(pay.std()) / n**0.5
+            ref = float(cos_fn(S0, 100.0, T, r, q, **kw, device=dev))
+            print(f"  {name} {n} x {self.PATHS['n_steps']} f64 antithetic: "
+                  f"e^-rT E[S_T] {m:.6f} (se {se:.2e}, S0 {S0}); ATM call "
+                  f"{c:.6f} (se {c_se:.2e}) vs COS {ref:.6f} "
+                  f"({secs * 1e3:.3f} ms wall)")
+            if abs(m - S0) > 4.0 * se or abs(c - ref) > 4.0 * c_se + 1e-3:
+                raise AssertionError(f"{name}: off its COS oracle")
+            self.calls[f"{name} {n} x {self.PATHS['n_steps']} f64"] = \
+                lambda fn=fn, kw=kw: fn(S0, T, r, q, **kw, **self.PATHS,
+                                        seed=7, device=dev)
+
+    def validation(self):
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        opt = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
+        out, secs = timed(lambda: tp.cross_validate(opt, "call", device=dev))
+        two = tp.cross_validate(opt, "put", methods=["bs", "fdm"],
+                                device=dev)
+        print(f"  cross_validate defaults: max_discrepancy "
+              f"{out['max_discrepancy']:.6f} (bs {out['bs']:.6f}, mc "
+              f"{out['mc'][0]:.6f}, tree {out['tree']:.6f}, fdm "
+              f"{out['fdm']:.6f}, fem {out['fem']:.6f}; {secs * 1e3:.3f} ms "
+              f"wall); ['bs', 'fdm'] put {two['max_discrepancy']:.6f}")
+        if not out["max_discrepancy"] < 0.5 or \
+                not two["max_discrepancy"] < 0.1:
+            raise AssertionError("cross_validate discrepancies")
+        self.calls["cross_validate defaults"] = \
+            lambda: tp.cross_validate(opt, "call", device=dev)
+        sweeps = {"tree": [50, 100, 200, 400, 800], "fdm": [50, 100, 200],
+                  "mc": [1000, 10_000, 100_000]}
+        conv = {m: tp.convergence_analysis(opt, "call", m, "N", v,
+                                           device=dev)
+                for m, v in sweeps.items()}
+        print("  convergence_analysis: " + "; ".join(
+            f"{m} errors {[f'{e:.2e}' for e in c['errors']]} order "
+            f"{c['order']:.3f}" for m, c in conv.items()))
+        if not conv["tree"]["order"] > 0 \
+                or not conv["fdm"]["errors"][-1] < conv["fdm"]["errors"][0]:
+            raise AssertionError("convergence_analysis orders")
+        self.calls["convergence_analysis fdm 50/100/200"] = \
+            lambda: tp.convergence_analysis(opt, "call", "fdm", "N",
+                                            sweeps["fdm"], device=dev)
+        spots, vols = np.linspace(0.8, 1.2, 11), np.linspace(-0.1, 0.1, 11)
+        cube = tp.stress_test(opt, "call", spots, vols, [0.0], device=dev)
+        cube_cpu = tp.stress_test(opt, "call", spots, vols, [0.0],
+                                  device="cpu")
+        worst = self.close(torch.tensor(cube), torch.tensor(cube_cpu), 1e-12,
+                           1e-13, "stress_test")
+        base = tp.bs_price(opt, "call", device=dev)
+        print(f"  stress_test 11 x 11 spot x vol: centre {cube[5, 5, 0]:.10f}"
+              f" (bs {base:.10f}); card vs cpu {worst:.3e} of the band")
+        if cube.shape != (11, 11, 1) or abs(cube[5, 5, 0] - base) > 1e-9:
+            raise AssertionError("stress_test centre")
+        self.calls["stress_test 11 x 11"] = lambda: tp.stress_test(
+            opt, "call", spots, vols, [0.0], device=dev)
+
+        n = self.PATHS["n_paths"]
+        paths = tp.gbm_paths(100.0, 0.05, 0.0, 0.2, 1.0,
+                             self.PATHS["n_steps"], n, seed=11, device=dev)
+        std = {}
+        for freq in (1, 4):
+            res, secs = timed(lambda: tp.backtest_delta_hedge(
+                opt, "call", paths, freq, device=dev))
+            pnl = res["pnl"]
+            pairs = 0.5 * (pnl[:n] + pnl[n:])
+            se = float(pairs.std()) / n**0.5
+            std[freq] = res["std_pnl"]
+            print(f"  backtest_delta_hedge gbm_paths {n} x "
+                  f"{self.PATHS['n_steps']} antithetic, every {freq} "
+                  f"step(s): mean P&L {res['mean_pnl']:.6f} (se {se:.2e}), "
+                  f"std {res['std_pnl']:.6f} ({secs * 1e3:.3f} ms wall)")
+            if abs(res["mean_pnl"]) > 4.0 * se + 0.01:
+                raise AssertionError("backtest_delta_hedge mean P&L")
+        if not std[4] > std[1]:
+            raise AssertionError("backtest_delta_hedge: rebalancing less "
+                                 "often should widen the P&L")
+        self.calls[f"backtest_delta_hedge {n} x {self.PATHS['n_steps']} "
+                   "every step"] = \
+            lambda: tp.backtest_delta_hedge(opt, "call", paths, 1,
+                                            device=dev)
+
+    def profiling(self):
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.utils import profiling
+
+        spec = tp.OptionSpec(**SPEC)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            with profiling.trace(tmp):
+                tp.euro_price_mc(spec, "call", n_paths=1_000_000, seed=7,
+                                 device=self.dev)
+            text = (Path(tmp) / "trace.json").read_text()
+        mem = profiling.device_memory()
+        print(f"  profiling.trace around euro_price_mc 1M: trace.json "
+              f"{len(text)} bytes, names terminal_mc_kernel: "
+              f"{'terminal_mc_kernel' in text}; device_memory: {mem}")
+        if "terminal_mc_kernel" not in text:
+            raise AssertionError("the trace does not name terminal_mc_kernel")
+        if len(mem) != torch.cuda.device_count() \
+                or torch.cuda.get_device_name(0) not in mem[0]["device"] \
+                or not mem[0]["bytes_limit"] > 0:
+            raise AssertionError(f"device_memory: {mem}")
+
+    def cli(self):
+        """The five subcommands as subprocesses, started together, each
+        against the same call in-process."""
+        import optpricer_tpu_torch as tp
+
+        market = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.03",
+                  "--sigma", "0.2"]
+        cases = {
+            "heston": (["--lam", "0.3", "--mJ", "-0.1", "--sJ", "0.15"],
+                       lambda: tp.bates_price_cos(
+                           100.0, 110.0, 1.0, 0.03, 0.0, v0=0.04, kappa=1.5,
+                           theta=0.04, xi=0.4, rho=-0.6, lam=0.3, mJ=-0.1,
+                           sJ=0.15, device=self.dev)),
+            "american": (["--kind", "put"],
+                         lambda: tp.bjerksund_stensland_price(
+                             100.0, 110.0, 1.0, 0.03, 0.0, sigma=0.2,
+                             kind="put", device=self.dev)),
+            "barrier": (["--lower", "80", "--upper", "130", "--engine", "fd"],
+                        lambda: tp.fd_price_double_barrier(
+                            tp.OptionSpec(100.0, 110.0, 1.0, 0.03, 0.2),
+                            "call", lower=80.0, upper=130.0, N_S=400,
+                            N_t=400, device=self.dev)),
+            "lookback": ([], lambda: tp.lookback_price_bs(
+                100.0, 1.0, 0.03, 0.0, sigma=0.2, K=110.0, device=self.dev)),
+            "levy": (["--model", "nig"], lambda: tp.nig_price_cos(
+                100.0, 110.0, 1.0, 0.03, 0.0, **self.NIG, device=self.dev)),
+        }
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "optpricer_tpu_torch.cli", name, *market,
+             *extra], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+            for name, (extra, _) in cases.items()}
+        lines = []
+        for name, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {name} exited {proc.returncode}")
+            want = f"{float(cases[name][1]()):.10f}"
+            if out.strip() != want:
+                raise AssertionError(f"cli {name} {out.strip()!r} vs {want}")
+            lines.append(f"{name} {' '.join(cases[name][0])} {want}")
+        print("  cli (subprocesses, each equal to the call in-process): "
+              + " | ".join(lines))
+
+    def phase5(self) -> dict:
+        """The closed-form path with K1's and K7's launch counts set to 0
+        just before it and read just after; returns them."""
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+        from optpricer_tpu_torch.ops import thomas as tth
+
+        fns = {"terminal_mc_kernel": tmc.terminal_mc,
+               "tridiag_pcr_kernel": tth.tridiag_solve_kernel}
+        for fn in fns.values():
+            fn.launches = 0
+        print("phase 5 main path, closed forms (COS, analytic Americans, "
+              "Lévy, validation, profiling):")
+        t0 = time.perf_counter()
+        self.heston()
+        self.american()
+        self.levy()
+        self.validation()
+        self.profiling()
+        self.cli()
+        launches = {name: fn.launches for name, fn in fns.items()}
+        print(f"  closed-form path {time.perf_counter() - t0:.2f} s; "
+              f"launches in this process: {launches}")
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     "closed-form path")
+        return launches
+
+    # -- phase 6 ---------------------------------------------------------
+    @staticmethod
+    def kernel_busy(fn):
+        """(summed kernel ms, kernels) of one call of ``fn`` under
+        torch.profiler, recording the CUDA activity alone and summing the
+        profiler's raw Kineto events: the host's op events, and turning
+        each event into a Python ``FunctionEvent`` (``prof.events()``),
+        would cost more than the longest calls here take (some launch
+        400 000 kernels)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.duration_ns()
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        return sum(kernels) / 1e6, len(kernels)
+
+    def phase6(self):
+        """Each call's host-clock wall (median of 3 after a warm-up; one
+        run for a call of more than a second, phase 5's call its warm-up)
+        and, from one more run under torch.profiler, the time its kernels
+        kept the device busy and that time's share of the wall."""
+        t0 = time.perf_counter()
+        for label, fn in self.calls.items():
+            _, first = timed(fn)
+            wall = first * 1e3 if first > 1.0 else wall_ms(fn, reps=3)
+            busy, n_kernels = self.kernel_busy(fn)
+            print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
+                  f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
+                  f"{n_kernels} kernels) [{self.card}]")
+        print(f"phase 6 closed forms {time.perf_counter() - t0:.2f} s")
+
+
 def main():
+    t_start = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2457,6 +2927,7 @@ def main():
               f"blocks, {waves:.2f} waves")
 
     # phase 3: kernels against their plain versions, on the card
+    print(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     market = MARKET
     # worst[name] = [max rel err, max |price difference|, its case]
     worst = {k: [0.0, 0.0, "-"] for k in ("terminal", "qmc", "path",
@@ -2618,6 +3089,7 @@ def main():
                   f"|price difference| {dprice:.3e} in case [{case}]")
 
     # phase 4: determinism
+    print(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     reps, n_prog = tmc._plan_grid(1 << 24, 2 * tmc.TILE)
     params = tmc._terminal_params(1 << 24, *market, True).to(dev)
     seed = tmc._seed_pair(7, dev)
@@ -2642,6 +3114,7 @@ def main():
           "leverage tables")
 
     # phase 5: the main path through the public API
+    print(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     spec = tp.OptionSpec(**SPEC)
     bs = tp.bs_price(spec, "call", device=dev)
     launch_fns = {"terminal_mc_kernel": tmc.terminal_mc,
@@ -2818,8 +3291,11 @@ def main():
     launches.update(pde.phase5())
     launches.update(desk.phase5())
     launches.update(multi.phase5())
+    closed = ClosedFormSlice(dev, card)
+    closed_launches = closed.phase5()
 
     # phase 6: time
+    print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     times = {}
     for n in (1 << 30, 1 << 24, 1_000_000):   # 1M: phase 5's two 1M calls
         reps, n_prog = tmc._plan_grid(n, 2 * tmc.TILE)
@@ -2919,6 +3395,7 @@ def main():
     pde.phase6(times)
     desk.phase6(times)
     multi.phase6()
+    closed.phase6()
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -2996,7 +3473,10 @@ def main():
     ] + pde.kernel_entries(launches, worst, times) \
         + desk.kernel_entries(launches, worst, times) \
         + multi.kernel_entries(launches, worst)
-    print(f"card: {card}")
+    for entry in kernels:   # K1 and K7 on the closed-form path
+        if entry["name"] in closed_launches:
+            entry["launches_closed_form"] = closed_launches[entry["name"]]
+    print(f"chip_smoke.py {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -56,6 +56,25 @@ from .ops.black_scholes import (bs_price_vec, bs_greeks_vec,
 from .models.binomial import crr_vec
 from .models.pde import fd_price_batch, fd_price_local_vol_batch
 
+# Model validation
+from .validation import (cross_validate, convergence_analysis, stress_test,
+                         backtest_delta_hedge)
+
+# Closed forms, COS transforms, analytic Americans and Lévy models
+from .models.analytic import (merton_price, heston_price_cos,
+                              bates_price_cos, quanto_price,
+                              quanto_adjusted_carry,
+                              sabr_implied_vol, sabr_price_hagan,
+                              fit_heston, heston_greeks_cos, cev_price,
+                              barrier_price_bs, chooser_price,
+                              compound_price, lookback_price_bs,
+                              double_barrier_price_bs)
+from .models.levy import (vg_price_cos, nig_price_cos, cgmy_price_cos,
+                          vg_paths, nig_paths, fit_vg)
+from .models.binomial import american_implied_vol
+from .models.american_analytic import (bjerksund_stensland_price,
+                                       baw_price, rgw_price)
+
 # Multi-asset and LSV
 from .models.basket import (basket_price_mc, basket_greeks_mc,
                             basket_exotic_mc, geometric_basket_price,
@@ -89,6 +108,19 @@ __all__ = [
     # Vectorised
     "bs_price_vec", "bs_greeks_vec", "bs_implied_vol_vec", "crr_vec",
     "bs_higher_greeks_vec", "fd_price_batch", "fd_price_local_vol_batch",
+    # Validation
+    "cross_validate", "convergence_analysis", "stress_test",
+    "backtest_delta_hedge",
+    # Closed forms, COS, analytic Americans, Lévy
+    "merton_price", "heston_price_cos", "bates_price_cos", "cev_price",
+    "barrier_price_bs", "lookback_price_bs", "double_barrier_price_bs",
+    "quanto_price", "quanto_adjusted_carry", "sabr_implied_vol",
+    "sabr_price_hagan", "fit_heston", "heston_greeks_cos",
+    "chooser_price", "compound_price",
+    "american_implied_vol",
+    "vg_price_cos", "nig_price_cos", "cgmy_price_cos",
+    "vg_paths", "nig_paths", "fit_vg",
+    "bjerksund_stensland_price", "baw_price", "rgw_price",
     # Multi-asset and LSV
     "basket_price_mc", "basket_greeks_mc", "basket_exotic_mc",
     "geometric_basket_price", "margrabe_price", "rainbow_price_stulz",

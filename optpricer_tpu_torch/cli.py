@@ -1,12 +1,15 @@
 """Command-line pricing tool of the PyTorch port.
 
 Counterpart of ``optpricer_tpu/cli.py`` for the engines ported so far:
-``bs``, ``binomial``, ``mc``, ``greeks``, ``fd``, ``qmc``, ``lsv`` and
-``basket``, with the same flags and the same 10-decimal output, plus
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
-``basket --american`` raises ``NotImplementedError``: its engine, the
-basket LSMC, is not ported (ROADMAP A.12). The other subcommands wait for
-their engines (ROADMAP).
+``bs``, ``binomial``, ``mc``, ``greeks``, ``fd``, ``heston``, ``american``,
+``barrier``, ``lookback``, ``levy``, ``qmc``, ``lsv`` and ``basket``, with
+the same flags and the same 10-decimal output, plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain versions). Routes whose engine
+is not ported raise ``NotImplementedError`` naming the ROADMAP item that
+ports it: ``basket --american`` (the basket LSMC, A.12) and ``heston
+--engine adi`` / ``--american`` / ``--barrier`` / ``--dividends`` (the
+Heston ADI PDE, A.14). ``lsmc``, ``mlmc`` and ``varswap`` wait for their
+engines (ROADMAP).
 
     python -m optpricer_tpu_torch.cli mc --S0 100 --K 110 --T 1 --r 0.03 \\
         --sigma 0.2 --n-paths 1000000 --seed 7
@@ -14,6 +17,10 @@ their engines (ROADMAP).
         --sigma 0.2 --payoff asian --n-paths 65536 --n-steps 64
     python -m optpricer_tpu_torch.cli fd --S0 100 --K 100 --T 1 --r 0.05 \\
         --sigma 0.2 --N-S 512 --N-t 256 --american --kind put
+    python -m optpricer_tpu_torch.cli heston --S0 100 --K 100 --T 1 \\
+        --r 0.03 --sigma 0.2 --lam 0.3 --mJ -0.1 --sJ 0.15
+    python -m optpricer_tpu_torch.cli barrier --S0 100 --K 100 --T 1 \\
+        --r 0.03 --sigma 0.2 --lower 80 --upper 130 --engine fd
     python -m optpricer_tpu_torch.cli basket --S0s 100,95,105 \\
         --sigmas 0.2,0.3,0.25 --K 100 --T 1 --r 0.03 --payoff asian_basket
     python -m optpricer_tpu_torch.cli lsv --S0 100 --K 100 --T 1 --r 0.03 \\
@@ -90,6 +97,133 @@ def _parse_dividends(cell: str):
         return None
     return [(float(t), float(d)) for t, d in
             (pair.split(":") for pair in cell.split(","))]
+
+
+def _heston_pde_route(route: str):
+    return NotImplementedError(
+        f"heston {route} needs the Heston ADI PDE (models/heston_pde), "
+        "which is not ported yet (ROADMAP A.14)")
+
+
+def _run_heston(ns) -> str:
+    kind = "call" if ns.kind == CALL else "put"
+    hp = dict(v0=ns.v0, kappa=ns.kappa, theta=ns.theta, xi=ns.xi,
+              rho=ns.rho)
+    divs = _parse_dividends(getattr(ns, "dividends", ""))
+    if divs is not None and ns.barrier > 0.0:
+        raise SystemExit("--dividends is not supported with --barrier")
+    if ns.lam > 0.0:
+        if ns.barrier > 0.0 or ns.american or divs is not None:
+            raise SystemExit("--lam (Bates jumps) prices European via "
+                             "COS only")
+        from .models.analytic import bates_price_cos
+
+        value = float(bates_price_cos(ns.S0, ns.K, ns.T, ns.r, ns.q,
+                                      **hp, lam=ns.lam, mJ=ns.mJ,
+                                      sJ=ns.sJ, kind=kind,
+                                      device=ns.device))
+        return f"{value:.10f}"
+    if ns.barrier > 0.0:
+        raise _heston_pde_route("--barrier")
+    if ns.engine == "adi" or ns.american or divs is not None:
+        raise _heston_pde_route("--engine adi" if ns.engine == "adi" else
+                                "--american" if ns.american else
+                                "--dividends")
+    from .models.analytic import heston_price_cos
+
+    value = float(heston_price_cos(ns.S0, ns.K, ns.T, ns.r, ns.q, **hp,
+                                   kind=kind, device=ns.device))
+    return f"{value:.10f}"
+
+
+def _run_american(ns) -> str:
+    kind = "call" if ns.kind == CALL else "put"
+    if ns.D > 0.0:
+        if kind != "call":
+            raise SystemExit("--D (discrete dividend) prices an American "
+                             "CALL via Roll-Geske-Whaley")
+        from .models.american_analytic import rgw_price
+
+        value = float(rgw_price(ns.S0, ns.K, ns.T, ns.r, sigma=ns.sigma,
+                                D=ns.D, t_div=ns.t_div, device=ns.device))
+        return f"{value:.10f}"
+    if ns.engine == "baw":
+        from .models.american_analytic import baw_price as engine
+    else:
+        from .models.american_analytic import \
+            bjerksund_stensland_price as engine
+    value = float(engine(ns.S0, ns.K, ns.T, ns.r, ns.q, sigma=ns.sigma,
+                         kind=kind, device=ns.device))
+    return f"{value:.10f}"
+
+
+def _run_barrier(ns) -> str:
+    double = ns.lower > 0.0 or ns.upper > 0.0
+    if double:
+        if not 0.0 < ns.lower < ns.upper:
+            raise SystemExit("double barrier needs 0 < --lower < --upper")
+        if ns.engine == "fd":
+            from .models.pde import fd_price_double_barrier
+
+            value = fd_price_double_barrier(
+                _spec_of(ns), ns.kind, lower=ns.lower, upper=ns.upper,
+                knock=ns.knock, rebate=ns.rebate, N_S=ns.N_S, N_t=ns.N_t,
+                device=ns.device)
+        else:
+            from .models.analytic import double_barrier_price_bs
+
+            value = float(double_barrier_price_bs(
+                ns.S0, ns.K, ns.T, ns.r, ns.q, sigma=ns.sigma,
+                lower=ns.lower, upper=ns.upper, kind=ns.kind,
+                knock=ns.knock, rebate=ns.rebate, device=ns.device))
+        return f"{value:.10f}"
+    if ns.barrier <= 0.0:
+        raise SystemExit("need --barrier (single) or --lower/--upper "
+                         "(double)")
+    if ns.engine == "fd":
+        from .models.pde import fd_price_barrier
+
+        value = fd_price_barrier(
+            _spec_of(ns), ns.kind, ns.barrier, ns.barrier_type,
+            rebate=ns.rebate, N_S=ns.N_S, N_t=ns.N_t,
+            barrier_mode="operator", device=ns.device)
+    else:
+        from .models.analytic import barrier_price_bs
+
+        value = float(barrier_price_bs(
+            ns.S0, ns.K, ns.T, ns.r, ns.q, sigma=ns.sigma,
+            barrier=ns.barrier, barrier_type=ns.barrier_type,
+            kind=ns.kind, rebate=ns.rebate, device=ns.device))
+    return f"{value:.10f}"
+
+
+def _run_lookback(ns) -> str:
+    from .models.analytic import lookback_price_bs
+
+    value = float(lookback_price_bs(
+        ns.S0, ns.T, ns.r, ns.q, sigma=ns.sigma, kind=ns.kind,
+        strike_type=ns.strike_type, K=ns.K,
+        running_extremum=ns.running_extremum, device=ns.device))
+    return f"{value:.10f}"
+
+
+def _run_levy(ns) -> str:
+    from .models import levy
+
+    common = (ns.S0, ns.K, ns.T, ns.r, ns.q)
+    if ns.model == "vg":
+        value = levy.vg_price_cos(*common, sigma=ns.sigma, theta=ns.theta,
+                                  nu=ns.nu, kind=ns.kind, N=ns.N,
+                                  device=ns.device)
+    elif ns.model == "nig":
+        value = levy.nig_price_cos(*common, alpha=ns.alpha, beta=ns.beta,
+                                   delta=ns.delta, kind=ns.kind, N=ns.N,
+                                   device=ns.device)
+    else:
+        value = levy.cgmy_price_cos(*common, C=ns.C, G=ns.G, M=ns.M,
+                                    Y=ns.Y, kind=ns.kind, N=ns.N,
+                                    device=ns.device)
+    return f"{float(value):.10f}"
 
 
 def _run_greeks(ns) -> str:
@@ -204,6 +338,82 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
                              help="discrete cash dividends 't:amt,t:amt' "
                                   "(piecewise-GBM jump conditions)")),
     ), _run_fd),
+    "heston": ("Heston price (COS transform, or 2-D ADI PDE)", (
+        ("--v0", dict(type=float, default=0.04)),
+        ("--kappa", dict(type=float, default=1.5)),
+        ("--theta", dict(type=float, default=0.04)),
+        ("--xi", dict(type=float, default=0.4)),
+        ("--rho", dict(type=float, default=-0.6)),
+        ("--engine", dict(choices=("cos", "adi"), default="cos")),
+        ("--american", dict(action="store_true",
+                            help="American exercise (forces the ADI PDE; "
+                                 "not ported: raises)")),
+        ("--barrier", dict(type=float, default=0.0,
+                           help="barrier level (forces the ADI PDE; "
+                                "not ported: raises)")),
+        ("--barrier-type", dict(dest="barrier_type",
+                                default="up-and-out")),
+        ("--dividends", dict(default="",
+                             help="discrete cash dividends 't:amt,t:amt' "
+                                  "(forces the ADI PDE; not ported: "
+                                  "raises)")),
+        ("--lam", dict(type=float, default=0.0,
+                       help="jump intensity (> 0 prices BATES via COS)")),
+        ("--mJ", dict(type=float, default=0.0, help="mean log jump")),
+        ("--sJ", dict(type=float, default=0.0, help="log-jump stdev")),
+    ), _run_heston),
+    "american": ("analytic American approximation (O(1) per option)", (
+        ("--engine", dict(choices=("bs2002", "baw"), default="bs2002",
+                          help="Bjerksund-Stensland 2002 or "
+                               "Barone-Adesi-Whaley")),
+        ("--D", dict(type=float, default=0.0,
+                     help="one cash dividend (> 0 prices the call via "
+                          "Roll-Geske-Whaley, exact escrowed model)")),
+        ("--t-div", dict(dest="t_div", type=float, default=0.0,
+                         help="ex-dividend date (with --D)")),
+    ), _run_american),
+    "barrier": ("continuously-monitored barrier, closed form or PDE", (
+        ("--barrier", dict(type=float, default=0.0,
+                           help="single-barrier level")),
+        ("--barrier-type", dict(dest="barrier_type",
+                                default="up-and-out")),
+        ("--lower", dict(type=float, default=0.0,
+                         help="double-barrier corridor floor")),
+        ("--upper", dict(type=float, default=0.0,
+                         help="double-barrier corridor cap")),
+        ("--knock", dict(choices=("in", "out"), default="out",
+                         help="double-barrier direction")),
+        ("--rebate", dict(type=float, default=0.0,
+                          help="paid at expiry")),
+        ("--engine", dict(choices=("analytic", "fd"), default="analytic")),
+        ("--N-S", dict(dest="N_S", type=int, default=400)),
+        ("--N-t", dict(dest="N_t", type=int, default=400)),
+    ), _run_barrier),
+    "lookback": ("continuously-monitored lookback, closed form", (
+        ("--strike-type", dict(dest="strike_type",
+                               choices=("floating", "fixed"),
+                               default="floating")),
+        ("--running-extremum", dict(dest="running_extremum", type=float,
+                                    default=None,
+                                    help="already-observed min/max for "
+                                         "seasoned contracts")),
+    ), _run_lookback),
+    "levy": ("European price under a pure-jump Lévy model (COS)", (
+        ("--model", dict(choices=("vg", "nig", "cgmy"), default="vg")),
+        ("--theta", dict(type=float, default=-0.14,
+                         help="VG drift of the subordinated BM")),
+        ("--nu", dict(type=float, default=0.2,
+                      help="VG variance rate of the gamma clock")),
+        ("--alpha", dict(type=float, default=8.0, help="NIG tail")),
+        ("--beta", dict(type=float, default=-4.0, help="NIG skew")),
+        ("--delta", dict(type=float, default=0.4, help="NIG scale")),
+        ("--C", dict(type=float, default=0.5, help="CGMY activity")),
+        ("--G", dict(type=float, default=5.0, help="CGMY left temper")),
+        ("--M", dict(type=float, default=9.0, help="CGMY right temper")),
+        ("--Y", dict(type=float, default=0.8,
+                     help="CGMY stability index, (0,2) \\ {1}")),
+        ("--N", dict(type=int, default=256, help="COS terms")),
+    ), _run_levy),
     "greeks": ("MC Greek ladder from one kernel run", (
         ("--n-paths", dict(dest="n_paths", type=int, default=1_000_000)),
         ("--seed", dict(type=int, default=None)),

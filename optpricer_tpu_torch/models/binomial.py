@@ -10,7 +10,10 @@ Node prices are computed in log space: S(k, j) = S0·exp(σ√dt·(2j−k)),
 which avoids the u**j overflow of repeated powers and is exact for CRR
 (u = 1/d).
 
-``american_implied_vol`` waits for ``american_analytic`` (ROADMAP A.6).
+``american_implied_vol`` inverts the American lattice (or the
+Bjerksund-Stensland closed form) by 48 bisections over a whole chain at
+once: one ``_crr_sigma_batch`` pass per bisection, the bracket updated with
+``torch.where``, and no host synchronisation until the answer.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..core import CALL, OptionSpec
 from ..dtypes import canonical, resolve_device
 from ..ops.black_scholes import is_call_mask
 
-__all__ = ["crr", "crr_vec"]
+__all__ = ["crr", "crr_vec", "american_implied_vol"]
 
 
 def _tree_params(T: float, r: float, q: float, sigma: float, N: int):
@@ -123,3 +126,110 @@ def crr_vec(S0: float, K, T: float, r: float, q: float, sigma: float,
         torch.as_tensor(np.ascontiguousarray(kind_mask).ravel(), device=dev),
         N=int(N), american=bool(american))
     return out.reshape(np.shape(K_arr))
+
+
+def _crr_sigma_batch(S0, K, T, r, q, sigma, is_call, *, N: int,
+                     american: bool):
+    """CRR prices for a batch where EVERY entry carries its own σ (the
+    inverse-pricing workhorse): per-entry tree constants broadcast against
+    the node axis, the same backward induction as ``_crr_core``."""
+    dt = T / N
+    ssd = sigma * torch.sqrt(dt)                     # (batch,)
+    u = torch.exp(ssd)
+    d = 1.0 / u
+    a = torch.exp((r - q) * dt)
+    p = torch.clamp((a - d) / torch.clamp(u - d, min=1e-12), 0.0,
+                    1.0)[:, None]
+    disc = torch.exp(-r * dt)
+    j = torch.arange(N + 1, dtype=sigma.dtype, device=sigma.device)
+
+    def payoff(S_nodes):
+        pay_c = torch.clamp(S_nodes - K[:, None], min=0.0)
+        pay_p = torch.clamp(K[:, None] - S_nodes, min=0.0)
+        return torch.where(is_call[:, None], pay_c, pay_p)
+
+    V = payoff(S0 * torch.exp(ssd[:, None] * (2.0 * j - N)[None, :]))
+    zero_col = torch.zeros_like(V[:, :1])
+    for k in range(N - 1, -1, -1):
+        cont = disc * (p * V[:, 1:] + (1.0 - p) * V[:, :-1])
+        V = torch.cat([cont, zero_col], dim=1)
+        if american:
+            S_k = S0 * torch.exp(ssd[:, None] * (2.0 * j - float(k))[None, :])
+            V = torch.maximum(V, payoff(S_k))
+    return V[:, 0]
+
+
+def _amer_iv_bisect(target, S0, K, T, r, q, is_call, lo, hi, *, N: int,
+                    n_iter: int = 48):
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        px = _crr_sigma_batch(S0, K, T, r, q, mid, is_call, N=N,
+                              american=True)
+        too_low = px < target
+        lo, hi = torch.where(too_low, mid, lo), torch.where(too_low, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def _amer_iv_bisect_bs2002(target, S0, K, T, r, q, is_call, lo, hi, *,
+                           n_iter: int = 48):
+    """σ-bisection through the Bjerksund-Stensland 2002 closed form — the
+    O(1) inverse (no lattice in the loop); the BS2002 price is monotone ↑
+    in σ like the lattice price, so the same bracket logic applies."""
+    from .american_analytic import _bs2002_price
+
+    S0, K, T, r, q, is_call = torch.broadcast_tensors(S0, K, T, r, q,
+                                                      is_call)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        px = _bs2002_price(S0, K, T, r, q, mid, is_call)
+        too_low = px < target
+        lo, hi = torch.where(too_low, mid, lo), torch.where(too_low, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def american_implied_vol(price, S0: float, K, T: float, r: float,
+                         q: float = 0.0, kind="put", *, N: int = 500,
+                         sigma_lo: float = 1e-3, sigma_hi: float = 5.0,
+                         engine: str = "crr", dtype=None, device=None):
+    """DE-AMERICANISATION: implied vol from American option prices.
+
+    Inverts the CRR lattice by 48 bisections, each pricing the WHOLE chain
+    in one per-entry-σ batched tree (``_crr_sigma_batch``); on the card the
+    bracket lives on the device and the host waits only for the answer.
+    ``engine="bs2002"`` inverts the Bjerksund-Stensland closed form
+    instead (no lattice in the loop).
+
+    Entries whose price is at or below intrinsic (σ unidentifiable) or at
+    or above the no-arbitrage cap come back NaN, as in
+    ``bs_implied_vol_vec``. Scalar in → float out; else a float64 numpy
+    array.
+    """
+    if engine not in ("crr", "bs2002"):
+        raise ValueError("engine must be 'crr' or 'bs2002'")
+    dt_ = canonical(dtype)
+    dev = resolve_device(device)
+    price_arr = np.atleast_1d(np.asarray(price, np.float64))
+    K_arr = np.atleast_1d(np.asarray(K, np.float64))
+    kind_mask = np.broadcast_to(np.atleast_1d(is_call_mask(kind)),
+                                np.broadcast_shapes(price_arr.shape,
+                                                    K_arr.shape))
+    price_arr, K_arr = np.broadcast_arrays(
+        price_arr, np.broadcast_to(K_arr, kind_mask.shape))
+    intrinsic = np.where(kind_mask, np.maximum(S0 - K_arr, 0.0),
+                         np.maximum(K_arr - S0, 0.0))
+    cap = np.where(kind_mask, S0, K_arr)
+
+    t = lambda v: torch.as_tensor(np.array(v, np.float64), dtype=dt_,
+                                  device=dev)
+    args = (t(price_arr), t(S0), t(K_arr), t(T), t(r), t(q),
+            torch.as_tensor(np.array(kind_mask, bool), device=dev),
+            t(np.full(price_arr.shape, sigma_lo)),
+            t(np.full(price_arr.shape, sigma_hi)))
+    if engine == "bs2002":
+        iv = _amer_iv_bisect_bs2002(*args)
+    else:
+        iv = _amer_iv_bisect(*args, N=int(N))
+    iv = iv.cpu().numpy().astype(np.float64)
+    bad = (price_arr <= intrinsic + 1e-12) | (price_arr >= cap)
+    iv = np.where(bad, np.nan, iv)
+    return iv if np.ndim(price) or np.ndim(K) else float(iv[0])

@@ -10,7 +10,13 @@ for the Greeks bands at 2^20 paths scaled from tests/test_mc_greeks.py.
 ``exotic_price_mc(backend="qmc", device="cpu")`` gives, at 10 decimals, and
 so must ``basket`` and ``lsv`` (the latter calibrating on a surface file
 written by the JAX package and pricing again from its saved model);
-``basket --american`` raises ``NotImplementedError``.
+``basket --american`` raises ``NotImplementedError``. The closed-form
+subcommands ``heston`` (COS, Bates), ``american`` (bs2002, baw, rgw),
+``barrier`` (analytic and fd, single and double), ``lookback`` and
+``levy`` (vg, nig, cgmy) print what the port's in-process call gives, and
+the reference CLI's line too (deterministic f64 engines); ``heston``'s
+ADI, ``--american``, ``--barrier`` and ``--dividends`` routes raise
+``NotImplementedError`` naming ROADMAP A.14.
 """
 import numpy as np
 import pytest
@@ -174,3 +180,96 @@ def test_lsv_line_equals_port_entry_point(tmp_path, capsys):
     px, se = tp.lsv_price_mc("barrier", saved, 110.0, n_paths=4096, seed=2,
                              barrier=130.0, device="cpu")
     assert again == f"{px:.10f}  (stderr {se:.10f})"
+
+
+def _closed_form_call(cmd, extra):
+    """The port's in-process call behind each closed-form subcommand line
+    (``MARKET``: S0 100, K 110, T 1, r 0.03, σ 0.2, q 0)."""
+    from optpricer_tpu_torch.models import (american_analytic as am,
+                                            analytic as an, levy, pde)
+
+    S0, K, T, r, sig = 100.0, 110.0, 1.0, 0.03, 0.2
+    spec = tp.OptionSpec(S0=S0, K=K, T=T, r=r, sigma=sig)
+    opt = dict(zip(extra[::2], extra[1::2]))
+    kind = "put" if opt.get("--kind") == "put" else "call"
+    cpu = dict(device="cpu")
+    heston = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6)
+    if cmd == "heston":
+        if "--lam" in opt:
+            return an.bates_price_cos(S0, K, T, r, 0.0, **heston, lam=0.3,
+                                      mJ=-0.1, sJ=0.15, kind=kind, **cpu)
+        return an.heston_price_cos(S0, K, T, r, 0.0, **heston, kind=kind,
+                                   **cpu)
+    if cmd == "american":
+        if "--D" in opt:
+            return am.rgw_price(S0, K, T, r, sigma=sig, D=3.0, t_div=0.5,
+                                **cpu)
+        engine = am.baw_price if opt.get("--engine") == "baw" \
+            else am.bjerksund_stensland_price
+        return engine(S0, K, T, r, 0.0, sigma=sig, kind=kind, **cpu)
+    if cmd == "barrier":
+        fd = opt.get("--engine") == "fd"
+        if "--lower" in opt:
+            kw = dict(lower=80.0, upper=130.0, knock=opt.get("--knock",
+                                                             "out"))
+            if fd:
+                return pde.fd_price_double_barrier(spec, kind, **kw, N_S=96,
+                                                   N_t=48, **cpu)
+            return an.double_barrier_price_bs(S0, K, T, r, 0.0, sigma=sig,
+                                              kind=kind, **kw, **cpu)
+        if fd:
+            return pde.fd_price_barrier(spec, kind, 130.0, "up-and-out",
+                                        rebate=1.0, N_S=96, N_t=48,
+                                        barrier_mode="operator", **cpu)
+        return an.barrier_price_bs(S0, K, T, r, 0.0, sigma=sig, barrier=90.0,
+                                   barrier_type="down-and-in", kind=kind,
+                                   **cpu)
+    if cmd == "lookback":
+        return an.lookback_price_bs(S0, T, r, 0.0, sigma=sig, kind=kind,
+                                    strike_type=opt.get("--strike-type",
+                                                        "floating"),
+                                    K=K, **cpu)
+    model = opt.get("--model", "vg")
+    if model == "vg":
+        return levy.vg_price_cos(S0, K, T, r, 0.0, sigma=sig, theta=-0.14,
+                                 nu=0.2, kind=kind, **cpu)
+    if model == "nig":
+        return levy.nig_price_cos(S0, K, T, r, 0.0, alpha=8.0, beta=-4.0,
+                                  delta=0.4, kind=kind, **cpu)
+    return levy.cgmy_price_cos(S0, K, T, r, 0.0, C=0.5, G=5.0, M=9.0, Y=0.8,
+                               kind=kind, **cpu)
+
+
+@pytest.mark.parametrize("cmd, extra", [
+    ("heston", []),
+    ("heston", ["--kind", "put"]),
+    ("heston", ["--lam", "0.3", "--mJ", "-0.1", "--sJ", "0.15"]),
+    ("american", []),
+    ("american", ["--kind", "put"]),
+    ("american", ["--engine", "baw", "--kind", "put"]),
+    ("american", ["--D", "3", "--t-div", "0.5"]),
+    ("barrier", ["--barrier", "90", "--barrier-type", "down-and-in"]),
+    ("barrier", ["--barrier", "130", "--rebate", "1", "--engine", "fd",
+                 "--N-S", "96", "--N-t", "48"]),
+    ("barrier", ["--lower", "80", "--upper", "130", "--kind", "put"]),
+    ("barrier", ["--lower", "80", "--upper", "130", "--knock", "in",
+                 "--engine", "fd", "--N-S", "96", "--N-t", "48"]),
+    ("lookback", []),
+    ("lookback", ["--strike-type", "fixed", "--kind", "put"]),
+    ("levy", []),
+    ("levy", ["--model", "nig", "--kind", "put"]),
+    ("levy", ["--model", "cgmy"]),
+])
+def test_closed_form_lines(cmd, extra, capsys):
+    argv = [cmd, *MARKET, *extra]
+    got = _run(tcli.main, argv + ["--device", "cpu"], capsys)
+    assert got == f"{float(_closed_form_call(cmd, extra)):.10f}"
+    assert got == _run(jcli.main, argv, capsys)
+
+
+@pytest.mark.parametrize("extra", [["--engine", "adi"], ["--american"],
+                                   ["--barrier", "130"],
+                                   ["--dividends", "0.5:2"]])
+def test_heston_pde_routes_are_not_ported(extra):
+    with pytest.raises(NotImplementedError, match="A.14"):
+        tcli.main(["heston", *MARKET, *extra, "--device", "cpu"])

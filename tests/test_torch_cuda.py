@@ -30,12 +30,19 @@ kernel's (K2) rows equal to the recorded ones (``K2_SUMS``) bit for bit,
 and to its plain version at tails, one to eight reps and more programs
 than the card holds clusters, one launch counted a call;
 its Box-Muller sincosf is held to cosf and sinf bit for bit on every
-angle it can draw.
+angle it can draw. The closed-form slice (no kernel of its own): every
+public function of ``analytic``, ``american_analytic``, ``levy``,
+``validation`` and ``american_implied_vol`` on the card equal to the same
+call on the CPU, at the tolerances of its CPU parity test; the Lévy cores
+fed the same draws; the port's gamma sampler and ``vg_paths`` held
+statistically; ``profiling.trace`` naming K1 and ``device_memory`` the
+card.
 """
 import numpy as np
 import pytest
 import torch
 
+import optpricer_tpu_torch as tp
 from optpricer_tpu_torch import OptionSpec, fd_price, fd_price_local_vol_batch
 from optpricer_tpu_torch.ops import basket_mc as tbk
 from optpricer_tpu_torch.ops import fd_lv as tlv
@@ -917,3 +924,213 @@ def test_sincosf_is_cosf_and_sinf_on_every_box_muller_angle(cuda_device,
     out = subprocess.run([str(exe)], capture_output=True, text=True,
                          check=True, timeout=600).stdout.split()
     assert out == ["0", "no", "error"], out
+
+
+# ---------------------------------------------------------------------------
+# the closed-form slice: every public function on the card equal to the
+# same call on the CPU (float64), at the tolerances of its CPU parity test
+# ---------------------------------------------------------------------------
+def _both(fn, cuda_device):
+    out = fn(cuda_device), fn("cpu")
+    return [np.asarray(o.cpu() if isinstance(o, torch.Tensor) else o,
+                       np.float64) for o in out]
+
+
+_HESTON = dict(v0=0.045, kappa=1.8, theta=0.05, xi=0.45, rho=-0.55)
+_KS = np.linspace(60.0, 140.0, 33)
+_CLOSED = {
+    "merton": lambda d: tp.merton_price(100.0, _KS, 0.75, 0.04, 0.01,
+                                        sigma=0.22, lam=0.6, mJ=-0.07,
+                                        sJ=0.13, device=d),
+    "sabr": lambda d: tp.sabr_price_hagan(100.0, _KS, 0.75, 0.04, 0.01,
+                                          alpha=0.22, beta=0.7, nu=0.5,
+                                          rho=-0.4, kind="put", device=d),
+    "barrier": lambda d: tp.barrier_price_bs(100.0, _KS, 1.0, 0.03, 0.01,
+                                             sigma=0.25, barrier=80.0,
+                                             barrier_type="down-and-out",
+                                             rebate=1.5, device=d),
+    "lookback": lambda d: tp.lookback_price_bs(100.0, 1.0, 0.03, 0.01,
+                                               sigma=0.25, kind="put",
+                                               strike_type="fixed", K=_KS,
+                                               device=d),
+    "double barrier": lambda d: tp.double_barrier_price_bs(
+        100.0, _KS, 1.0, 0.03, 0.01, sigma=0.25, lower=70.0, upper=140.0,
+        knock="in", device=d),
+    "quanto": lambda d: tp.quanto_price(100.0, _KS, 1.0, 0.03, 0.01,
+                                        sigma_S=0.2, sigma_fx=0.1,
+                                        rho_sfx=-0.3, device=d),
+    "chooser": lambda d: tp.chooser_price(100.0, _KS, 1.0, 0.03, 0.01,
+                                          sigma=0.2, t_choose=0.4, device=d),
+    "compound": lambda d: tp.compound_price(100.0, 8.0, 100.0, 0.5, 1.5,
+                                            0.03, 0.01, sigma=0.25,
+                                            underlying="put", device=d),
+    "bs2002": lambda d: tp.bjerksund_stensland_price(
+        100.0, _KS, 1.0, 0.05, 0.02, sigma=0.3, kind="put", device=d),
+    "baw": lambda d: tp.baw_price(100.0, _KS, 1.0, 0.05, 0.08, sigma=0.3,
+                                  device=d),
+    "rgw": lambda d: tp.rgw_price(100.0, _KS, 1.0, 0.05, sigma=0.3, D=4.0,
+                                  t_div=0.5, device=d),
+}
+
+
+@pytest.mark.parametrize("name", list(_CLOSED))
+def test_closed_forms_on_card_match_cpu(cuda_device, name):
+    got, want = _both(_CLOSED[name], cuda_device)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-13)
+
+
+def test_cev_and_gammainc_on_card_match_cpu(cuda_device):
+    from optpricer_tpu_torch.models import analytic as ta
+
+    got, want = _both(lambda d: tp.cev_price(100.0, _KS, 1.0, 0.03, 0.01,
+                                             sigma=0.5, beta=0.8, device=d),
+                      cuda_device)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-10)
+    a = torch.tensor(np.geomspace(0.5, 2100.0, 40), dtype=torch.float64)
+    x = torch.tensor(np.geomspace(1e-3, 4000.0, 50), dtype=torch.float64)
+    p = lambda d: ta._gammainc(a[:, None].to(d), x[None, :].to(d), 430)
+    # the log prefactor a·ln x − x − lnΓ(a) reaches ~1e4 at a ≈ 2 000:
+    # an ulp of it in the card's or the host's log/lgamma moves P by ~1e-13
+    np.testing.assert_allclose(p(cuda_device).cpu().numpy(), p("cpu").numpy(),
+                               rtol=0.0, atol=1e-12)
+
+
+_COS = {
+    "heston": lambda d: tp.heston_price_cos(100.0, _KS, 0.75, 0.04, 0.01,
+                                            **_HESTON, device=d),
+    "bates": lambda d: tp.bates_price_cos(100.0, _KS, 0.75, 0.04, 0.01,
+                                          **_HESTON, lam=0.3, mJ=-0.1,
+                                          sJ=0.15, kind="put", device=d),
+    "vg": lambda d: tp.vg_price_cos(100.0, _KS, 0.5, 0.03, 0.01, sigma=0.2,
+                                    theta=-0.14, nu=0.2, device=d),
+    "nig": lambda d: tp.nig_price_cos(100.0, _KS, 0.5, 0.03, 0.01,
+                                      alpha=8.0, beta=-4.0, delta=0.4,
+                                      kind="put", device=d),
+    "cgmy": lambda d: tp.cgmy_price_cos(100.0, _KS, 0.5, 0.03, 0.01, C=0.5,
+                                        G=5.0, M=9.0, Y=1.5, device=d),
+}
+
+
+@pytest.mark.parametrize("name", list(_COS))
+def test_cos_pricers_on_card_match_cpu(cuda_device, name):
+    got, want = _both(_COS[name], cuda_device)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+
+
+def test_trig_kpi_float32_on_card(cuda_device):
+    from optpricer_tpu_torch.models import analytic as ta
+
+    k = torch.arange(4096, dtype=torch.float32)[None, :]
+    frac = torch.rand(64, 1, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(ta._kpi_fixed(k.to(cuda_device),
+                                     frac.to(cuda_device)).cpu(),
+                       ta._kpi_fixed(k, frac))
+    ulp = float(np.spacing(np.float32(1.0)))
+    for a, b in zip(ta._trig_kpi(k.to(cuda_device), frac.to(cuda_device),
+                                 torch.float32),
+                    ta._trig_kpi(k, frac, torch.float32)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * ulp
+
+
+def test_heston_greeks_and_fits_on_card_match_cpu(cuda_device):
+    g = tp.heston_greeks_cos(100.0, 105.0, 0.75, 0.04, 0.01, **_HESTON,
+                             device=cuda_device)
+    ref = tp.heston_greeks_cos(100.0, 105.0, 0.75, 0.04, 0.01, **_HESTON,
+                               device="cpu")
+    for name, value in ref.items():
+        assert g[name] == pytest.approx(value, rel=1e-9), name
+    Ts = np.repeat([0.25, 1.0], 7)
+    Ks = np.tile(np.linspace(85.0, 115.0, 7), 2)
+    px = tp.heston_price_cos(100.0, torch.tensor(Ks), torch.tensor(Ts), 0.04,
+                             0.01, **_HESTON, N=128, device="cpu")
+    iv = tp.bs_implied_vol_vec(100.0, Ks, Ts, 0.04, 0.01, px, "call",
+                               device="cpu").numpy()
+    fits = [tp.fit_heston(Ks, Ts, iv, 100.0, 0.04, 0.01, device=d)
+            for d in (cuda_device, "cpu")]
+    for name in ("v0", "kappa", "theta", "xi", "rho"):
+        assert abs(fits[0][name] - fits[1][name]) < 1e-8, name
+    vg = [tp.fit_vg(Ks[:7], Ts[:7], iv[:7], 100.0, 0.04, 0.01, device=d)
+          for d in (cuda_device, "cpu")]
+    for name in ("sigma", "theta", "nu"):
+        assert abs(vg[0][name] - vg[1][name]) < 1e-8, name
+
+
+@pytest.mark.parametrize("engine", ["crr", "bs2002"])
+def test_american_implied_vol_on_card_matches_cpu(cuda_device, engine):
+    K = np.linspace(70.0, 140.0, 40)
+    px = tp.crr_vec(100.0, K, 1.0, 0.03, 0.0, 0.2, "put", N=100,
+                    american=True, device="cpu").numpy()
+    got, want = (tp.american_implied_vol(px, 100.0, K, 1.0, 0.03, 0.0,
+                                         "put", N=100, engine=engine,
+                                         device=d)
+                 for d in (cuda_device, "cpu"))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-10)
+
+
+def test_levy_cores_and_samplers_on_card(cuda_device):
+    from optpricer_tpu_torch.models import levy as tl
+
+    gen = torch.Generator().manual_seed(9)
+    g = tl._standard_gamma(gen, 0.05, (16, 500), torch.float64, "cpu") * 0.2
+    Z = torch.randn(16, 500, generator=gen, dtype=torch.float64)
+    U = torch.rand(16, 500, generator=gen, dtype=torch.float64)
+    par = [torch.tensor(v, dtype=torch.float64)
+           for v in (100.0, 0.8, 0.03, 0.01, 0.2, -0.14, 0.2)]
+    on = lambda ts: [t.to(cuda_device) for t in ts]
+    vg = [tl._vg_core(*ts[:2], *ts[2:], antithetic=True).cpu()
+          for ts in (on([g, Z] + par), [g, Z] + par)]
+    torch.testing.assert_close(vg[0], vg[1], rtol=1e-12, atol=0.0)
+    nig = [torch.tensor(v, dtype=torch.float64) for v in (8.0, -4.0, 0.4)]
+    mu, lam = tl._nig_clock(par[1], *nig, 16)
+    I = [tl._ig_core(*ts) for ts in (on([Z, U, mu, lam]), [Z, U, mu, lam])]
+    torch.testing.assert_close(I[0].cpu(), I[1], rtol=1e-12, atol=0.0)
+    paths = [tl._nig_core(*ts[:2], *ts[2:], antithetic=False).cpu()
+             for ts in (on([I[1], Z] + par[:4] + nig),
+                        [I[1], Z] + par[:4] + nig)]
+    torch.testing.assert_close(paths[0], paths[1], rtol=1e-12, atol=0.0)
+    draws = tl._standard_gamma(torch.Generator(cuda_device).manual_seed(4),
+                               0.3, (400_000,), torch.float64, cuda_device)
+    assert abs(float(draws.mean()) - 0.3) < 5 * (0.3 / 400_000) ** 0.5
+    P = tp.vg_paths(100.0, 1.0, 0.03, 0.0, sigma=0.2, theta=-0.14, nu=0.2,
+                    n_steps=32, n_paths=100_000, seed=5, device=cuda_device)
+    assert P.device == torch.device(cuda_device) and P.shape == (33, 200_000)
+    ST = P[-1].cpu().numpy()
+    pay = np.exp(-0.03) * 0.5 * (np.maximum(ST[:100_000] - 100.0, 0.0)
+                                 + np.maximum(ST[100_000:] - 100.0, 0.0))
+    cos = float(tp.vg_price_cos(100.0, 100.0, 1.0, 0.03, 0.0, sigma=0.2,
+                                theta=-0.14, nu=0.2, device=cuda_device))
+    assert abs(pay.mean() - cos) < 4 * pay.std() / 100_000 ** 0.5 + 1e-3
+
+
+def test_validation_on_card_matches_cpu(cuda_device):
+    opt = OptionSpec(S0=100.0, K=105.0, T=0.75, r=0.04, sigma=0.22, q=0.01)
+    small = dict(methods=["bs", "tree", "fdm", "fem"], tree_N=200,
+                 fd_N_S=120, fd_N_t=120, fem_N_S=120, fem_N_t=120)
+    got, want = (tp.cross_validate(opt, "put", **small, device=d)
+                 for d in (cuda_device, "cpu"))
+    for name in ("bs", "tree", "fdm", "fem"):
+        assert got[name] == pytest.approx(want[name], rel=1e-9), name
+    cube = [tp.stress_test(opt, "call", [0.9, 1.0, 1.1], [-0.05, 0.0],
+                           [0.0, 0.01], device=d)
+            for d in (cuda_device, "cpu")]
+    np.testing.assert_allclose(cube[0], cube[1], rtol=1e-12, atol=1e-13)
+    paths = tp.gbm_paths(100.0, 0.04, 0.01, 0.22, 0.75, 21, 2_000, seed=3,
+                         device="cpu")
+    res = [tp.backtest_delta_hedge(opt, "call", paths, 3, device=d)
+           for d in (cuda_device, "cpu")]
+    np.testing.assert_allclose(res[0]["pnl"], res[1]["pnl"], rtol=0.0,
+                               atol=1e-10)
+
+
+def test_profiling_on_card(cuda_device, tmp_path):
+    from optpricer_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path)):
+        tp.euro_price_mc(OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.03,
+                                    sigma=0.2), "call", n_paths=1 << 20,
+                         seed=1, device=cuda_device)
+    assert "terminal_mc_kernel" in (tmp_path / "trace.json").read_text()
+    mem = profiling.device_memory()
+    assert len(mem) == torch.cuda.device_count()
+    assert mem[0]["bytes_limit"] > 0 and mem[0]["bytes_in_use"] >= 0

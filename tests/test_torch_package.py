@@ -40,7 +40,8 @@ def test_import_never_pulls_in_jax():
                    "models.exotics", "risk",
                    "scripts.desk_workflow_localvol_barrier",
                    "models.basket", "models.lsv", "ops.bvn", "ops.basket_mc",
-                   "utils.serialization"):
+                   "utils.serialization", "utils.profiling", "utils.timing",
+                   "validation", "models.american_analytic", "models.levy"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
@@ -61,6 +62,44 @@ def test_public_names_resolve():
     for name in ("ad_greeks", "portfolio_risk_fast", "exposure_profile"):
         assert name in tp.__all__, name
     assert "jax" not in repr(vars(tp)).lower().replace("optpricer_tpu", "")
+
+
+# the names of the closed-form slice: validation, the analytic closed forms
+# and COS pricers, the analytic Americans, the Lévy models and the
+# American implied vol
+SLICE_NAMES = (
+    "cross_validate", "convergence_analysis", "stress_test",
+    "backtest_delta_hedge",
+    "merton_price", "heston_price_cos", "bates_price_cos", "quanto_price",
+    "quanto_adjusted_carry", "sabr_implied_vol", "sabr_price_hagan",
+    "fit_heston", "heston_greeks_cos", "cev_price", "barrier_price_bs",
+    "chooser_price", "compound_price", "lookback_price_bs",
+    "double_barrier_price_bs",
+    "bjerksund_stensland_price", "baw_price", "rgw_price",
+    "vg_price_cos", "nig_price_cos", "cgmy_price_cos", "vg_paths",
+    "nig_paths", "fit_vg",
+    "american_implied_vol",
+)
+
+
+def test_slice_names_keep_the_reference_parameters():
+    """103 of the reference's names; each of the slice's 29 takes the
+    reference's parameters, of the same kind and with the same defaults,
+    and adds at most ``dtype=`` and ``device=``."""
+    import inspect
+
+    import optpricer_tpu as jp
+
+    assert len(SLICE_NAMES) == 29 and len(tp.__all__) == 103
+    for name in SLICE_NAMES:
+        assert name in tp.__all__, name
+        ours = inspect.signature(getattr(tp, name)).parameters
+        theirs = inspect.signature(getattr(jp, name)).parameters
+        for pname, param in theirs.items():
+            assert pname in ours, (name, pname)
+            assert ours[pname].kind == param.kind, (name, pname)
+            assert ours[pname].default == param.default, (name, pname)
+        assert set(ours) - set(theirs) <= {"dtype", "device"}, name
 
 
 def test_option_spec_round_trip():
