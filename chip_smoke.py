@@ -72,7 +72,14 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      (up-and-out 130), on a fixed 16-step table for the five payoffs x
      antithetic on/off at 2^16 + 123 paths, and up-and-out 125 there on a
      degree-5 table (the Horner loop over a shared row) and a 130-step
-     degree-12 table (past one staged window of leverage rows).
+     degree-12 table (past one staged window of leverage rows);
+   * the three sharded kernel entries (``MeshScanSlice``) on
+     ``get_mesh(devices=["cuda:0"] * 4)`` and on ``get_mesh()``: K1-m at
+     2^24 draws, K4-m on config 3's Asian at 2^20 x 252 with Greek
+     moments, K6-m on the `[basket-path]` book (2^18 pairs x 64): each
+     shard's kernel stats against its plain version over the same program
+     offset, and the entry's result equal, bit for bit, to the shards'
+     kernel stats added in mesh order.
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
@@ -191,6 +198,35 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      same call in-process.
    K1 and K7 must have been launched on it; their counts are the
    ``launches_closed_form`` of their kernel entries.
+   The mesh and scan path (``MeshScanSlice``; no kernel of its own):
+   * euro_price_mc(backend="xla") at 1M f64 within 4 se + 1e-4 of BS;
+     euro_greeks_mc(backend="xla")'s delta, vega and rho within 4 se of
+     BS, the se from 16 seeds; mc_sumstats_sharded on 4 x cuda:0 equal to
+     the one-device scan to 1e-12;
+   * the scan engine in f64: config 3's Asian with the geometric CV (1M x
+     252) within 5·hypot(se, se) of the K4 route; at 200 000 x 252 the
+     vanilla under heston and heston_qe within 4 se + 2e-3 of
+     heston_price_cos, merton (4 se + 1e-3 of merton_price), vg and nig
+     (4 se + 1e-3 of their COS prices), sabr_ln and sabr_cev (5·hypot of
+     the K4 route), lv_milstein on the desk's SVI closure (5·hypot +
+     1e-3 of the desk's K4 Dupire route); exact CEV at 200 000 x 64
+     within 4 se + 1e-3 of cev_price; a two-dividend call within 4 se +
+     2e-3 of fd_price (1 024 x 252, the same schedule); the Heston AD
+     delta at 2^18 x 252 within 4 se + 1e-3 of heston_greeks_cos; the f64
+     QMC geometric Asian at 65 536 x 8 x 64 within 4 se + 1e-4 of its
+     closed form; each scan core on the card equal to the CPU's, fed the
+     same draws, at rtol 1e-12;
+   * every mesh= route on 4 x cuda:0 within 5·hypot(se, se) of its
+     one-device call (euro_price_mc kernel and xla, euro_greeks_mc,
+     exotic_price_mc kernel and scan, exotic_greeks_mc kernel and AD,
+     exotic_price_mc_dupire, basket_price_mc, basket_exotic_mc kernel and
+     scan, lsv_price_mc kernel and scan, lsv_greeks_mc);
+   * the batch pricers on 4 x cuda:0 equal to their one-device calls:
+     bs_price/greeks_sharded on 1M options (1e-12), crr_vec_sharded on
+     config 2's 1 000 American puts at N 500 (1e-10), fd_batch_sharded
+     on them at 200 x 200 (1e-8).
+   K1, K4, K6 and K7 must have been launched on it; their counts are the
+   ``launches_mesh_scan`` of their kernel entries.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
    draws and its plain version at 2^24 and 1 000 000; K2 and its plain
@@ -231,7 +267,11 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    16-asset basket barrier, and euro_price_mc_batch on 1 000 contracts x
    1M; each closed-form call of phase 5 (median of 3, or one run for a
    call of more than a second) with its device-busy share under
-   torch.profiler (the CUDA activity alone, its raw events summed).
+   torch.profiler (the CUDA activity alone, its raw events summed); the
+   three sharded entries on 4 x cuda:0 at phase 3's shapes (the plain
+   shards' ordered sums once), and each call of the mesh and scan path
+   as the closed forms' (one run above 0.3 s; a call under 20 ms
+   repeated under the profiler to fill 20 ms).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -249,8 +289,12 @@ single PyTorch call computes). K7's ``max_abs_err`` is in solution units,
 K8's in price units, K3's the largest over the book's contracts. K7's
 entry also has its launches by (rows, systems) on the PDE path, K8's its
 launches by method, both forms' times for calls and American puts and the
-pre-kernel's; K6's its resident blocks per SM at each shape. The last line
-is ``{"ok": true, "device": {...}}``.
+pre-kernel's; K6's its resident blocks per SM at each shape; K1's, K4's
+and K6's their sharded entry's time on 4 x cuda:0 beside its plain
+version and bound (``ms_sharded``, ``plain_ms_sharded``,
+``bound_ms_sharded``) and phase 3's worst shard
+(``max_rel_err_sharded``). The last line is ``{"ok": true, "device":
+{...}}``.
 
     python3 chip_smoke.py --ab OTHER_TREE [GROUP,...]
 
@@ -2882,6 +2926,574 @@ class ClosedFormSlice:
         print(f"phase 6 closed forms {time.perf_counter() - t0:.2f} s")
 
 
+class MeshScanSlice:
+    """The mesh path and the scan engines: the single-controller mesh
+    (``parallel/``) with the three sharded kernel entries (K1, K4, K6)
+    and the batch pricers, the chunk scan of ``monte_carlo`` (A.5) and
+    ``mc_fused``'s scan engine with the exact CEV sampler, the pathwise-AD
+    Greeks and the float64 QMC route (A.10), through the public API on
+    the card, each held to an oracle, to the kernel route, or to its
+    one-device call."""
+
+    PATHS = dict(n_paths=200_000, n_steps=252)
+    HESTON = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6)
+    MERTON = dict(sigma=0.2, lam=0.5, mJ=-0.1, sJ=0.15)
+    VG = dict(sigma=0.2, theta=-0.14, nu=0.2)
+    NIG = dict(alpha=8.0, beta=-4.0, delta=0.4)
+    SABR_LN = dict(alpha0=0.25, beta=1.0, nu=0.5, rho=-0.4)
+    SABR_CEV = dict(alpha0=2.0, beta=0.5, nu=0.4, rho=-0.3)
+    CEV = dict(alpha0=2.0, beta=0.5, nu=0.0, rho=0.0)
+    MKT = (100.0, 100.0, 1.0, 0.03, 0.01)        # S0, K, T, r, q
+
+    def __init__(self, dev, card, multi):
+        self.dev, self.card, self.multi = dev, card, multi
+        self.calls = {}          # label -> the slice's user call, phase 6
+        self.worst = {}          # entry -> (max rel err, case), phase 3
+
+    def meshes(self):
+        from optpricer_tpu_torch.parallel import get_mesh
+
+        return {"4 x cuda:0": get_mesh(devices=[str(self.dev)] * 4),
+                f"get_mesh() ({torch.cuda.device_count()} card)": get_mesh()}
+
+    # -- phase 3 ---------------------------------------------------------
+    def shard_cases(self, mesh):
+        """[(kernel name, case, [(kernel stats, plain stats)] a shard, the
+        entry's result, signed stats, the entry's call, the plain shards'
+        ordered sum as one call, (bound ms, bound by))] at the shapes
+        phase 5 runs."""
+        import numpy as np
+
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+        dev = mesh.device_list[0]
+
+        def shards(kernel, plain, seed, params, per_rep, n):
+            """The shard pairs, and the plain shards' ordered sum."""
+            reps, per, offs = tmc._shard_plan(mesh, n, per_rep)
+            seeds = [tmc._seed_pair(seed, dev, off) for _, off in offs]
+            kw = dict(n_programs=per, reps=reps)
+            pairs = [(kernel(sd, params, **kw), plain(sd, params, **kw))
+                     for sd in seeds]
+
+            def plain_sum():
+                total = plain(seeds[0], params, **kw)
+                for sd in seeds[1:]:
+                    total = total + plain(sd, params, **kw)
+                return total
+            return pairs, plain_sum
+
+        out = []
+        n1 = 1 << 24                             # K1-m: 2^24 draws
+        params1 = tmc._terminal_params(n1, *MARKET, True).to(dev)
+        pairs, plain_sum = shards(
+            lambda sd, p, **kw: tmc.terminal_mc(sd, p, antithetic=True, **kw),
+            lambda sd, p, **kw: tmc._mc_sumstats_plain(sd, p, antithetic=True,
+                                                       **kw),
+            7, params1, 2 * tmc.TILE, n1)
+        entry1 = lambda: tmc.mc_sumstats_kernel_sharded(  # noqa: E731
+            mesh, 7, n1, *MARKET, True, antithetic=True)
+        out.append(("terminal_mc_kernel", "K1-m 2^24 call antithetic", pairs,
+                    entry1(), (), entry1, plain_sum,
+                    bound(n1 * OPS_K1_DRAW, 36 * len(pairs))))
+        n4, steps4 = 1 << 20, 252                # K4-m: config 3's asian
+        host4, static4 = pmc._resolve_config(
+            n4, steps4, *MARKET, True, "asian", True, 0.0, "up-and-out",
+            0.0, "arithmetic", "fixed", 1.0, None, "log_euler", 0.01, None,
+            None, False, None)
+        static4.pop("svi")
+        pairs, plain_sum = shards(
+            lambda sd, p, **kw: pmc.path_mc(sd, p, with_greeks=True,
+                                            **static4, **kw),
+            lambda sd, p, **kw: pmc._path_mc_plain(sd, p, with_greeks=True,
+                                                   **static4, **kw),
+            11, host4.to(dev), pmc.TILE, n4)
+        entry4 = lambda: pmc.path_mc_sumstats_kernel_sharded(  # noqa: E731
+            mesh, 11, n4, steps4, *MARKET, True, payoff="asian",
+            antithetic=True, greek_stats=True)
+        out.append(("path_mc_kernel", "K4-m asian 2^20 x 252 greek_stats",
+                    pairs, entry4(), K4_SIGNED, entry4, plain_sum,
+                    bound(n4 * steps4 * ops_k4_path_step(True, True),
+                          188 * len(pairs))))
+        S0s, w, K, sig, corr = self.multi.book()  # K6-m: [basket-path]
+        args6 = (1 << 18, 64, S0s, w, K, 1.0, 0.03, None, sig,
+                 np.linalg.cholesky(corr), True, "asian_basket", 0.0,
+                 "down-and-in", 0.0)
+        host6, static6 = tbk._entry_config(*args6)
+        a = static6["n_assets"]
+        pairs, plain_sum = shards(
+            lambda sd, p, **kw: tbk.basket_mc(sd, p, antithetic=True,
+                                              host_params=host6, **static6,
+                                              **kw),
+            lambda sd, p, **kw: tbk._basket_mc_plain(sd, p, antithetic=True,
+                                                     **static6, **kw),
+            3, host6.to(dev), tbk.TILE, args6[0])
+        entry6 = lambda: tbk.basket_path_sumstats_kernel_sharded(  # noqa: E731
+            mesh, 3, *args6[:11], payoff="asian_basket", antithetic=True)
+        out.append(("basket_mc_kernel", "K6-m [basket-path] 2^18 x 64",
+                    pairs, entry6(), (), entry6, plain_sum,
+                    bound(args6[0] * args6[1] * ops_k6_path_step(a, True,
+                                                                  False),
+                          len(pairs) * (8 + 4 * (7 + 4 * a + a * a)
+                                        + 4 * 6))))
+        return out
+
+    def phase3(self):
+        """Each sharded entry's shards against their plain versions at
+        2e-5, and the entry's result equal, bit for bit, to the shards'
+        kernel stats added in mesh order."""
+        self.timed_entries = {}
+        for label, mesh in self.meshes().items():
+            for name, case, pairs, result, signed, entry, plain_sum, bnd \
+                    in self.shard_cases(mesh):
+                rel = max(compare(k, p, f"{case} [{label}] shard {i}",
+                                  signed=signed)
+                          for i, (k, p) in enumerate(pairs))
+                total = pairs[0][0]
+                for k, _ in pairs[1:]:
+                    total = total + k
+                if not torch.equal(result, total):
+                    raise AssertionError(f"{case} [{label}]: the entry is "
+                                         "not the ordered sum of its shards")
+                self.worst[name] = max(self.worst.get(name, (0.0, "-")),
+                                       (rel, f"{case} [{label}]"))
+                if label.startswith("4 x"):
+                    self.timed_entries[name] = (f"{case} [{label}]", entry,
+                                                plain_sum, bnd)
+                print(f"phase 3 {case} on {label}: {len(pairs)} shards, "
+                      f"each kernel vs plain max rel err {rel:.3e} (rtol "
+                      f"{RTOL}); the entry = the ordered sum, bit for bit")
+
+    # -- phase 5 ---------------------------------------------------------
+    def check(self, label, got, se, ref, slack, ref_se=None, what="oracle"):
+        """|got − ref| within 4 se + slack, or 5·hypot(se, ref_se) + slack
+        when the reference has its own stderr."""
+        err = abs(got - ref)
+        tol = (4.0 * se if ref_se is None else 5.0 * math.hypot(se, ref_se)) \
+            + slack
+        ok = math.isfinite(got) and err <= tol
+        print(f"  {label}: {got:.10f} se {se:.3e} vs {what} {ref:.10f} "
+              f"|err| {err:.3e} (limit {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: |err| {err:.3e} > {tol:.3e}")
+
+    def euro(self):
+        """A.5: the chunk scan at config 3's 1M paths in float64."""
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.models.monte_carlo import mc_sumstats
+        from optpricer_tpu_torch.parallel import mc_sumstats_sharded
+
+        dev = self.dev
+        spec = tp.OptionSpec(**SPEC)
+        bs = float(tp.bs_price(spec, "call", device=dev))
+        call = lambda seed=7: tp.euro_price_mc(  # noqa: E731
+            spec, "call", n_paths=1_000_000, seed=seed, backend="xla",
+            dtype="float64", device=dev)
+        (px, se), secs = timed(call)
+        self.check(f"euro_price_mc xla 1M f64 ({secs * 1e3:.3f} ms wall)",
+                   px, se, bs, 1e-4, what="BS")
+        self.calls["euro_price_mc xla 1M f64"] = call
+        greeks = [tp.euro_greeks_mc(spec, "call", n_paths=1_000_000,
+                                    seed=s, backend="xla", dtype="float64",
+                                    device=dev) for s in range(16)]
+        exact = tp.bs_greeks(spec, "call", device=dev)
+        for name in ("delta", "vega", "rho"):
+            vals = np.array([g[name] for g in greeks])
+            self.check(f"euro_greeks_mc xla 1M f64 {name} (se from 16 "
+                       "seeds)", float(vals[0]), float(vals.std(ddof=1)),
+                       float(exact[name]), 0.0, what="BS")
+        self.calls["euro_greeks_mc xla 1M f64"] = lambda: tp.euro_greeks_mc(
+            spec, "call", n_paths=1_000_000, seed=0, backend="xla",
+            dtype="float64", device=dev)
+        mesh = self.meshes()["4 x cuda:0"]
+        one = mc_sumstats(7, range(10), 1_000_000, *MARKET, True,
+                          chunk_size=100_000, antithetic=True,
+                          dtype="float64", device=dev)
+        shard = mc_sumstats_sharded(mesh, 7, 10, 1_000_000, *MARKET, True,
+                                    chunk_size=100_000, antithetic=True,
+                                    dtype=torch.float64)
+        rel = float(((shard - one).abs() / one.abs().clamp_min(1e-300))
+                    .max())
+        print(f"  mc_sumstats_sharded 4 x cuda:0 vs the one-device scan, 1M "
+              f"f64: max rel diff {rel:.3e} (limit 1e-12)")
+        if rel > 1e-12:
+            raise AssertionError("mc_sumstats_sharded off the one-device scan")
+
+    def scan(self):
+        """A.10: the scan engine at full width, each dynamics against its
+        oracle or the kernel route."""
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.models.analytic import \
+            geometric_asian_price_f64
+
+        dev = self.dev
+        S0, K, T, r, q = self.MKT
+        f64 = dict(dtype="float64", device=dev)
+        asian = lambda backend: tp.exotic_price_mc(  # noqa: E731
+            "asian", *MARKET[:5], sigma=MARKET[5], n_steps=252,
+            n_paths=1_000_000, seed=11, control_variate=True,
+            backend=backend, **(f64 if backend == "xla" else {"device": dev}))
+        (px, se), secs = timed(lambda: asian("xla"))
+        kp, kse = asian("auto")
+        self.check(f"scan config 3 asian + geo CV 1M x 252 f64 "
+                   f"({secs * 1e3:.3f} ms wall)", px, se, kp, 0.0, kse,
+                   what="K4 route")
+        self.calls["exotic_price_mc xla asian geo CV 1M x 252 f64"] = \
+            lambda: asian("xla")
+        cases = [
+            ("heston", dict(heston=self.HESTON), "heston_price_cos", 2e-3),
+            ("heston_qe", dict(heston=self.HESTON, scheme="qe"),
+             "heston_price_cos", 2e-3),
+            ("merton", dict(merton=self.MERTON), "merton_price", 1e-3),
+            ("vg", dict(vg=self.VG), "vg_price_cos", 1e-3),
+            ("nig", dict(nig=self.NIG), "nig_price_cos", 1e-3),
+            ("sabr_ln", dict(sabr=self.SABR_LN), "K4", 0.0),
+            ("sabr_cev", dict(sabr=self.SABR_CEV), "K4", 0.0),
+        ]
+        for name, dyn, oracle, slack in cases:
+            call = lambda dyn=dyn: tp.exotic_price_mc(  # noqa: E731
+                "vanilla", S0, K, T, r, q, **dyn, **self.PATHS, seed=5,
+                backend="xla", **f64)
+            (px, se), secs = timed(call)
+            label = f"scan {name} vanilla 200000 x 252 f64 ({secs * 1e3:.3f}" \
+                " ms wall)"
+            if oracle == "K4":
+                kp, kse = tp.exotic_price_mc("vanilla", S0, K, T, r, q,
+                                             **dyn, **self.PATHS, seed=5,
+                                             device=dev)
+                self.check(label, px, se, kp, 0.0, kse, what="K4 route")
+            else:
+                fn = getattr(tp, oracle)
+                params = dyn.get("heston") or dyn.get("merton") \
+                    or dyn.get("vg") or dyn.get("nig")
+                ref = float(fn(S0, K, T, r, q, **params, device=dev))
+                self.check(label, px, se, ref, slack, what=oracle)
+            self.calls[f"exotic_price_mc xla {name} 200000 x 252"] = call
+        # lv_milstein on the desk's SVI closure vs the desk's fused K4 route
+        desk_surface = Config5Slice(dev, self.card).desk_surface()
+        dmkt = (100.0, 100.0, 1.0, 0.05, 0.02)
+        lv = lambda backend: tp.exotic_price_mc_dupire(  # noqa: E731
+            "vanilla", desk_surface, *dmkt, scheme="milstein",
+            **self.PATHS, seed=9, backend=backend,
+            **(f64 if backend == "xla" else {"device": dev}))
+        (px, se), secs = timed(lambda: lv("xla"))
+        kp, kse = lv("auto")
+        self.check(f"scan lv_milstein desk SVI closure 200000 x 252 f64 "
+                   f"({secs * 1e3:.3f} ms wall)", px, se, kp, 1e-3, kse,
+                   what="K4 Dupire route")
+        self.calls["exotic_price_mc_dupire xla lv_milstein 200000 x 252"] = \
+            lambda: lv("xla")
+        # exact CEV at 200 000 x 64
+        cev = lambda: tp.exotic_price_mc(  # noqa: E731
+            "vanilla", S0, K, T, r, q, sabr=self.CEV, scheme="exact",
+            n_paths=200_000, n_steps=64, seed=3, **f64)
+        (px, se), secs = timed(cev)
+        ref = float(tp.cev_price(S0, K, T, r, q, sigma=self.CEV["alpha0"],
+                                 beta=self.CEV["beta"], device=dev))
+        self.check(f"exact CEV 200000 x 64 f64 ({secs * 1e3:.3f} ms wall)",
+                   px, se, ref, 1e-3, what="cev_price")
+        self.calls["exotic_price_mc exact CEV 200000 x 64"] = cev
+        # a dividend call against the PDE with the same schedule
+        divs = [(0.25, 1.0), (0.75, 1.5)]
+        div = lambda: tp.exotic_price_mc(  # noqa: E731
+            "vanilla", S0, K, T, r, q, sigma=0.2, dividends=divs,
+            **self.PATHS, seed=4, **f64)
+        (px, se), secs = timed(div)
+        ref = float(tp.fd_price(tp.OptionSpec(S0=S0, K=K, T=T, r=r, q=q,
+                                              sigma=0.2), "call", N_S=1024,
+                                N_t=252, dividends=divs, device=dev))
+        self.check(f"scan dividend call 200000 x 252 f64 ({secs * 1e3:.3f}"
+                   " ms wall)", px, se, ref, 2e-3, what="fd_price")
+        self.calls["exotic_price_mc xla dividends 200000 x 252"] = div
+        # the Heston pathwise-AD Greeks at 2^18 x 252
+        ad = lambda: tp.exotic_greeks_mc(  # noqa: E731
+            "vanilla", S0, K, T, r, q, heston=self.HESTON, n_paths=1 << 18,
+            n_steps=252, seed=6, **f64)
+        g, secs = timed(ad)
+        ref = tp.heston_greeks_cos(S0, K, T, r, q, **self.HESTON,
+                                   device=dev)
+        self.check(f"Heston AD delta 2^18 x 252 f64 ({secs * 1e3:.3f} ms "
+                   "wall)", g["delta"], g["delta_stderr"],
+                   float(ref["delta"]), 1e-3, what="heston_greeks_cos")
+        self.calls["exotic_greeks_mc heston AD 2^18 x 252"] = ad
+        # the float64 QMC route's geometric Asian at 65 536 x 8 x 64
+        qmc = lambda: tp.exotic_price_mc(  # noqa: E731
+            "asian", *MARKET[:5], sigma=MARKET[5], average_type="geometric",
+            n_paths=65_536, n_steps=64, seed=0, backend="qmc", **f64)
+        (px, se), secs = timed(qmc)
+        ref = geometric_asian_price_f64(*MARKET, n_steps=64)
+        self.check(f"QMC f64 geometric asian 65536 x 8 x 64 "
+                   f"({secs * 1e3:.3f} ms wall)", px, se, ref, 1e-4,
+                   what="closed form")
+        self.calls["exotic_price_mc qmc f64 geometric asian 65536 x 64"] = \
+            qmc
+
+    def cores(self):
+        """Each scan core on the card against the same core on the CPU,
+        fed the same host-made draws: the sums of its outputs at rtol
+        1e-12."""
+        from optpricer_tpu_torch.models import mc_fused as tmf
+
+        n, n_steps = 8192, 16
+        kinds = {"gbm": dict(sigma=0.2), "lv_milstein": {},
+                 "heston": dict(heston=self.HESTON),
+                 "heston_qe": dict(heston=self.HESTON),
+                 "sabr_ln": dict(sabr=self.SABR_LN),
+                 "sabr_cev": dict(sabr=self.SABR_CEV),
+                 "merton": dict(sigma=0.2, merton=self.MERTON),
+                 "vg": dict(vg=self.VG), "nig": dict(nig=self.NIG)}
+        worst = 0.0
+        for kind, fk in kinds.items():
+            draw = tmf._scan_draws(torch.Generator().manual_seed(3), kind, n,
+                                   T=1.0, n_steps=n_steps,
+                                   dtype=torch.float64, device="cpu",
+                                   m_lam=self.MERTON["lam"],
+                                   v_nu=self.VG["nu"], with_grad=True)
+            host = [draw(k) for k in range(n_steps)]
+            sums = []
+            for dev in ("cpu", self.dev):
+                fixed = tmf._fixed(torch.float64, dev, S0=100.0, K=100.0,
+                                   T=1.0, r=0.03, q=0.01, **fk)
+                out = tmf._fused_paths(
+                    lambda k, dev=dev: tuple(
+                        None if x is None else x.to(dev) for x in host[k]),
+                    fixed, payoff="asian", kind="call", n_steps=n_steps,
+                    n_paths=n, antithetic=True, barrier_type="up-and-out",
+                    average_type="arithmetic", strike_type="fixed",
+                    model_kind=kind, sigma_loc=smile, dtype=torch.float64,
+                    with_geo=True)
+                sums.append(torch.stack([f(x.double()).cpu() for x in out
+                                         for f in (torch.sum, lambda v: (
+                                             v * v).sum())]))
+            rel = float(((sums[1] - sums[0]).abs() / sums[0].abs()).max())
+            worst = max(worst, rel)
+            if rel > 1e-12:
+                raise AssertionError(f"scan core {kind}: card vs cpu {rel}")
+        print(f"  scan cores ({', '.join(kinds)}) on the card vs the CPU, "
+              f"{n} x {n_steps} f64, the same draws: max rel diff "
+              f"{worst:.3e} (limit 1e-12)")
+
+    def mesh_routes(self):
+        """Every ``mesh=`` route on the 4-way cuda:0 mesh within
+        5·hypot(se, se) of its one-device call."""
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        mesh = self.meshes()["4 x cuda:0"]
+        spec = tp.OptionSpec(**SPEC)
+        mkt = self.MKT
+        S0s, w, K, sig, corr = self.multi.book()
+        book = dict(S0s=S0s, weights=w, K=K, T=1.0, r=0.03, sigmas=sig,
+                    corr=corr)
+        model = self.multi.models.get("euler") or self.multi.calibrate(
+            "euler")
+        surface = Config5Slice(dev, self.card).desk_surface()
+
+        def where(m):
+            return dict(mesh=m) if m is not None else dict(device=dev)
+
+        routes = {
+            "euro_price_mc 1M": lambda m: tp.euro_price_mc(
+                spec, n_paths=1_000_000, seed=7, **where(m)),
+            "euro_price_mc xla 1M f64": lambda m: tp.euro_price_mc(
+                spec, n_paths=1_000_000, seed=7, backend="xla",
+                dtype="float64", **where(m)),
+            "exotic_price_mc config 3 asian 1M x 252": lambda m:
+                tp.exotic_price_mc("asian", *MARKET[:5], sigma=MARKET[5],
+                                   n_steps=252, n_paths=1_000_000, seed=11,
+                                   control_variate=True, **where(m)),
+            "exotic_price_mc xla merton 200000 x 252": lambda m:
+                tp.exotic_price_mc("vanilla", *mkt, merton=self.MERTON,
+                                   **self.PATHS, seed=5, dtype="float64",
+                                   **where(m)),
+            "exotic_greeks_mc vanilla 1M x 8 (vega)": lambda m:
+                tp.exotic_greeks_mc("vanilla", *mkt, sigma=0.2, n_steps=8,
+                                    n_paths=1_000_000, seed=2, **where(m)),
+            "exotic_greeks_mc heston AD 2^15 x 64 (d_v0)": lambda m:
+                tp.exotic_greeks_mc("vanilla", *mkt, heston=self.HESTON,
+                                    n_steps=64, n_paths=1 << 15, seed=2,
+                                    dtype="float64", **where(m)),
+            "exotic_price_mc_dupire desk 200000 x 252": lambda m:
+                tp.exotic_price_mc_dupire("vanilla", surface, 100.0, 100.0,
+                                          1.0, 0.05, 0.02, **self.PATHS,
+                                          seed=9, **where(m)),
+            "basket_price_mc [basket-path] 2^18": lambda m:
+                tp.basket_price_mc(**book, n_paths=1 << 18, seed=3,
+                                   **where(m)),
+            "basket_exotic_mc [basket-path] 2^18 x 64": lambda m:
+                tp.basket_exotic_mc(**book, n_steps=64, n_paths=1 << 18,
+                                    seed=3, **where(m)),
+            "basket_exotic_mc xla [basket-path] 2^16 x 64": lambda m:
+                tp.basket_exotic_mc(**book, n_steps=64, n_paths=1 << 16,
+                                    seed=3, backend="xla", **where(m)),
+            "lsv_price_mc ATM 2^20": lambda m: tp.lsv_price_mc(
+                "vanilla", model, 100.0, n_paths=1 << 20, seed=7,
+                **where(m)),
+            "lsv_price_mc xla ATM 2^16": lambda m: tp.lsv_price_mc(
+                "vanilla", model, 100.0, n_paths=1 << 16, seed=7,
+                backend="xla", **where(m)),
+            "lsv_greeks_mc ATM 2^13 (delta)": lambda m: tp.lsv_greeks_mc(
+                "vanilla", model, 100.0, n_paths=1 << 13, seed=7,
+                **where(m)),
+        }
+        greek_of = {"exotic_greeks_mc vanilla 1M x 8 (vega)": "vega",
+                    "exotic_greeks_mc heston AD 2^15 x 64 (d_v0)": "d_v0",
+                    "lsv_greeks_mc ATM 2^13 (delta)": "delta"}
+        for label, fn in routes.items():
+            (got, secs), one = timed(lambda: fn(mesh)), fn(None)
+            g = greek_of.get(label)
+            if g is None:
+                (p1, s1), (p0, s0) = got, one
+            else:
+                p1, s1, p0, s0 = (got[g], got[f"{g}_stderr"], one[g],
+                                  one[f"{g}_stderr"])
+            self.check(f"mesh {label} ({secs * 1e3:.3f} ms wall)", p1, s1,
+                       p0, 0.0, s0, what="one device")
+            self.calls[f"mesh 4 x cuda:0 {label}"] = lambda fn=fn: fn(mesh)
+        g1 = tp.euro_greeks_mc(spec, n_paths=1_000_000, seed=7, mesh=mesh)
+        g0 = tp.euro_greeks_mc(spec, n_paths=1_000_000, seed=7, device=dev)
+        _, se = tp.euro_price_mc(spec, n_paths=1_000_000, seed=7,
+                                 device=dev)
+        self.check("mesh euro_greeks_mc 1M price (se of the price)",
+                   g1["price"], se, g0["price"], 0.0, se, what="one device")
+        self.calls["mesh 4 x cuda:0 euro_greeks_mc 1M"] = \
+            lambda: tp.euro_greeks_mc(spec, n_paths=1_000_000, seed=7,
+                                      mesh=mesh)
+        if not np.isfinite(g1["delta"]):
+            raise AssertionError("mesh euro_greeks_mc: non-finite delta")
+
+    def batch(self):
+        """The batch pricers on the 4-way mesh against their one-device
+        calls: config 2's 1 000 puts (crr N = 500, FD 200 x 200) and 1M
+        Black-Scholes options."""
+        import numpy as np
+
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.parallel import batch as pb
+
+        dev = self.dev
+        mesh = self.meshes()["4 x cuda:0"]
+        K = np.linspace(50.0, 150.0, 1000)
+        rng = np.random.default_rng(1)
+        n = 1_000_000
+        S = rng.uniform(80, 120, n)
+        Kb = rng.uniform(80, 120, n)
+        Tb = rng.uniform(0.1, 2.0, n)
+        sb = rng.uniform(0.1, 0.5, n)
+        mask = rng.random(n) > 0.5
+        cases = [
+            ("bs_price_sharded 1M", 1e-12,
+             lambda: pb.bs_price_sharded(mesh, S, Kb, Tb, 0.03, 0.01, sb,
+                                         mask),
+             lambda: tp.bs_price_vec(S, Kb, Tb, 0.03, 0.01, sb, mask,
+                                     device=dev).cpu().numpy()),
+            ("bs_greeks_sharded 1M delta", 1e-12,
+             lambda: pb.bs_greeks_sharded(mesh, S, Kb, Tb, 0.03, 0.01, sb,
+                                          mask)["delta"],
+             lambda: tp.bs_greeks_vec(S, Kb, Tb, 0.03, 0.01, sb, mask,
+                                      device=dev)["delta"].cpu().numpy()),
+            ("crr_vec_sharded config 2 1000 American puts N=500", 1e-10,
+             lambda: pb.crr_vec_sharded(mesh, 100.0, K, 1.0, 0.03, 0.0, 0.2,
+                                        "put", N=500, american=True),
+             lambda: tp.crr_vec(100.0, K, 1.0, 0.03, 0.0, 0.2, "put",
+                                N=500, american=True,
+                                device=dev).cpu().numpy()),
+            ("fd_batch_sharded config 2 1000 American puts 200 x 200", 1e-8,
+             lambda: pb.fd_batch_sharded(mesh, 100.0, K, 1.0, 0.03, 0.0, 0.2,
+                                         "put", american=True),
+             lambda: tp.fd_price_batch(100.0, K, 1.0, 0.03, 0.0, 0.2, "put",
+                                       american=True,
+                                       device=dev).cpu().numpy()),
+        ]
+        for label, rtol, sharded, one in cases:
+            got, secs = timed(sharded)
+            ref = one()
+            worst = float(np.max(np.abs(got - ref)
+                                 / (1e-10 + rtol * np.abs(ref))))
+            print(f"  {label} 4 x cuda:0 vs one device: max |diff| / "
+                  f"(1e-10 + {rtol}·|ref|) {worst:.3e} ({secs * 1e3:.3f} ms "
+                  "wall)")
+            if got.shape != ref.shape or worst > 1.0:
+                raise AssertionError(f"{label}: off the one-device call")
+            self.calls[f"{label} (4 x cuda:0)"] = sharded
+
+    def phase5(self) -> dict:
+        """The slice's path with K1's, K4's, K6's and K7's launch counts
+        set to 0 just before it and read just after; returns them."""
+        from optpricer_tpu_torch.ops import basket_mc as tbk
+        from optpricer_tpu_torch.ops import path_mc as pmc
+        from optpricer_tpu_torch.ops import terminal_mc as tmc
+        from optpricer_tpu_torch.ops import thomas as tth
+
+        fns = {"terminal_mc_kernel": tmc.terminal_mc,
+               "path_mc_kernel": pmc.path_mc,
+               "basket_mc_kernel": tbk.basket_mc,
+               "tridiag_pcr_kernel": tth.tridiag_solve_kernel}
+        for fn in fns.values():
+            fn.launches = 0
+        print("phase 5 main path, the mesh and the scan engines (chunk scan, "
+              "fused scan, exact CEV, AD Greeks, f64 QMC, mesh routes, "
+              "batch pricers):")
+        t0 = time.perf_counter()
+        self.euro()
+        self.scan()
+        self.cores()
+        self.mesh_routes()
+        self.batch()
+        launches = {name: fn.launches for name, fn in fns.items()}
+        print(f"  mesh and scan path {time.perf_counter() - t0:.2f} s; "
+              f"launches in this process: {launches}")
+        for name, count in launches.items():
+            if count == 0:
+                raise AssertionError(f"{name} was not launched on the mesh "
+                                     "and scan path")
+        return launches
+
+    # -- phase 6 ---------------------------------------------------------
+    def phase6(self):
+        """The sharded entries' times (CUDA events, median of 5; the plain
+        shards' ordered sum once, phase 3's run its warm-up: up to 8 s a
+        call) beside their bounds; each call's wall (median of 3 after a
+        warm-up; one run for a call of more than 0.3 s, phase 5's call its
+        warm-up) and its device-busy share under torch.profiler (the CUDA
+        activity alone; a call of under 20 ms repeated to fill 20 ms, the
+        busy time per call, since CUPTI can drop the records of a window of
+        a millisecond)."""
+        t0 = time.perf_counter()
+        self.times = {}
+        for name, (case, entry, plain_sum, bnd) in \
+                self.timed_entries.items():
+            ms, plain_ms = cuda_ms(entry), event_ms(plain_sum)[1]
+            self.times[name] = dict(
+                ms_sharded=ms, plain_ms_sharded=plain_ms,
+                bound_ms_sharded=bnd[0], bound_by_sharded=bnd[1],
+                shape_sharded=case)
+            print(f"phase 6 time {case}: {ms:.4f} ms (plain shards "
+                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}) "
+                  f"[{self.card}]")
+        for label, fn in self.calls.items():
+            _, first = timed(fn)
+            wall = first * 1e3 if first > 0.3 else wall_ms(fn, reps=3)
+            reps = max(1, min(50, int(20.0 / wall)))
+
+            def repeated(fn=fn, reps=reps):
+                for _ in range(reps):
+                    fn()
+            busy, n_kernels = ClosedFormSlice.kernel_busy(repeated)
+            busy, n_kernels = busy / reps, n_kernels / reps
+            print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
+                  f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
+                  f"{n_kernels:.0f} kernels, {reps} calls profiled) "
+                  f"[{self.card}]")
+        print(f"phase 6 mesh and scan {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     t_start = time.perf_counter()
     # phase 1: device
@@ -3073,6 +3685,8 @@ def main():
     desk.phase3(record, K4_PAYOFFS)
     multi = MultiAssetLsvSlice(dev, card)
     multi.phase3(record)
+    mesh_scan = MeshScanSlice(dev, card, multi)
+    mesh_scan.phase3()
 
     for name, (rel, dprice, case) in worst.items():
         if name == "tridiag":
@@ -3293,6 +3907,7 @@ def main():
     launches.update(multi.phase5())
     closed = ClosedFormSlice(dev, card)
     closed_launches = closed.phase5()
+    mesh_launches = mesh_scan.phase5()
 
     # phase 6: time
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
@@ -3396,6 +4011,7 @@ def main():
     desk.phase6(times)
     multi.phase6()
     closed.phase6()
+    mesh_scan.phase6()
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -3476,6 +4092,13 @@ def main():
     for entry in kernels:   # K1 and K7 on the closed-form path
         if entry["name"] in closed_launches:
             entry["launches_closed_form"] = closed_launches[entry["name"]]
+    for entry in kernels:   # K1, K4, K6 and K7 on the mesh and scan path
+        if entry["name"] in mesh_launches:
+            entry["launches_mesh_scan"] = mesh_launches[entry["name"]]
+        if entry["name"] in mesh_scan.worst:
+            entry["max_rel_err_sharded"], entry["case_sharded"] = \
+                mesh_scan.worst[entry["name"]]
+            entry.update(mesh_scan.times[entry["name"]])
     print(f"chip_smoke.py {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

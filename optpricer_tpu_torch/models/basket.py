@@ -23,9 +23,12 @@ draws (a ``torch.Generator`` on the target device, seeded from ``seed``)
 are split from the deterministic map; the JAX package draws from
 ``jax.random`` keys, whose stream torch does not reproduce, so a seed
 gives another sample than the reference's XLA engine. The kernel route
-draws the JAX kernel's own Threefry stream. ``mesh=`` raises
-``NotImplementedError`` (ROADMAP A.15). Every entry point takes
-``device=`` (default ``"cuda"``).
+draws the JAX kernel's own Threefry stream. ``mesh=`` (a
+:class:`~optpricer_tpu_torch.parallel.mesh.Mesh`) splits the paths over
+its devices: the kernel's sharded entry on the kernel route, else each
+shard's scan drawing from a generator keyed by (seed, shard index), the
+stats summed in mesh order. Every entry point takes ``device=`` (default
+``"cuda"``), where a run without a mesh goes.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ import torch
 
 from ..dtypes import MC_DTYPE, canonical, resolve_device
 from ..ops import stats as stats_ops
-from ..ops.basket_mc import MAX_ASSETS, basket_path_sumstats_kernel
-from .mc_fused import _not_ported
+from ..ops.basket_mc import (MAX_ASSETS, basket_path_sumstats_kernel,
+                             basket_path_sumstats_kernel_sharded)
+from .mc_fused import _shards
 from .monte_carlo import resolve_seed
 
 __all__ = ["basket_price_mc", "basket_greeks_mc", "basket_exotic_mc",
@@ -341,10 +345,10 @@ def basket_price_mc(S0s, weights, K, T, r, qs=None, *, sigmas, corr,
     """
     if payoff not in _PAYOFFS:
         raise ValueError(f"payoff must be one of {_PAYOFFS}")
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.15, parallel/")
+    from ..parallel.mesh import mesh_sum
+
     dt_ = canonical(dtype)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device_list[0]
     S0s, w, qs, sig, corr = _book(S0s, weights, qs, sigmas, corr)
     a = S0s.size
     if payoff == "basket" and (np.any(w < 0.0)
@@ -357,13 +361,17 @@ def basket_price_mc(S0s, weights, K, T, r, qs=None, *, sigmas, corr,
     if use_cv:
         geo_ey = float(geometric_basket_price(S0s, w, K, T, r, qs, sig, corr,
                                               kind=kind, device=dev))
-    args = [torch.as_tensor(v, dtype=dt_, device=dev)
-            for v in (S0s, w, K, T, r, qs, sig, chol)]
-    z = torch.randn((int(n_paths), a), generator=_generator(seed, dev),
-                    dtype=dt_, device=dev)
-    s = _basket_stats(z, *args, payoff=payoff, is_call=kind == "call",
-                      antithetic=bool(antithetic))
-    s = s.detach().cpu().numpy().astype(np.float64)
+    parts = []
+    for dev_d, gen, n_local in _shards(mesh, resolve_seed(seed), n_paths,
+                                       dev):
+        args = [torch.as_tensor(v, dtype=dt_, device=dev_d)
+                for v in (S0s, w, K, T, r, qs, sig, chol)]
+        z = torch.randn((n_local, a), generator=gen, dtype=dt_,
+                        device=dev_d)
+        parts.append(_basket_stats(z, *args, payoff=payoff,
+                                   is_call=kind == "call",
+                                   antithetic=bool(antithetic)))
+    s = mesh_sum(parts).detach().cpu().numpy().astype(np.float64)
     if use_cv:
         mean, se = stats_ops.cv_mean_se_np(s, geo_ey)
         return mean, max(se, 2e-6 * (1.0 + abs(mean)))
@@ -399,9 +407,9 @@ def basket_exotic_mc(S0s, weights, K, T, r, qs=None, *, sigmas, corr,
         raise ValueError(f"payoff must be one of {_PATH_PAYOFFS}")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.15, parallel/")
-    dev = resolve_device(device)
+    from ..parallel.mesh import mesh_sum
+
+    dev = resolve_device(device) if mesh is None else mesh.device_list[0]
     S0s, w, qs, sig, corr = _book(S0s, weights, qs, sigmas, corr)
     a = S0s.size
     chol = np.linalg.cholesky(corr)
@@ -411,12 +419,14 @@ def basket_exotic_mc(S0s, weights, K, T, r, qs=None, *, sigmas, corr,
         raise ValueError("backend='pallas' requires f32 and <=16 assets")
     ey = float(np.sum(w * S0s * np.exp(-qs * float(T))))
     if kernel_ok and backend != "xla":
-        s = basket_path_sumstats_kernel(
-            resolve_seed(seed), int(n_paths), int(n_steps), S0s, w,
-            float(K), float(T), float(r), qs, sig, chol, kind == "call",
-            payoff=payoff, antithetic=bool(antithetic),
-            barrier=float(barrier), barrier_type=barrier_type,
-            rebate=float(rebate), device=dev)
+        call = (resolve_seed(seed), int(n_paths), int(n_steps), S0s, w,
+                float(K), float(T), float(r), qs, sig, chol, kind == "call")
+        pk = dict(payoff=payoff, antithetic=bool(antithetic),
+                  barrier=float(barrier), barrier_type=barrier_type,
+                  rebate=float(rebate))
+        s = basket_path_sumstats_kernel_sharded(mesh, *call, **pk) \
+            if mesh is not None else \
+            basket_path_sumstats_kernel(*call, device=dev, **pk)
         s = s.detach().cpu().numpy().astype(np.float64)
         if control_variate:
             mean, se = stats_ops.cv_mean_se_np(s, ey)
@@ -424,17 +434,20 @@ def basket_exotic_mc(S0s, weights, K, T, r, qs=None, *, sigmas, corr,
         return stats_ops.mean_se(s)
 
     dt_ = canonical(dtype)
-    args = [torch.as_tensor(v, dtype=dt_, device=dev)
-            for v in (S0s, w, K, T, r, qs, sig, chol, barrier, rebate)]
-    gen = _generator(seed, dev)
-    shape = (int(n_paths), a)
-    s = _basket_path_stats(
-        lambda t: torch.randn(shape, generator=gen, dtype=dt_, device=dev),
-        *args, payoff=payoff, is_call=kind == "call", n_steps=int(n_steps),
-        antithetic=bool(antithetic),
-        barrier_up=barrier_type.startswith("up"),
-        knock_in=barrier_type.endswith("in"))
-    s = s.detach().cpu().numpy().astype(np.float64)
+    parts = []
+    # the reference keys a shard's stream fold_in(key, 0x8A5E + shard)
+    for dev_d, gen, n_local in _shards(mesh, resolve_seed(seed), n_paths,
+                                       dev, salt=0x8A5E):
+        args = [torch.as_tensor(v, dtype=dt_, device=dev_d)
+                for v in (S0s, w, K, T, r, qs, sig, chol, barrier, rebate)]
+        parts.append(_basket_path_stats(
+            lambda t, g=gen, d=dev_d, n=n_local: torch.randn(
+                (n, a), generator=g, dtype=dt_, device=d),
+            *args, payoff=payoff, is_call=kind == "call",
+            n_steps=int(n_steps), antithetic=bool(antithetic),
+            barrier_up=barrier_type.startswith("up"),
+            knock_in=barrier_type.endswith("in")))
+    s = mesh_sum(parts).detach().cpu().numpy().astype(np.float64)
     # Y = e^{−rT}·B_T and E[B_T] = Σw_i·S0_i·e^{(r−q_i)T}, so
     # E[Y] = Σw_i·S0_i·e^{−q_i T} — model-free under any Q drift
     if control_variate:

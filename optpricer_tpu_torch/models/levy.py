@@ -126,10 +126,13 @@ def vg_price_cos(S0, K, T, r, q=0.0, *, sigma, theta, nu,
     return out[0] if scalar and out.shape == (1,) else out
 
 
-def _standard_gamma(gen, a: float, shape, dtype, device) -> torch.Tensor:
+def _standard_gamma(gen, a, shape, dtype, device) -> torch.Tensor:
     """Γ(a, 1) draws from ``gen``: Marsaglia-Tsang (2000) rejection for
     shape ≥ 1 (each round redraws the rejected entries), and for a < 1 a
-    Γ(a + 1) draw times U^{1/a}."""
+    Γ(a + 1) draw times U^{1/a}. ``a`` is one shape (a float) or a tensor
+    of ``shape``'s size, one shape per entry."""
+    if isinstance(a, torch.Tensor):
+        return _standard_gamma_per_entry(gen, a, shape, dtype, device)
     n = math.prod(shape)
     boost = a < 1.0
     d = (a + 1.0 if boost else a) - 1.0 / 3.0
@@ -149,6 +152,119 @@ def _standard_gamma(gen, a: float, shape, dtype, device) -> torch.Tensor:
         out = out * torch.rand(n, generator=gen, dtype=dtype,
                                device=device) ** (1.0 / a)
     return out.reshape(shape)
+
+
+def _split_accepted(ok: torch.Tensor):
+    """(positions of the accepted entries, of the rest), each in order,
+    for one host sync (the count)."""
+    order = torch.argsort((~ok).to(torch.int8), stable=True)
+    n_ok = int(ok.sum())
+    return order[:n_ok], order[n_ok:]
+
+
+def _standard_gamma_per_entry(gen, a: torch.Tensor, shape, dtype,
+                              device) -> torch.Tensor:
+    """Γ(a_i, 1) draws, one shape per entry: the rejection rounds of
+    :func:`_standard_gamma` with each entry's own (d, c), one host sync a
+    round (the count left), and the U^{1/a} boost for the entries below 1
+    from one uniform draw for all."""
+    n = math.prod(shape)
+    a = a.to(dtype=dtype, device=device).reshape(n)
+    boost = a < 1.0
+    d = torch.where(boost, a + 1.0, a) - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.empty(n, dtype=dtype, device=device)
+    todo = torch.arange(n, device=device)
+    while todo.numel():
+        m = todo.numel()
+        x = torch.randn(m, generator=gen, dtype=dtype, device=device)
+        u = torch.rand(m, generator=gen, dtype=dtype, device=device)
+        dt, ct = d[todo], c[todo]
+        v = (1.0 + ct * x) ** 3
+        ok = (v > 0.0) & (torch.log(u) < 0.5 * x * x + dt - dt * v
+                          + dt * torch.log(torch.clamp(v, min=1e-300)))
+        take, rest = _split_accepted(ok)
+        out[todo[take]] = (dt * v)[take]
+        todo = todo[rest]
+    u = torch.rand(n, generator=gen, dtype=dtype, device=device)
+    out = torch.where(boost, out * u ** (1.0 / a), out)
+    return out.reshape(shape)
+
+
+def _gamma_sample_grad(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """∂x/∂a of a Γ(a, 1) sample x at fixed quantile (implicit
+    reparameterisation, −∂_aP(a, x) / p(x; a)), as JAX's
+    ``random_gamma_grad`` computes it: the series of P(a, x) for x ≤ 1 or
+    x ≤ a, the continued fraction of Q(a, x) otherwise, each with its
+    a-derivative carried along until it stops changing at float64
+    precision (at most 2 000 terms of the fraction). Plain torch; the
+    iterations are loops over the entries still moving."""
+    eps = torch.finfo(x.dtype).eps
+    a, x = torch.broadcast_tensors(a.to(x.dtype), x)
+    out = torch.zeros_like(x)
+    ok = (x > 0.0) & (a > 0.0)
+    ax = a * torch.log(x) - x - torch.lgamma(a)
+    ok &= ax >= -math.log(torch.finfo(x.dtype).max)
+    use_cf = (x > 1.0) & (x > a)
+    ser = ok & ~use_cf
+    if bool(ser.any()):
+        aa, xx = a[ser], x[ser]
+        r, c, ans = aa.clone(), torch.ones_like(aa), torch.ones_like(aa)
+        dc, dans = torch.zeros_like(aa), torch.zeros_like(aa)
+        live = torch.ones_like(aa, dtype=torch.bool)
+        while bool(live.any()):
+            r1 = r + 1.0
+            dc1 = dc * (xx / r1) - (c * xx) / (r1 * r1)
+            dans1 = dans + dc1
+            c1 = c * (xx / r1)
+            ans1 = ans + c1
+            r, dc, dans, c, ans = (torch.where(live, new, old) for new, old in
+                                   ((r1, r), (dc1, dc), (dans1, dans),
+                                    (c1, c), (ans1, ans)))
+            live = live & (torch.abs(dc1 / dans1) > eps)
+        dlog = torch.log(xx) - torch.special.digamma(aa + 1.0)
+        out[ser] = -(dans + ans * dlog) * xx / aa
+    cf = ok & use_cf
+    if bool(cf.any()):
+        aa, xx = a[cf], x[cf]
+        y = 1.0 - aa
+        z = xx + y + 1.0
+        c = torch.zeros_like(xx)
+        pkm2, qkm2 = torch.ones_like(xx), xx.clone()
+        pkm1, qkm1 = xx + 1.0, z * xx
+        ans = pkm1 / qkm1
+        dpkm2, dqkm2 = torch.zeros_like(xx), torch.zeros_like(xx)
+        dpkm1, dqkm1 = torch.zeros_like(xx), -xx
+        dans = (dpkm1 - ans * dqkm1) / qkm1
+        live = torch.ones_like(xx, dtype=torch.bool)
+        for _ in range(2000):
+            if not bool(live.any()):
+                break
+            c = c + 1.0
+            y1, z1 = y + 1.0, z + 2.0
+            yc = y1 * c
+            pk = pkm1 * z1 - pkm2 * yc
+            qk = qkm1 * z1 - qkm2 * yc
+            nz = qk != 0.0
+            ans1 = torch.where(nz, pk / qk, ans)
+            dpk = dpkm1 * z1 - pkm1 - dpkm2 * yc + pkm2 * c
+            dqk = dqkm1 * z1 - qkm1 - dqkm2 * yc + qkm2 * c
+            dans1 = torch.where(nz, (dpk - ans1 * dqk) / qk, dans)
+            moved = torch.where(nz, torch.abs(dans1 - dans),
+                                torch.ones_like(dans))
+            scale = torch.where(torch.abs(pk) > 1.0 / eps, eps, 1.0)
+            new = (y1, z1, ans1, dans1, pkm1 * scale, qkm1 * scale,
+                   pk * scale, qk * scale, dpkm1 * scale, dqkm1 * scale,
+                   dpk * scale, dqk * scale)
+            old = (y, z, ans, dans, pkm2, qkm2, pkm1, qkm1, dpkm2, dqkm2,
+                   dpkm1, dqkm1)
+            (y, z, ans, dans, pkm2, qkm2, pkm1, qkm1, dpkm2, dqkm2, dpkm1,
+             dqkm1) = (torch.where(live, nv, ov) for nv, ov in zip(new, old))
+            live = live & (moved > eps)
+        dlog = torch.log(xx) - torch.special.digamma(aa)
+        out[cf] = (dans + ans * dlog) * xx
+    return torch.where((a > 0.0) & (x >= 0.0), out,
+                       torch.full_like(out, float("nan")))
 
 
 def _vg_core(g, Z, S0, T, r, q, sigma, theta, nu, *, antithetic: bool):

@@ -28,9 +28,12 @@ scan ``_lsv_paths`` with the table interpolated per particle.
 The scans take their standard normals from a callable ``normals(k) ->
 (z2, zp)``; the public functions draw them from a ``torch.Generator`` on
 the target device seeded from ``seed``, step by step, so a seed gives
-another sample than the reference's ``jax.random`` keys. ``mesh=`` raises
-``NotImplementedError`` (ROADMAP A.15). Every entry point takes
-``device=`` (default ``"cuda"``).
+another sample than the reference's ``jax.random`` keys. ``mesh=`` (a
+:class:`~optpricer_tpu_torch.parallel.mesh.Mesh`) on the pricers splits
+the paths over its devices: the path kernel's sharded entry on the kernel
+route, else each shard's scan drawing from a generator keyed by (seed,
+shard index), the sums added in mesh order. Every entry point takes
+``device=`` (default ``"cuda"``), where a run without a mesh goes.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ import torch
 from ..dtypes import MC_DTYPE, canonical, resolve_device
 from ..ops.path_mc import path_mc_sumstats_kernel
 from .exotics import _price_from_payoff
-from .mc_fused import (_estimate_from_stats, _exp_for, _log_for,
-                       _not_ported, _sqrt0, _terminal_payoff)
+from ..ops.path_mc import path_mc_sumstats_kernel_sharded
+from .mc_fused import (_estimate_from_stats, _exp_for, _log_for, _shards,
+                       _sqrt0, _terminal_payoff)
 from .monte_carlo import resolve_seed
 
 __all__ = ["LSVModel", "lsv_calibrate", "lsv_greeks_mc",
@@ -286,12 +290,14 @@ def _calibrate_scan(normals: Callable, sig_grid, fixed, *, n_steps: int,
     return torch.stack(rows), S, v
 
 
-def _step_draws(seed, n_paths: int, dtype, device) -> Callable:
+def _step_draws(seed, n_paths: int, dtype, device,
+                gen: Optional[torch.Generator] = None) -> Callable:
     """``normals(k) -> (z2, zp)``: two (n_paths,) standard-normal draws a
-    step from one ``torch.Generator`` seeded from ``seed``, in step
-    order."""
-    gen = torch.Generator(device=device).manual_seed(
-        resolve_seed(seed) % 2**63)
+    step from one ``torch.Generator`` (``gen``, or one seeded from
+    ``seed``), in step order."""
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(
+            resolve_seed(seed) % 2**63)
 
     def normals(k):
         return tuple(torch.randn(int(n_paths), generator=gen, dtype=dtype,
@@ -548,9 +554,7 @@ def lsv_price_mc(payoff: str, model: LSVModel, K: float, *,
         raise ValueError("kind must be 'call' or 'put'")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.15, parallel/")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     n_steps = model.n_steps
     kernel_ok = n_steps % 2 == 0 and (dtype is None
                                       or canonical(dtype) == MC_DTYPE)
@@ -560,31 +564,47 @@ def lsv_price_mc(payoff: str, model: LSVModel, K: float, *,
         coeffs, x_width = _leverage_poly(model)
         lsv_kw = dict(model.heston, coeffs=coeffs, x_width=x_width,
                       scheme=model.scheme)
-        stats = path_mc_sumstats_kernel(
-            resolve_seed(seed), int(n_paths), int(n_steps), model.S0, K,
-            model.T, model.r, model.q, 0.0, kind == "call", payoff=payoff,
-            antithetic=bool(antithetic), barrier=barrier,
-            barrier_type=barrier_type, rebate=rebate,
-            average_type=average_type, strike_type=strike_type,
-            payout=payout, lsv=lsv_kw, device=dev)
+        args = (resolve_seed(seed), int(n_paths), int(n_steps), model.S0, K,
+                model.T, model.r, model.q, 0.0, kind == "call")
+        pk = dict(payoff=payoff, antithetic=bool(antithetic),
+                  barrier=barrier, barrier_type=barrier_type, rebate=rebate,
+                  average_type=average_type, strike_type=strike_type,
+                  payout=payout, lsv=lsv_kw)
+        stats = path_mc_sumstats_kernel_sharded(mesh, *args, **pk) \
+            if mesh is not None else \
+            path_mc_sumstats_kernel(*args, device=dev, **pk)
         return _estimate_from_stats(stats, model.S0, K, model.T, model.r,
                                     model.q, 0.0, kind == "call", "lsv",
                                     True)
     dt_ = canonical(dtype)
+    static = dict(payoff=payoff, kind=kind, n_steps=n_steps,
+                  antithetic=bool(antithetic), barrier_type=barrier_type,
+                  average_type=average_type, strike_type=strike_type,
+                  dtype=dt_)
+    parts = []
+    for dev_d, gen, n_local in _shards(mesh, resolve_seed(seed), n_paths,
+                                       dev):
+        def scalar(value, d=dev_d):
+            return _scalar(value, dt_, d)
 
-    def scalar(value):
-        return _scalar(value, dt_, dev)
+        fixed = dict(S0=scalar(model.S0), K=scalar(K), T=scalar(model.T),
+                     r=scalar(model.r), q=scalar(model.q),
+                     barrier=scalar(barrier), rebate=scalar(rebate),
+                     payout=scalar(payout))
+        pay, _ = _lsv_paths(_step_draws(None, n_local, dt_, dev_d, gen),
+                            model, fixed, n_paths=n_local, **static)
+        if mesh is None:
+            return _price_from_payoff(pay, model.r, model.T)
+        X = _exp_for(dt_)(-fixed["r"] * fixed["T"]) * pay
+        parts.append(torch.stack([
+            torch.tensor(float(X.numel()), dtype=dt_, device=dev_d),
+            torch.sum(X), torch.sum(X * X)]))
+    from ..parallel.mesh import mesh_sum
 
-    fixed = dict(S0=scalar(model.S0), K=scalar(K), T=scalar(model.T),
-                 r=scalar(model.r), q=scalar(model.q),
-                 barrier=scalar(barrier), rebate=scalar(rebate),
-                 payout=scalar(payout))
-    pay, _ = _lsv_paths(_step_draws(seed, n_paths, dt_, dev), model, fixed,
-                        payoff=payoff, kind=kind, n_steps=n_steps,
-                        n_paths=int(n_paths), antithetic=bool(antithetic),
-                        barrier_type=barrier_type, average_type=average_type,
-                        strike_type=strike_type, dtype=dt_)
-    return _price_from_payoff(pay, model.r, model.T)
+    s = mesh_sum(parts).detach().cpu().numpy().astype(np.float64)
+    m = s[1] / s[0]
+    var = max(0.0, s[2] / s[0] - m * m)
+    return float(m), float(np.sqrt(var / s[0]))
 
 
 def lsv_greeks_mc(payoff: str, model: LSVModel, K: float, *,
@@ -618,20 +638,11 @@ def lsv_greeks_mc(payoff: str, model: LSVModel, K: float, *,
             "variance transition has a point mass at zero, so pathwise "
             "AD is invalid across it — use CRN bump-and-reprice on the "
             "QE model instead")
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.15, parallel/")
+    from ..parallel.mesh import mesh_sum
+
     dt_ = canonical(dtype)
-    dev = resolve_device(device)
     n_steps = model.n_steps
     exp_ = _exp_for(dt_)
-    draw = _step_draws(seed, n_paths, dt_, dev)
-    draws = [draw(k) for k in range(n_steps)]
-
-    def scalar(value):
-        return _scalar(value, dt_, dev)
-
-    base = dict(K=scalar(K), q=scalar(model.q), barrier=scalar(0.0),
-                rebate=scalar(0.0), payout=scalar(1.0))
     names = (("delta", "S0"), ("rho", "r"), ("theta", "T"),
              ("d_v0", "h_v0"), ("d_kappa", "h_kappa"),
              ("d_theta", "h_theta"), ("d_xi", "h_xi"), ("d_rho", "h_rho"))
@@ -639,27 +650,43 @@ def lsv_greeks_mc(payoff: str, model: LSVModel, K: float, *,
                 h_kappa=model.kappa, h_theta=model.theta, h_xi=model.xi,
                 h_rho=model.rho)
     keys_ = [k for _, k in names]
-    theta0 = torch.stack([scalar(vals[k]) for k in keys_])
 
-    def path_X(th):
-        f2 = dict(base)
-        for i, k in enumerate(keys_):
-            f2[k] = th[i]
-        pay, _ = _lsv_paths(lambda k: draws[k], model, f2, payoff=payoff,
-                            kind=kind, n_steps=n_steps, n_paths=int(n_paths),
-                            antithetic=bool(antithetic),
-                            barrier_type="up-and-out",
-                            average_type=average_type,
-                            strike_type=strike_type, dtype=dt_)
-        X = exp_(-f2["r"] * f2["T"]) * pay
-        return X, X
+    def local_sums(dev, gen, n_local):
+        draw = _step_draws(None, n_local, dt_, dev, gen)
+        draws = [draw(k) for k in range(n_steps)]
 
-    J, X = torch.func.jacfwd(path_X, has_aux=True)(theta0)
-    cols = torch.cat([X[:, None], J], dim=1)
-    sums = torch.cat([torch.tensor([float(X.shape[0])], dtype=dt_,
-                                   device=dev),
-                      torch.sum(cols, dim=0), torch.sum(cols * cols, dim=0)])
-    s = sums.detach().cpu().numpy().astype(np.float64)
+        def scalar(value):
+            return _scalar(value, dt_, dev)
+
+        base = dict(K=scalar(K), q=scalar(model.q), barrier=scalar(0.0),
+                    rebate=scalar(0.0), payout=scalar(1.0))
+        theta0 = torch.stack([scalar(vals[k]) for k in keys_])
+
+        def path_X(th):
+            f2 = dict(base)
+            for i, k in enumerate(keys_):
+                f2[k] = th[i]
+            pay, _ = _lsv_paths(lambda k: draws[k], model, f2,
+                                payoff=payoff, kind=kind, n_steps=n_steps,
+                                n_paths=n_local,
+                                antithetic=bool(antithetic),
+                                barrier_type="up-and-out",
+                                average_type=average_type,
+                                strike_type=strike_type, dtype=dt_)
+            X = exp_(-f2["r"] * f2["T"]) * pay
+            return X, X
+
+        J, X = torch.func.jacfwd(path_X, has_aux=True)(theta0)
+        cols = torch.cat([X[:, None], J], dim=1)
+        return torch.cat([torch.tensor([float(X.shape[0])], dtype=dt_,
+                                       device=dev),
+                          torch.sum(cols, dim=0),
+                          torch.sum(cols * cols, dim=0)])
+
+    shards = _shards(mesh, resolve_seed(seed), n_paths,
+                     None if mesh is not None else device)
+    s = mesh_sum([local_sums(*shard) for shard in shards])
+    s = s.detach().cpu().numpy().astype(np.float64)
     k = len(names)
     n, mean, sq = s[0], s[1:2 + k] / s[0], s[2 + k:] / s[0]
     se = np.sqrt(np.maximum(0.0, sq - mean * mean) / n)

@@ -10,7 +10,7 @@ into
   Poisson jump counts) from a ``torch.Generator`` on the target device
   seeded from ``seed``. The JAX package draws from ``jax.random`` keys,
   whose stream torch does not reproduce, so a seed gives another sample
-  than the reference's (ROADMAP A.5/A.10);
+  than the reference's;
 * a deterministic core (``_gbm_core``, ``_heston_core`` …) that maps the
   draws to paths exactly as the reference's jitted core does: the same
   operations in the same order, in the working dtype (float64 unless

@@ -20,6 +20,7 @@ Names, JAX → port:
 
 ================================  ================================
 ``basket_path_sumstats_pallas``   ``basket_path_sumstats_kernel``
+``basket_path_sumstats_pallas_sharded``  ``basket_path_sumstats_kernel_sharded``
 ``_run_basket_kernel``            ``basket_mc`` (kernel wrapper)
 ``_build_params``                 ``_build_params``
 ================================  ================================
@@ -44,9 +45,12 @@ from . import stats as stats_ops
 from .fastmath import exp32, log32
 from .path_mc import _sqrt32
 from .swprng import threefry2x32
-from .terminal_mc import _MAX_TILE_INDEX, _plan_grid, _seed_pair, _stream
+from .terminal_mc import (_MAX_TILE_INDEX, _plan_grid, _seed_pair,
+                          _shard_plan, _stream)
 
-__all__ = ["basket_path_sumstats_kernel", "basket_mc", "blocks_per_sm",
+__all__ = ["basket_path_sumstats_kernel",
+           "basket_path_sumstats_kernel_sharded", "basket_mc",
+           "blocks_per_sm",
            "TILE", "NSTAT", "PAYOFF_IDS", "MAX_ASSETS"]
 
 BLOCK_R = 32
@@ -370,6 +374,28 @@ basket_mc.launches = 0
 # ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
+def _entry_config(n_paths, n_steps, S0s, weights, K, T, r, qs, sigmas, chol,
+                  is_call, payoff, barrier, barrier_type, rebate):
+    """(host params, static kwargs of ``basket_mc``) of the public
+    entries, with the reference's checks."""
+    if payoff not in PAYOFF_IDS:
+        raise ValueError(f"payoff must be one of {tuple(PAYOFF_IDS)}")
+    S0s = [float(v) for v in np.atleast_1d(S0s)]
+    a = len(S0s)
+    weights = [float(v) for v in np.atleast_1d(weights)]
+    qs = [0.0] * a if qs is None else [float(v) for v in np.atleast_1d(qs)]
+    sigmas = [float(v) for v in np.atleast_1d(sigmas)]
+    if not (len(weights) == len(qs) == len(sigmas) == a):
+        raise ValueError("S0s, weights, qs, sigmas must share length")
+    barrier_up = barrier_type.startswith("up")
+    params = _build_params(n_paths, n_steps, S0s, weights, K, T, r, qs,
+                           sigmas, chol, barrier, rebate, is_call, payoff,
+                           barrier_up)
+    return params, dict(n_assets=a, n_steps=int(n_steps),
+                        payoff_id=PAYOFF_IDS[payoff], barrier_up=barrier_up,
+                        knock_in=barrier_type.endswith("in"))
+
+
 def basket_path_sumstats_kernel(
     seed: int, n_paths: int, n_steps: int, S0s, weights, K, T, r, qs,
     sigmas, chol, is_call: bool, *, payoff: str, antithetic: bool = True,
@@ -382,24 +408,39 @@ def basket_path_sumstats_kernel(
     pair-averaged observation is one sample). ``chol`` is the (a, a)
     Cholesky factor of the correlation matrix.
     """
-    if payoff not in PAYOFF_IDS:
-        raise ValueError(f"payoff must be one of {tuple(PAYOFF_IDS)}")
+    params, static = _entry_config(n_paths, n_steps, S0s, weights, K, T, r,
+                                   qs, sigmas, chol, is_call, payoff,
+                                   barrier, barrier_type, rebate)
     dev = resolve_device(device)
-    S0s = [float(v) for v in np.atleast_1d(S0s)]
-    a = len(S0s)
-    weights = [float(v) for v in np.atleast_1d(weights)]
-    qs = [0.0] * a if qs is None else [float(v) for v in np.atleast_1d(qs)]
-    sigmas = [float(v) for v in np.atleast_1d(sigmas)]
-    if not (len(weights) == len(qs) == len(sigmas) == a):
-        raise ValueError("S0s, weights, qs, sigmas must share length")
-    barrier_up = barrier_type.startswith("up")
-    params = _build_params(n_paths, n_steps, S0s, weights, K, T, r, qs,
-                           sigmas, chol, barrier, rebate, is_call, payoff,
-                           barrier_up)
     reps, n_programs = _plan_grid(int(n_paths), TILE)
     return basket_mc(_seed_pair(seed, dev), params.to(dev),
-                     n_programs=n_programs, reps=reps, n_assets=a,
-                     n_steps=int(n_steps), antithetic=bool(antithetic),
-                     payoff_id=PAYOFF_IDS[payoff], barrier_up=barrier_up,
-                     knock_in=barrier_type.endswith("in"),
-                     host_params=params)
+                     n_programs=n_programs, reps=reps,
+                     antithetic=bool(antithetic), host_params=params,
+                     **static)
+
+
+def basket_path_sumstats_kernel_sharded(
+    mesh, seed: int, n_paths: int, n_steps: int, S0s, weights, K, T, r, qs,
+    sigmas, chol, is_call: bool, *, payoff: str, antithetic: bool = True,
+    barrier: float = 0.0, barrier_type: str = "down-and-in",
+    rebate: float = 0.0,
+) -> torch.Tensor:
+    """(6,) f32 sums of one global grid split over ``mesh``, the
+    counterpart of ``basket_path_sumstats_pallas_sharded``: each device
+    runs ``basket_mc`` over its contiguous slice of the programs (offset
+    in the second seed word), every shard is launched before any is
+    waited for, and the sums are added in mesh order on the first device
+    (``parallel.mesh.mesh_sum``). On a CPU mesh each shard runs the plain
+    version."""
+    from ..parallel.mesh import mesh_sum
+
+    params, static = _entry_config(n_paths, n_steps, S0s, weights, K, T, r,
+                                   qs, sigmas, chol, is_call, payoff,
+                                   barrier, barrier_type, rebate)
+    reps, per, shards = _shard_plan(mesh, n_paths, TILE)
+    inputs = [(_seed_pair(seed, dev, off), params.to(dev))
+              for dev, off in shards]
+    return mesh_sum([basket_mc(sd, prm, n_programs=per, reps=reps,
+                               antithetic=bool(antithetic),
+                               host_params=params, **static)
+                     for sd, prm in inputs])

@@ -39,6 +39,7 @@ Names, JAX → port:
 
 ============================  ===========================
 ``path_mc_sumstats_pallas``   ``path_mc_sumstats_kernel``
+``path_mc_sumstats_pallas_sharded``  ``path_mc_sumstats_kernel_sharded``
 ``_run_path_kernel``          ``path_mc`` (kernel wrapper)
 ``_common_params``            ``_common_params``
 ``_resolve_config``           ``_resolve_config``
@@ -63,7 +64,8 @@ from ..dtypes import MC_DTYPE, resolve_device
 from . import stats as stats_ops
 from .fastmath import exp32, log32, norminv32
 from .swprng import threefry2x32
-from .terminal_mc import _MAX_TILE_INDEX, _plan_grid, _seed_pair, _stream
+from .terminal_mc import (_MAX_TILE_INDEX, _plan_grid, _seed_pair,
+                          _shard_plan, _stream)
 
 __all__ = ["path_mc_sumstats_kernel", "path_mc", "TILE", "NSTAT",
            "PAYOFF_IDS", "DYNAMICS", "MAX_SLICES"]
@@ -872,3 +874,38 @@ def path_mc_sumstats_kernel(
     return path_mc(_seed_pair(seed, dev), params.to(dev),
                    n_programs=n_programs, reps=reps,
                    with_greeks=bool(greek_stats), **static)
+
+
+def path_mc_sumstats_kernel_sharded(
+    mesh, seed: int, n_paths: int, n_steps: int, S0, K, T, r, q, sigma,
+    is_call: bool, *, payoff: str, antithetic: bool,
+    barrier: float = 0.0, barrier_type: str = "up-and-out",
+    rebate: float = 0.0, average_type: str = "arithmetic",
+    strike_type: str = "fixed", payout: float = 1.0,
+    svi_slices=None, scheme: str = "log_euler", dS_bump: float = 0.01,
+    heston=None, sabr=None, lsv=None, geo_cv: bool = False,
+    greek_stats: bool = False,
+) -> torch.Tensor:
+    """(21,) f32 stats of one global grid split over ``mesh``, the
+    counterpart of ``path_mc_sumstats_pallas_sharded``: each device runs
+    ``path_mc`` over its contiguous slice of the programs (offset in the
+    second seed word), every shard is launched before any is waited for,
+    and the stats are summed in mesh order on the first device
+    (``parallel.mesh.mesh_sum``). ``greek_stats=True`` (GBM only) sums the
+    full 21-moment layout, so a sharded Greek run is the one-device
+    estimator. On a CPU mesh each shard runs the plain version."""
+    from ..parallel.mesh import mesh_sum
+
+    params, static = _resolve_config(
+        n_paths, n_steps, S0, K, T, r, q, sigma, is_call, payoff, antithetic,
+        barrier, barrier_type, rebate, average_type, strike_type, payout,
+        svi_slices, scheme, dS_bump, heston, sabr, geo_cv, lsv)
+    if greek_stats and static["dynamics"] != "gbm":
+        raise ValueError("greek_stats requires GBM dynamics")
+    reps, per, shards = _shard_plan(mesh, n_paths, TILE)
+    svi = static.pop("svi")
+    inputs = [(_seed_pair(seed, dev, off), params.to(dev),
+               None if svi is None else svi.to(dev)) for dev, off in shards]
+    return mesh_sum([path_mc(sd, prm, n_programs=per, reps=reps,
+                             with_greeks=bool(greek_stats), svi=sv, **static)
+                     for sd, prm, sv in inputs])

@@ -13,6 +13,11 @@ once per shape:
 * ``brownian_bridge_order`` is the breadth-first midpoint schedule;
 * ``bridge_matrix`` unrolls that schedule into the (d, d) matrix A with
   ``W = z @ A``.
+
+``sobol_uniforms`` and ``bridge_paths`` are the torch counterparts of the
+reference's functions of those names, the stages of the float64 path-QMC
+route (``models/mc_fused._qmc_replicate``): the digitally shifted point
+set and the breadth-first bridge fill, on the points' device.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import collections
 
 import numpy as np
 
-__all__ = ["direction_numbers", "brownian_bridge_order", "bridge_matrix"]
+__all__ = ["direction_numbers", "brownian_bridge_order", "bridge_matrix",
+           "sobol_uniforms", "bridge_paths"]
 
 _DIR_CACHE: dict = {}
 _MAXBIT = 32        # uint32 Gray-code word: 2^32 points per replicate
@@ -103,3 +109,60 @@ def bridge_matrix(d: int, T: float) -> np.ndarray:
         C[m] = C[l] + frac * (C[r] - C[l])
         C[m, 1 + j] += sd
     return C[1:].T
+
+
+def sobol_uniforms(n: int, d: int, seed: int, index: int, *,
+                   m_bits: int | None = None, dtype=None, device=None):
+    """(n, d) digitally shifted Sobol uniforms in (0, 1): the reference's
+    ``sobol_uniforms(n, d, fold_in(key(seed), index))``, the shift words
+    ``jax_fold_in_bits(seed, index, d)``. ``m_bits`` defaults to the
+    budget (≥ 2^11 so small point sets nest in the big ones). float64:
+    (bits + ½)·2⁻³²; float32: the top 24 bits, cell-centred."""
+    import torch
+
+    from .swprng import jax_fold_in_bits
+
+    dtype = torch.float64 if dtype is None else dtype
+    if m_bits is None:
+        m_bits = min(max(int(np.ceil(np.log2(max(n, 2)))), 11), _MAXBIT)
+    if n > (1 << m_bits):
+        raise ValueError(f"n={n} exceeds 2^m_bits={1 << m_bits} points")
+    V = torch.as_tensor(direction_numbers(d, m_bits).astype(np.int64),
+                        device=device)
+    shift = torch.as_tensor(
+        jax_fold_in_bits(seed, index, d).astype(np.int64), device=device)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    gray = idx ^ (idx >> 1)
+    x = torch.zeros((n, d), dtype=torch.int64, device=device)
+    for k in range(m_bits):
+        x = x ^ (((gray >> k) & 1)[:, None] * V[k][None, :])
+    x = x ^ shift[None, :]
+    if dtype == torch.float64:
+        return (x.to(torch.float64) + 0.5) * (2.0 ** -32)
+    return ((x >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def bridge_paths(z, T):
+    """Brownian paths (n, d) at times (1..d)·T/d from quasi-normals z
+    (n, d): z[:, 0] builds W_T, z[:, j] the j-th bridge midpoint, one
+    breadth-first depth at a time (a gather, the conditional-Gaussian fill
+    and a scatter), as the reference fills them."""
+    import torch
+
+    n, d = z.shape
+    T = torch.as_tensor(T, dtype=z.dtype, device=z.device)
+    dt = T / d
+    ms, ls, rs, depth = brownian_bridge_order(d)
+    W = torch.zeros((n, d + 1), dtype=z.dtype, device=z.device)
+    W[:, d] = torch.sqrt(T) * z[:, 0]
+    for lev in range(int(depth.max()) + 1 if len(depth) else 0):
+        sel = np.nonzero(depth == lev)[0]
+        m, l, r = ms[sel], ls[sel], rs[sel]
+        wl, wr = W[:, l], W[:, r]
+        frac = torch.as_tensor((m - l) / (r - l), dtype=z.dtype,
+                               device=z.device)
+        sd = torch.sqrt(torch.as_tensor((m - l) * (r - m) / (r - l),
+                                        dtype=z.dtype, device=z.device) * dt)
+        W[:, m] = wl + frac[None, :] * (wr - wl) \
+            + sd[None, :] * z[:, 1 + sel]
+    return W[:, 1:]

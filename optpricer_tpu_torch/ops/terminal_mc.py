@@ -14,6 +14,7 @@ Names, JAX → port:
 
 ==========================  ======================
 ``mc_sumstats_pallas``      ``mc_sumstats_kernel``
+``mc_sumstats_pallas_sharded``  ``mc_sumstats_kernel_sharded``
 ``pallas_estimate``         ``terminal_estimate``
 ``pallas_greeks``           ``terminal_greeks``
 ``mc_sumstats_qmc``         ``mc_sumstats_qmc``
@@ -45,7 +46,8 @@ from . import stats as stats_ops
 from .fastmath import bitrev32, exp32, log32, norminv32
 from .swprng import threefry2x32
 
-__all__ = ["mc_sumstats_kernel", "mc_sumstats_qmc", "terminal_mc",
+__all__ = ["mc_sumstats_kernel", "mc_sumstats_kernel_sharded",
+           "mc_sumstats_qmc", "terminal_mc",
            "terminal_qmc", "terminal_estimate", "terminal_greeks",
            "qmc_estimate", "TILE", "NSTAT"]
 
@@ -170,9 +172,22 @@ def _qmc_threads(device_index: int, n_programs: int, reps: int) -> int:
     return min(held, key=lambda t: (-held[t], t))
 
 
-def _seed_pair(seed: int, device) -> torch.Tensor:
-    return torch.tensor([seed % (2**31 - 1), 0], dtype=torch.int32,
+def _seed_pair(seed: int, device, offset: int = 0) -> torch.Tensor:
+    """int32 (seed mod 2^31 − 1, program offset): the kernels' stream key
+    and the global id of the grid's first program."""
+    return torch.tensor([seed % (2**31 - 1), offset], dtype=torch.int32,
                         device=device)
+
+
+def _shard_plan(mesh, n_paths: int, per_rep: int):
+    """(reps, programs a device, [(device, program offset)]) of one global
+    grid split over ``mesh``'s devices in mesh order, as the JAX package's
+    sharded entries split it: ``_plan_grid`` aims at 64 programs a device,
+    so reps, and with them the draws, follow the device count."""
+    devices = mesh.device_list
+    reps, n_programs = _plan_grid(int(n_paths), per_rep, len(devices))
+    per = n_programs // len(devices)
+    return reps, per, [(dev, d * per) for d, dev in enumerate(devices)]
 
 
 def _check_inputs(seed: torch.Tensor, params: torch.Tensor, n_programs: int,
@@ -500,6 +515,30 @@ def mc_sumstats_kernel(seed: int, n_paths: int, S0, K, T, r, q, sigma,
     return terminal_mc(_seed_pair(seed, dev), params, n_programs=n_programs,
                        reps=reps, antithetic=bool(antithetic),
                        invcdf=bool(invcdf))
+
+
+def mc_sumstats_kernel_sharded(mesh, seed: int, n_paths: int, S0, K, T, r,
+                               q, sigma, is_call: bool, *, antithetic: bool,
+                               dtype=None, invcdf: bool = False
+                               ) -> torch.Tensor:
+    """(13,) f32 stats of one global grid split over ``mesh``: each device
+    runs ``terminal_mc`` over its contiguous slice of the programs (the
+    offset is the second seed word, so every draw keeps its global program
+    id), every shard is launched before any is waited for, and the stats
+    are summed in mesh order on the first device (``parallel.mesh.
+    mesh_sum``, the ``psum``). Counterpart of ``mc_sumstats_pallas_sharded``;
+    on a CPU mesh each shard runs the plain version."""
+    from ..parallel.mesh import mesh_sum
+
+    del dtype
+    reps, per, shards = _shard_plan(mesh, n_paths, 2 * TILE)
+    host = _terminal_params(n_paths, S0, K, T, r, q, sigma, is_call)
+    inputs = [(_seed_pair(seed, dev, off), host.to(dev))
+              for dev, off in shards]
+    return mesh_sum([terminal_mc(sd, params, n_programs=per, reps=reps,
+                                 antithetic=bool(antithetic),
+                                 invcdf=bool(invcdf))
+                     for sd, params in inputs])
 
 
 def mc_sumstats_qmc(seed: int, n_paths: int, S0, K, T, r, q, sigma,

@@ -397,11 +397,14 @@ def test_guards():
         _exotic("pallas", "asian_basket", dtype="float64")
     with pytest.raises(ValueError, match="backend"):
         _exotic("mxu", "asian_basket")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        _exotic("auto", "asian_basket", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tp.basket_price_mc(S0, W, 100.0, 1.0, 0.03, sigmas=SIG, corr=CORR,
-                           mesh=object(), device="cpu")
+    # mesh= raised until A.15 was ported: both routes now price
+    from optpricer_tpu_torch.parallel import get_mesh
+
+    mesh = get_mesh(devices=["cpu"] * 2)
+    for price, se in (_exotic("auto", "asian_basket", mesh=mesh),
+                      tp.basket_price_mc(S0, W, 100.0, 1.0, 0.03, sigmas=SIG,
+                                         corr=CORR, mesh=mesh)):
+        assert np.isfinite(price) and 0.0 < se < 0.1 * price
     with pytest.raises(ValueError, match="weights"):
         tp.basket_price_mc(S0, [0.5, 0.6, -0.1], 100.0, 1.0, 0.03,
                            sigmas=SIG, corr=CORR, device="cpu")

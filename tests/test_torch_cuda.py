@@ -1134,3 +1134,236 @@ def test_profiling_on_card(cuda_device, tmp_path):
     mem = profiling.device_memory()
     assert len(mem) == torch.cuda.device_count()
     assert mem[0]["bytes_limit"] > 0 and mem[0]["bytes_in_use"] >= 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh slice: the sharded kernel entries on a repeated-card mesh, and
+# the scan engine's deterministic cores on the card against the CPU
+# ---------------------------------------------------------------------------
+def _shard_runs(entry, mesh):
+    """[(kernel stats, plain stats)] of each shard of ``entry``'s grid on
+    ``mesh``, and the entry's own result."""
+    from optpricer_tpu_torch.ops.terminal_mc import _seed_pair, _shard_plan
+
+    chol = np.linalg.cholesky(0.4 * np.eye(3) + 0.6)
+    if entry == "terminal":
+        n = 3 * 2 * tmc.TILE * 4 + 555
+        reps, per, shards = _shard_plan(mesh, n, 2 * tmc.TILE)
+        host = tmc._terminal_params(n, *MARKET, True)
+        runs = [(lambda s, p: tmc.terminal_mc(s, p, n_programs=per,
+                                              reps=reps, antithetic=True),
+                 lambda s, p: tmc._mc_sumstats_plain(
+                     s, p, n_programs=per, reps=reps, antithetic=True),
+                 off, host) for _, off in shards]
+        out = tmc.mc_sumstats_kernel_sharded(mesh, 7, n, *MARKET, True,
+                                             antithetic=True)
+    elif entry == "path":
+        n = 5 * tpm.TILE + 77
+        params, static = tpm._resolve_config(
+            n, 8, *MARKET[:5], MARKET[5], True, "asian", True, 0.0,
+            "up-and-out", 0.0, "arithmetic", "fixed", 1.0, None,
+            "log_euler", 0.01, None, None, False, None)
+        static.pop("svi")
+        reps, per, shards = _shard_plan(mesh, n, tpm.TILE)
+        kw = dict(n_programs=per, reps=reps, with_greeks=True, **static)
+        runs = [(lambda s, p: tpm.path_mc(s, p, **kw),
+                 lambda s, p: tpm._path_mc_plain(s, p, **kw), off, params)
+                for _, off in shards]
+        out = tpm.path_mc_sumstats_kernel_sharded(
+            mesh, 7, n, 8, *MARKET, True, payoff="asian", antithetic=True,
+            greek_stats=True)
+    else:
+        n = 5 * tbk.TILE + 77
+        args = (n, 8, [100.0, 95.0, 105.0], [0.4, 0.3, 0.3], 100.0, 1.0,
+                0.03, [0.0, 0.01, 0.02], [0.2, 0.3, 0.25], chol, True,
+                "worstof_barrier", 85.0, "down-and-in", 1.0)
+        params, static = tbk._entry_config(*args)
+        reps, per, shards = _shard_plan(mesh, n, tbk.TILE)
+        kw = dict(n_programs=per, reps=reps, antithetic=True, **static)
+        runs = [(lambda s, p: tbk.basket_mc(s, p, host_params=params, **kw),
+                 lambda s, p: tbk._basket_mc_plain(s, p, **kw), off, params)
+                for _, off in shards]
+        out = tbk.basket_path_sumstats_kernel_sharded(
+            mesh, 7, *args[:11], payoff="worstof_barrier", antithetic=True,
+            barrier=85.0, barrier_type="down-and-in", rebate=1.0)
+    dev = mesh.device_list[0]
+    pairs = []
+    for kernel, plain, off, host in runs:
+        seed, on_card = _seed_pair(7, dev, off), host.to(dev)
+        pairs.append((kernel(seed, on_card), plain(seed, on_card)))
+    return pairs, out
+
+
+@pytest.mark.parametrize("entry", ["terminal", "path", "basket"])
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_entries_on_card_match_plain(cuda_device, entry, n_dev):
+    """Each shard's kernel stats meet its plain version at 2e-5, and the
+    entry's result is the shards' kernel stats added in mesh order, bit
+    for bit."""
+    from optpricer_tpu_torch.parallel import get_mesh
+
+    mesh = get_mesh(devices=[str(cuda_device)] * n_dev)
+    pairs, out = _shard_runs(entry, mesh)
+    for kernel, plain in pairs:
+        _assert_close(kernel, plain,
+                      signed=(11, 13, 15, 17, 19) if entry == "path" else ())
+    total = pairs[0][0]
+    for kernel, _ in pairs[1:]:
+        total = total + kernel
+    assert torch.equal(out, total)
+
+
+_SCAN_CORES = {
+    "gbm-asian-geo": ("gbm", "asian", dict(sigma=0.2), dict(with_geo=True)),
+    "gbm-dividends": ("gbm", "barrier", dict(sigma=0.2, barrier=125.0),
+                      dict(dividends=True)),
+    "lv_milstein": ("lv_milstein", "vanilla", {}, {}),
+    "heston": ("heston", "vanilla",
+               dict(heston=dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6,
+                                rho=-0.7)), {}),
+    "heston_qe": ("heston_qe", "lookback",
+                  dict(heston=dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6,
+                                   rho=-0.7)), {}),
+    "sabr_cev": ("sabr_cev", "asian",
+                 dict(sabr=dict(alpha0=2.0, beta=0.5, nu=0.4, rho=-0.3)),
+                 {}),
+    "merton": ("merton", "vanilla",
+               dict(sigma=0.2, merton=dict(sigma=0.2, lam=0.8, mJ=-0.1,
+                                           sJ=0.15)), {}),
+    "vg": ("vg", "vanilla", dict(vg=dict(sigma=0.2, theta=-0.14, nu=0.2)),
+           {}),
+    "nig": ("nig", "digital",
+            dict(nig=dict(alpha=8.0, beta=-4.0, delta=0.4)), {}),
+}
+
+
+def _scan_core_run(case, device, draws_host, n, n_steps):
+    from optpricer_tpu_torch.models import mc_fused as tmf
+
+    model_kind, payoff, fk, st = _SCAN_CORES[case]
+    st = dict(st)
+    fixed = tmf._fixed(torch.float64, device, S0=100.0, K=100.0, T=1.0,
+                       r=0.03, q=0.01, **fk)
+    if st.pop("dividends", False):
+        fixed["div_amts"] = torch.zeros(n_steps + 1, dtype=torch.float64,
+                                        device=device)
+        fixed["div_amts"][n_steps // 2] = 2.0
+
+    def sig(S, t):
+        return 0.15 + 0.05 * torch.exp(-t) \
+            + 0.1 * torch.tanh(torch.log(S / 100.0))
+
+    def draws(k):
+        return tuple(None if x is None else x.to(device)
+                     for x in draws_host[k])
+
+    return tmf._fused_paths(
+        draws, fixed, payoff=payoff, kind="call", n_steps=n_steps,
+        n_paths=n, antithetic=True, barrier_type="up-and-out",
+        average_type="arithmetic", strike_type="fixed",
+        model_kind=model_kind, sigma_loc=sig, dtype=torch.float64, **st)
+
+
+@pytest.mark.parametrize("case", list(_SCAN_CORES))
+def test_scan_cores_on_card_match_cpu(cuda_device, case):
+    """The scan engine's core on the card, fed host-made draws, meets the
+    same core on the CPU at rtol 1e-12 (the sums of its outputs)."""
+    from optpricer_tpu_torch.models import mc_fused as tmf
+
+    n, n_steps = 4096, 16
+    model_kind = _SCAN_CORES[case][0]
+    gen = torch.Generator().manual_seed(3)
+    draw = tmf._scan_draws(gen, model_kind, n, T=1.0, n_steps=n_steps,
+                           dtype=torch.float64, device="cpu", m_lam=0.8,
+                           v_nu=0.2, with_grad=True)
+    draws_host = [draw(k) for k in range(n_steps)]
+    cpu = _scan_core_run(case, "cpu", draws_host, n, n_steps)
+    card = _scan_core_run(case, cuda_device, draws_host, n, n_steps)
+    for a, b in zip(card, cpu):
+        a, b = a.double().cpu(), b.double()
+        torch.testing.assert_close(torch.stack([a.sum(), (a * a).sum()]),
+                                   torch.stack([b.sum(), (b * b).sum()]),
+                                   rtol=1e-12, atol=0.0)
+
+
+def test_other_cores_on_card_match_cpu(cuda_device):
+    """The chunk scan, the exact CEV scan, the AD Jacobian sums and the
+    float64 QMC route: on the card as on the CPU, rtol 1e-12, from the
+    same host-made draws (the QMC route is deterministic)."""
+    from optpricer_tpu_torch.models import mc_fused as tmf
+    from optpricer_tpu_torch.models import monte_carlo as tmcm
+
+    z = torch.randn(5000, generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float64)
+    chunk = [tmcm.mc_sumstats(1, range(2), 4500, *MARKET, True,
+                              chunk_size=2500, antithetic=True,
+                              dtype="float64", device=d,
+                              normals=lambda c: z[c * 2500:(c + 1) * 2500])
+             for d in ("cpu", cuda_device)]
+    torch.testing.assert_close(chunk[1].cpu(), chunk[0], rtol=1e-12,
+                               atol=0.0)
+
+    class HostCev:
+        """Draws made on the host from the state handed over."""
+
+        def __init__(self):
+            self.gen = torch.Generator().manual_seed(4)
+
+        def normal(self, k):
+            return torch.randn(2000, generator=self.gen,
+                               dtype=torch.float64)
+
+        def poisson(self, k, rate):
+            return torch.poisson(rate.cpu(), generator=self.gen)
+
+        def gamma(self, k, shape):
+            from optpricer_tpu_torch.models.levy import _standard_gamma
+
+            return _standard_gamma(self.gen, shape.cpu(), (2000,),
+                                   torch.float64, "cpu")
+
+    class OnDevice:
+        def __init__(self, inner, device):
+            self.inner, self.device = inner, device
+
+        def __getattr__(self, name):
+            fn = getattr(self.inner, name)
+            return lambda *a: fn(*a).to(self.device)
+
+    vals = dict(S0=100.0, K=100.0, T=1.0, r=0.03, q=0.01, barrier=130.0,
+                payout=1.0, s_beta=0.5, s_alpha0=2.0, s_nu=0.4, s_rho=-0.3)
+    cev = []
+    for d in ("cpu", cuda_device):
+        f = {k: torch.tensor(v, dtype=torch.float64, device=d)
+             for k, v in vals.items()}
+        cev.append(tmf._cev_exact_sumstats(
+            OnDevice(HostCev(), d), f, payoff="vanilla", n_steps=6,
+            n_paths=2000, barrier_up=True, knock_in=False,
+            dtype=torch.float64, has_vol=True).cpu())
+    torch.testing.assert_close(cev[1], cev[0], rtol=1e-12, atol=0.0)
+
+    heston = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7)
+    draw = tmf._scan_draws(torch.Generator().manual_seed(6), "heston", 2048,
+                           T=1.0, n_steps=8, dtype=torch.float64,
+                           device="cpu")
+    draws_host = [draw(k) for k in range(8)]
+    static = dict(payoff="vanilla", kind="call", n_steps=8, antithetic=True,
+                  barrier_type="up-and-out", average_type="arithmetic",
+                  strike_type="fixed", model_kind="heston", sigma_loc=None,
+                  dtype=torch.float64)
+    names = (("delta", "S0"), ("rho", "r"), ("theta", "T")) \
+        + tmf._AD_PARAMS["heston"]
+    ad = []
+    for d in ("cpu", cuda_device):
+        f = tmf._fixed(torch.float64, d, S0=100.0, K=100.0, T=1.0, r=0.03,
+                       q=0.01, heston=heston)
+        dl = [tuple(x.to(d) for x in step) for step in draws_host]
+        ad.append(tmf._ad_local_sums(dl, f, names, 2048, static,
+                                     torch.exp).cpu())
+    torch.testing.assert_close(ad[1], ad[0], rtol=1e-12, atol=0.0)
+
+    kw = dict(sigma=0.2, n_paths=4096, n_steps=16, seed=7, dtype="float64",
+              backend="qmc")
+    qmc = [tp.exotic_price_mc("asian", 100.0, 100.0, 1.0, 0.03, 0.01,
+                              device=d, **kw) for d in ("cpu", cuda_device)]
+    np.testing.assert_allclose(qmc[1], qmc[0], rtol=1e-12, atol=0.0)

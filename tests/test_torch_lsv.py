@@ -370,8 +370,12 @@ def test_guards():
         tp.lsv_price_mc("vanilla", tl.LSVModel(
             S0, R, Q, T, 0.04, 1.5, 0.04, 0.5, -0.6, torch.linspace(-1, 1, 16),
             torch.ones(7, 16)), 100.0, backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tp.lsv_price_mc("vanilla", m, 100.0, mesh=object(), device="cpu")
+    # mesh= raised until A.15 was ported: the route now prices
+    from optpricer_tpu_torch.parallel import get_mesh
+
+    price, se = tp.lsv_price_mc("vanilla", m, 100.0, n_paths=8192,
+                                mesh=get_mesh(devices=["cpu"] * 2))
+    assert np.isfinite(price) and 0.0 < se < 0.1 * price
     with pytest.raises(ValueError, match="continuous"):
         tp.lsv_greeks_mc("barrier", m, 100.0, device="cpu")
     with pytest.raises(ValueError, match="point mass"):

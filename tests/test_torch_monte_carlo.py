@@ -90,14 +90,18 @@ def test_seed_reproducible():
 
 @pytest.mark.parametrize("fn", ["euro_price_mc", "euro_greeks_mc"])
 def test_unported_paths_raise(fn):
+    """The chunk scan (``backend="xla"``) and ``mesh=`` raised until A.5 and
+    A.15 were ported; now each prices within 5 se of Black-Scholes."""
+    from optpricer_tpu_torch.parallel import get_mesh
+
     spec = tp.OptionSpec(**SPEC)
     engine = getattr(tp, fn)
-    with pytest.raises(NotImplementedError, match="xla"):
-        engine(spec, "call", n_paths=1000, seed=1, backend="xla",
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        engine(spec, "call", n_paths=1000, seed=1, mesh=object(),
-               device="cpu")
+    bs = float(tp.bs_price(spec, "call", device="cpu"))
+    for kw in (dict(backend="xla", device="cpu"),
+               dict(mesh=get_mesh(devices=["cpu"] * 2))):
+        out = engine(spec, "call", n_paths=1 << 16, seed=1, **kw)
+        price, se = out if fn == "euro_price_mc" else (out["price"], 0.05)
+        assert abs(price - bs) <= 5.0 * se, kw
 
 
 def test_cuda_request_raises_without_a_card():
