@@ -83,6 +83,11 @@ from .ops.bvn import bvn_cdf
 from .models.lsv import (LSVModel, lsv_calibrate, lsv_greeks_mc,
                          lsv_path_matrix, lsv_price_mc)
 
+# American and multilevel Monte Carlo
+from .models.mlmc import mlmc_price
+from .models.american_mc import (lsmc_price, lsmc_price_basket,
+                                 lsmc_price_batch, lsmc_price_sharded)
+
 __all__ = [
     # Legacy
     "OptionSpec", "CALL", "PUT",
@@ -127,6 +132,9 @@ __all__ = [
     "bvn_cdf",
     "LSVModel", "lsv_calibrate", "lsv_greeks_mc", "lsv_path_matrix",
     "lsv_price_mc",
+    # American and multilevel Monte Carlo
+    "mlmc_price", "lsmc_price", "lsmc_price_batch", "lsmc_price_sharded",
+    "lsmc_price_basket",
 ]
 
 __version__ = "0.1.0"

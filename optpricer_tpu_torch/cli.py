@@ -2,14 +2,13 @@
 
 Counterpart of ``optpricer_tpu/cli.py`` for the engines ported so far:
 ``bs``, ``binomial``, ``mc``, ``greeks``, ``fd``, ``heston``, ``american``,
-``barrier``, ``lookback``, ``levy``, ``qmc``, ``lsv`` and ``basket``, with
-the same flags and the same 10-decimal output, plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions). Routes whose engine
-is not ported raise ``NotImplementedError`` naming the ROADMAP item that
-ports it: ``basket --american`` (the basket LSMC, A.12) and ``heston
+``barrier``, ``lookback``, ``levy``, ``lsmc``, ``qmc``, ``lsv``, ``mlmc``
+and ``basket`` (``--american`` included), with the same flags and the
+same 10-decimal output, plus ``--device`` (default ``cuda``; ``cpu`` runs
+the kernels' plain versions). Routes whose engine is not ported raise
+``NotImplementedError`` naming the ROADMAP item that ports it: ``heston
 --engine adi`` / ``--american`` / ``--barrier`` / ``--dividends`` (the
-Heston ADI PDE, A.14). ``lsmc``, ``mlmc`` and ``varswap`` wait for their
-engines (ROADMAP).
+Heston ADI PDE, A.14). ``varswap`` waits for its engine (ROADMAP A.14).
 
     python -m optpricer_tpu_torch.cli mc --S0 100 --K 110 --T 1 --r 0.03 \\
         --sigma 0.2 --n-paths 1000000 --seed 7
@@ -25,6 +24,10 @@ engines (ROADMAP).
         --sigmas 0.2,0.3,0.25 --K 100 --T 1 --r 0.03 --payoff asian_basket
     python -m optpricer_tpu_torch.cli lsv --S0 100 --K 100 --T 1 --r 0.03 \\
         --sigma 0.2 --surface surface.json --payoff barrier --barrier 130
+    python -m optpricer_tpu_torch.cli lsmc --S0 100 --K 110 --T 1 --r 0.05 \\
+        --sigma 0.25 --kind put --n-paths 100000 --seed 0 --bound
+    python -m optpricer_tpu_torch.cli mlmc --S0 100 --K 100 --T 1 --r 0.05 \\
+        --sigma 0.2 --payoff barrier --barrier 130 --eps 0.005 --seed 7
 """
 from __future__ import annotations
 
@@ -235,6 +238,22 @@ def _run_greeks(ns) -> str:
     return "\n".join(f"{name:<6} {g[name]: .10f}" for name in order)
 
 
+def _run_lsmc(ns) -> str:
+    from .models.american_mc import lsmc_price
+
+    kw = dict(n_paths=ns.n_paths, n_steps=ns.n_steps, seed=ns.seed,
+              device=ns.device)
+    if ns.bound:
+        br = lsmc_price(_spec_of(ns), ns.kind, bound="both", **kw)
+        lo, lo_se = br["lower"]
+        up, up_se = br["upper"]
+        return (f"lower  {lo:.10f}  (stderr {lo_se:.10f})\n"
+                f"upper  {up:.10f}  (stderr {up_se:.10f})\n"
+                f"gap    {br['gap']:.10f}")
+    value, stderr = lsmc_price(_spec_of(ns), ns.kind, **kw)
+    return f"{value:.10f}  (stderr {stderr:.10f})"
+
+
 def _run_qmc(ns) -> str:
     from .models.mc_fused import exotic_price_mc
 
@@ -284,6 +303,17 @@ def _run_lsv(ns) -> str:
     return f"{value:.10f}  (stderr {stderr:.10f})"
 
 
+def _run_mlmc(ns) -> str:
+    from .models.mlmc import mlmc_price
+
+    value, stderr = mlmc_price(
+        ns.payoff, ns.S0, ns.K, ns.T, ns.r, ns.q, sigma=ns.sigma,
+        kind=ns.kind, eps=ns.eps, seed=ns.seed, barrier=ns.barrier,
+        barrier_type=ns.barrier_type, average_type=ns.average_type,
+        strike_type=ns.strike_type, payout=ns.payout, device=ns.device)
+    return f"{value:.10f}  (stderr {stderr:.10f})"
+
+
 def _csv_floats(text: str):
     return [float(x) for x in text.split(",") if x.strip()]
 
@@ -302,9 +332,15 @@ def _run_basket(ns) -> str:
     common = dict(sigmas=sigmas, corr=corr, kind=ns.kind,
                   n_paths=ns.n_paths, seed=ns.seed, device=ns.device)
     if ns.american:
-        raise NotImplementedError(
-            "basket --american (the basket LSMC, american_mc."
-            "lsmc_price_basket) is not ported yet (ROADMAP A.12)")
+        if ns.payoff not in ("basket", "rainbow_max", "rainbow_min"):
+            raise SystemExit("--american supports basket/rainbow_max/"
+                             "rainbow_min payoffs")
+        from .models.american_mc import lsmc_price_basket
+
+        value, stderr = lsmc_price_basket(
+            S0s, weights, ns.K, ns.T, ns.r, qs, payoff=ns.payoff,
+            n_steps=ns.n_steps, **common)
+        return f"{value:.10f}  (stderr {stderr:.10f})"
     if ns.payoff in ("asian_basket", "worstof_barrier", "basket_barrier"):
         value, stderr = basket_exotic_mc(
             S0s, weights, ns.K, ns.T, ns.r, qs, payoff=ns.payoff,
@@ -418,6 +454,14 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
         ("--n-paths", dict(dest="n_paths", type=int, default=1_000_000)),
         ("--seed", dict(type=int, default=None)),
     ), _run_greeks),
+    "lsmc": ("American price via Longstaff-Schwartz MC", (
+        ("--n-paths", dict(dest="n_paths", type=int, default=100_000)),
+        ("--n-steps", dict(dest="n_steps", type=int, default=50)),
+        ("--seed", dict(type=int, default=None)),
+        ("--bound", dict(action="store_true",
+                         help="two-pass lower + Andersen-Broadie upper "
+                              "bound bracket")),
+    ), _run_lsmc),
     "qmc": ("Randomised-QMC path pricer (Sobol + Brownian bridge)", (
         ("--payoff", dict(default="vanilla",
                           choices=("vanilla", "asian", "barrier",
@@ -463,6 +507,21 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
         ("--n-paths", dict(dest="n_paths", type=int, default=262_144)),
         ("--seed", dict(type=int, default=0)),
     ), _run_lsv),
+    "mlmc": ("Multilevel MC: continuous-monitoring limit to RMSE eps", (
+        ("--payoff", dict(default="asian",
+                          choices=("vanilla", "asian", "barrier",
+                                   "digital", "lookback"))),
+        ("--eps", dict(type=float, default=0.01,
+                       help="target root-mean-square error")),
+        ("--seed", dict(type=int, default=None)),
+        ("--barrier", dict(type=float, default=0.0)),
+        ("--barrier-type", dict(dest="barrier_type",
+                                default="up-and-out")),
+        ("--average-type", dict(dest="average_type",
+                                default="arithmetic")),
+        ("--strike-type", dict(dest="strike_type", default="fixed")),
+        ("--payout", dict(type=float, default=1.0)),
+    ), _run_mlmc),
 }
 
 # multi-asset subcommand: its own market block (vector-valued flags)
@@ -487,8 +546,7 @@ _BASKET_FLAGS = (
     ("--qs", dict(default="", help="comma-separated dividend yields "
                                    "(default zero)")),
     ("--american", dict(action="store_true",
-                        help="LSMC early exercise over n-steps dates "
-                             "(not ported: raises)")),
+                        help="LSMC early exercise over n-steps dates")),
     ("--device", dict(default="cuda", help="cuda (default) or cpu")),
 )
 

@@ -135,10 +135,15 @@ def _terminal_payoff(payoff, carry, *, K, kind, n_steps, barrier_type,
     log-sum, running max, running min, crossed)."""
     S, run_sum, run_logsum, run_max, run_min, crossed = carry
     is_call = kind == "call"
+    zero = torch.zeros((), dtype=S.dtype, device=S.device)
+
+    def relu(x):
+        # jnp.maximum's tangent rule: half of each side's at a tie (a
+        # lookback whose running max stays at S0 = K)
+        return torch.maximum(x, zero)
 
     def vanilla(ST):
-        return torch.clamp(ST - K, min=0.0) if is_call \
-            else torch.clamp(K - ST, min=0.0)
+        return relu(ST - K) if is_call else relu(K - ST)
 
     def full(value):
         return torch.as_tensor(value, dtype=S.dtype,
@@ -160,13 +165,11 @@ def _terminal_payoff(payoff, carry, *, K, kind, n_steps, barrier_type,
             avg = _exp_for(S.dtype)(run_logsum / n_steps)
         if strike_type == "fixed":
             return vanilla(avg)
-        return (torch.clamp(S - avg, min=0.0) if is_call
-                else torch.clamp(avg - S, min=0.0))
+        return relu(S - avg) if is_call else relu(avg - S)
     if payoff == "lookback":
         if strike_type == "floating":
             return (S - run_min) if is_call else (run_max - S)
-        return (torch.clamp(run_max - K, min=0.0) if is_call
-                else torch.clamp(K - run_min, min=0.0))
+        return relu(run_max - K) if is_call else relu(K - run_min)
     raise ValueError(f"unknown payoff {payoff!r}")
 
 

@@ -39,7 +39,7 @@ from ..core import CALL, OptionSpec
 from ..dtypes import canonical, resolve_device
 from ..ops import stats as stats_ops
 from ..ops.black_scholes import is_call_mask
-from ..ops.swprng import jax_fold_in_bits
+from ..ops.swprng import jax_fold_in_path_bits
 from ..ops.terminal_mc import (mc_sumstats_kernel, mc_sumstats_kernel_sharded,
                                mc_sumstats_qmc, qmc_estimate,
                                terminal_estimate, terminal_greeks)
@@ -56,12 +56,17 @@ def resolve_seed(seed: Optional[int]) -> int:
     return int(seed)
 
 
-def keyed_generator(seed: int, index: int, device) -> torch.Generator:
+def keyed_generator(seed: int, index, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from (seed, index) alone:
     the 64 bits of ``jax_fold_in_bits(seed, index, 2)``, the port's
-    counterpart of ``fold_in(key(seed), index)``. Streams of different
-    indices are independent of the order they are drawn in."""
-    hi, lo = (int(w) for w in jax_fold_in_bits(int(seed), int(index), 2))
+    counterpart of ``fold_in(key(seed), index)``. ``index`` may be a tuple
+    of indices, folded in one after another (``fold_in(fold_in(key(seed),
+    i0), i1)``…), so that (level, chunk) or (outer date, inner date) key a
+    stream without packing the indices into one word; a one-entry tuple is
+    the one-index form. Streams of different indices are independent of
+    the order they are drawn in."""
+    path = tuple(index) if isinstance(index, (tuple, list)) else (index,)
+    hi, lo = jax_fold_in_path_bits(int(seed), path, 2)
     return torch.Generator(device=device).manual_seed((hi << 32) | lo)
 
 

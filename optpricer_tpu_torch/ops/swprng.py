@@ -16,14 +16,16 @@ is what lets the port reproduce the reference's draws.
 ``jax.random.bits(jax.random.fold_in(jax.random.key(seed), i), (d,),
 jnp.uint32)`` returns under JAX's default ``threefry2x32`` implementation
 with ``jax_threefry_partitionable`` on: the path-QMC kernel's digital
-shifts.
+shifts. ``jax_fold_in_path_bits`` does the same for a chain of folds,
+``fold_in(fold_in(key(seed), i0), i1)…``, in Python integers (one key at a
+time, a few microseconds): the keys of the port's generators.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "jax_fold_in_bits"]
+__all__ = ["threefry2x32", "jax_fold_in_bits", "jax_fold_in_path_bits"]
 
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
@@ -60,6 +62,33 @@ def threefry2x32(key0, key1, ctr0, ctr1):
         x0 = (x0 + ks[(block + 1) % 3]) & _MASK
         x1 = (x1 + ks[(block + 2) % 3] + (block + 1)) & _MASK
     return x0, x1
+
+
+def _threefry_int(k0: int, k1: int, x0: int, x1: int) -> tuple:
+    """``threefry2x32`` on one (key, counter) in Python integers."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0, x1 = (x0 + k0) & _MASK, (x1 + k1) & _MASK
+    for block in range(5):
+        for j in range(4):
+            r = _ROTATIONS[(block % 2) * 4 + j]
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(block + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(block + 2) % 3] + block + 1) & _MASK
+    return x0, x1
+
+
+def jax_fold_in_path_bits(seed: int, path, d: int) -> list:
+    """The ``d`` uint32 words of ``bits(fold_in(…fold_in(key(seed), i0)…,
+    i_last), (d,), uint32)`` for the tuple ``path`` = (i0, …, i_last), as
+    Python integers; a one-entry path gives ``jax_fold_in_bits(seed, i0,
+    d)``."""
+    seed64 = int(seed) & 0xFFFFFFFFFFFFFFFF
+    k0, k1 = seed64 >> 32, seed64 & _MASK
+    for i in path:
+        k0, k1 = _threefry_int(k0, k1, 0, int(i) & _MASK)
+    return [a ^ b for a, b in (_threefry_int(k0, k1, 0, j)
+                               for j in range(int(d)))]
 
 
 def jax_fold_in_bits(seed: int, i, d: int) -> np.ndarray:

@@ -9,8 +9,8 @@ for the Greeks bands at 2^20 paths scaled from tests/test_mc_greeks.py.
 ``qmc`` on ``--device cpu`` must print exactly what the port's own
 ``exotic_price_mc(backend="qmc", device="cpu")`` gives, at 10 decimals, and
 so must ``basket`` and ``lsv`` (the latter calibrating on a surface file
-written by the JAX package and pricing again from its saved model);
-``basket --american`` raises ``NotImplementedError``. The closed-form
+written by the JAX package and pricing again from its saved model), and
+``basket --american`` the port's ``lsmc_price_basket``. The closed-form
 subcommands ``heston`` (COS, Bates), ``american`` (bs2002, baw, rgw),
 ``barrier`` (analytic and fd, single and double), ``lookback`` and
 ``levy`` (vg, nig, cgmy) print what the port's in-process call gives, and
@@ -140,9 +140,19 @@ def test_basket_line_equals_port_entry_point(extra, kw, capsys):
     assert got == f"{px:.10f}  (stderr {se:.10f})"
 
 
-def test_basket_american_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tcli.main(["basket", *BASKET, "--american"])
+def test_basket_american_is_not_ported(capsys):
+    """Named for the route's state before the basket LSMC was ported:
+    ``basket --american`` now prints ``lsmc_price_basket``'s line."""
+    got = _run(tcli.main, ["basket", *BASKET, "--american", "--payoff",
+                           "rainbow_max", "--n-steps", "8", "--n-paths",
+                           "4096", "--seed", "3"], capsys)
+    corr = 0.4 * np.ones((3, 3)) + 0.6 * np.eye(3)
+    px, se = tp.lsmc_price_basket([100.0, 95.0, 105.0], [1 / 3] * 3, 100.0,
+                                  1.0, 0.03, None, sigmas=[0.2, 0.3, 0.25],
+                                  corr=corr, kind="call",
+                                  payoff="rainbow_max", n_paths=4096,
+                                  n_steps=8, seed=3, device="cpu")
+    assert got == f"{px:.10f}  (stderr {se:.10f})"
 
 
 def test_lsv_line_equals_port_entry_point(tmp_path, capsys):

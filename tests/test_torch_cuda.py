@@ -36,7 +36,10 @@ public function of ``analytic``, ``american_analytic``, ``levy``,
 call on the CPU, at the tolerances of its CPU parity test; the Lévy cores
 fed the same draws; the port's gamma sampler and ``vg_paths`` held
 statistically; ``profiling.trace`` naming K1 and ``device_memory`` the
-card.
+card. The American and multilevel slice (no kernel of its own): every
+deterministic core on the card equal to the CPU's at 1e-12 in float64,
+the float32 regression betas unchanged by a process-wide TF32 setting,
+the LSMC passes free of host syncs (``-k "american or lsmc"``).
 """
 import numpy as np
 import pytest
@@ -1367,3 +1370,75 @@ def test_other_cores_on_card_match_cpu(cuda_device):
     qmc = [tp.exotic_price_mc("asian", 100.0, 100.0, 1.0, 0.03, 0.01,
                               device=d, **kw) for d in ("cpu", cuda_device)]
     np.testing.assert_allclose(qmc[1], qmc[0], rtol=1e-12, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The American and multilevel Monte-Carlo slice (no kernel of its own)
+# ---------------------------------------------------------------------------
+def test_american_mlmc_cores_on_card_match_cpu(cuda_device):
+    """Every deterministic core of ``american_mc`` and ``mlmc`` (the LSMC
+    passes, the ladder, the basket, the three duals fed the same draws,
+    the sharded regression, ``_level_y`` and the level stats with their
+    Greek tangents) on the card equals the same core on the CPU on the
+    same host-made inputs, float64, within 1e-12 of each output's scale:
+    ``chip_smoke.american_mlmc_cores`` and ``compare_cores``, the runs
+    ``chip_smoke.py`` phase 5 makes."""
+    import chip_smoke
+
+    chip_smoke.compare_cores(chip_smoke.american_mlmc_cores(cuda_device),
+                             chip_smoke.american_mlmc_cores("cpu"))
+
+
+def test_lsmc_float32_betas_ignore_tf32_on_card(cuda_device):
+    """The regression's float32 products run at full precision whatever the
+    process-wide TF32 setting: the card's betas are the same bit for bit
+    with it on or off, and as close to the float64 betas as the CPU's."""
+    from optpricer_tpu_torch.models import american_mc as tam
+
+    paths = tp.gbm_paths(100.0, 0.05, 0.0, 0.25, 1.0, 32, 50_000, seed=8,
+                         dtype="float64", device="cpu")
+
+    def betas(device, dtype):
+        s = [torch.tensor(x, dtype=dtype).to(device)
+             for x in (110.0, 0.05, 1 / 32)]
+        return tam._lsmc_backward_betas(paths.to(device, dtype), *s, False,
+                                        basis_dim=4).double().cpu()
+
+    truth = betas("cpu", torch.float64)
+    off = betas(cuda_device, torch.float32)
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = betas(cuda_device, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    assert torch.equal(on, off)
+    err = lambda b: float(((b - truth).abs().amax(1)  # noqa: E731
+                           / truth.abs().amax(1)).max())
+    assert err(off) <= 4 * err(betas("cpu", torch.float32)) + 1e-6
+
+
+def test_lsmc_passes_make_no_host_sync(cuda_device):
+    """The backward and forward passes enqueue every date with no host
+    sync (``torch.linalg.solve_ex``): they run under the CUDA sync debug
+    mode set to raise."""
+    from optpricer_tpu_torch.models import american_mc as tam
+
+    S, v = tp.heston_paths(100.0, 0.05, 0.0, 0.04, 1.5, 0.04, 0.5, -0.6,
+                           1.0, 16, 8192, seed=2, return_variance=True,
+                           dtype="float64", scheme="qe", device=cuda_device)
+    s = [torch.full((), x, dtype=torch.float64, device=cuda_device)
+         for x in (110.0, 0.05, 1 / 16)]
+    Ks = torch.linspace(80.0, 120.0, 8, dtype=torch.float64,
+                        device=cuda_device)
+    kinds = torch.zeros(8, dtype=torch.bool, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = tam._lsmc_backward_betas(S, *s, False, basis_dim=4)
+        tam._lsmc_backward(S, *s, False, basis_dim=4)
+        tam._lsmc_forward_fixed_policy(S, b, *s, False, basis_dim=4)
+        tam._lsmc_backward_sv(S, v, *s, False, basis_dim=6)
+        tam._lsmc_backward_batch(S, Ks, s[1], s[2], kinds, basis_dim=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -41,7 +41,8 @@ def test_import_never_pulls_in_jax():
                    "scripts.desk_workflow_localvol_barrier",
                    "models.basket", "models.lsv", "ops.bvn", "ops.basket_mc",
                    "utils.serialization", "utils.profiling", "utils.timing",
-                   "validation", "models.american_analytic", "models.levy"):
+                   "validation", "models.american_analytic", "models.levy",
+                   "models.mlmc", "models.american_mc"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
@@ -83,14 +84,14 @@ SLICE_NAMES = (
 
 
 def test_slice_names_keep_the_reference_parameters():
-    """103 of the reference's names; each of the slice's 29 takes the
+    """108 of the reference's names; each of the slice's 29 takes the
     reference's parameters, of the same kind and with the same defaults,
     and adds at most ``dtype=`` and ``device=``."""
     import inspect
 
     import optpricer_tpu as jp
 
-    assert len(SLICE_NAMES) == 29 and len(tp.__all__) == 103
+    assert len(SLICE_NAMES) == 29 and len(tp.__all__) == 108
     for name in SLICE_NAMES:
         assert name in tp.__all__, name
         ours = inspect.signature(getattr(tp, name)).parameters
@@ -100,6 +101,32 @@ def test_slice_names_keep_the_reference_parameters():
             assert ours[pname].kind == param.kind, (name, pname)
             assert ours[pname].default == param.default, (name, pname)
         assert set(ours) - set(theirs) <= {"dtype", "device"}, name
+
+
+# the American and multilevel Monte-Carlo slice, in the reference's order
+MC_SLICE_NAMES = ("mlmc_price", "lsmc_price", "lsmc_price_batch",
+                  "lsmc_price_sharded", "lsmc_price_basket")
+
+
+@pytest.mark.parametrize("name", MC_SLICE_NAMES)
+def test_mc_slice_names_keep_the_reference_parameters(name):
+    """Each of the five takes the reference's parameters, in its order, of
+    the same kind and with the same defaults, and adds at most
+    ``device=``; the port lists them in the reference's order."""
+    import inspect
+
+    import optpricer_tpu as jp
+
+    assert name in tp.__all__ and name in jp.__all__
+    ours = inspect.signature(getattr(tp, name)).parameters
+    theirs = inspect.signature(getattr(jp, name)).parameters
+    assert list(ours)[:len(theirs)] == list(theirs), name
+    for pname, param in theirs.items():
+        assert ours[pname].kind == param.kind, (name, pname)
+        assert ours[pname].default == param.default, (name, pname)
+    assert set(ours) - set(theirs) <= {"device"}, name
+    order = [n for n in jp.__all__ if n in MC_SLICE_NAMES]
+    assert [n for n in tp.__all__ if n in MC_SLICE_NAMES] == order
 
 
 def test_option_spec_round_trip():
