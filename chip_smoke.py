@@ -238,7 +238,7 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      bound="both" (n_inner 256, 8 192 upper paths): crr(N=4000) at the 49
      Bermudan dates inside [lower − 3 se, upper + 3 se], gap ≥ −3(se + se);
    * ``[lsmc-heston]``: the 200 000 x 50 QE two-pass put against the
-     reference's American ADI value recorded in ``HESTON_ADI`` with
+     port's American ADI value (``heston_adi_values``, on the card) with
      tests/test_lsmc.py:249-257's bands; the Heston and LSV bound="both"
      brackets at tests/test_lsmc.py's sizes around the recorded
      Bermudan-9 values (the Heston gap printed beside the reference
@@ -261,6 +261,40 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      "error" (no host sync);
    * the CLI's lsmc, mlmc and basket --american as subprocesses started
      together, each equal to the same call in-process.
+   The Heston ADI, forward PDE, vol-product and script path
+   (``AdiForwardSlice``; K7 from ``tridiag_inv``, the forward build and
+   the local-vol march, and K3 from ``price_book``, each required):
+   * ``[heston-adi]``: the American put 256 x 96 x 512 (f64), its European
+     twin within 5e-3 of heston_price_cos, ``HESTON_ADI_CALLS`` on the
+     card equal to device="cpu" at 1e-9 (the brackets' oracle, also priced
+     on the card by ``heston_adi_values`` for ``[lsmc-heston]``), an
+     up-and-out call and an American put with two dividends (equal to
+     device="cpu" at 1e-9 on a 96 x 48 x 128 grid), an 8-put American
+     ladder equal to its scalar calls, the Greeks, the f32 American the same bits with TF32 on;
+   * ``[forward-pde]``: the 1 024 x 512 surface to T 2 within 2e-3 of
+     Black-Scholes on tests/test_forward_pde.py's board, equal to
+     device="cpu" at 1e-9, its f32 ATM error at most device="cpu"'s +
+     1e-6; the SVI local-vol round trip at 1 024 x 512 within 2e-3 in vol
+     of the surface, and equal to device="cpu" at 256 x 128;
+   * ``[rbergomi]``: BFG ATM at 262 144 x 128, its spot mean within 4 se of
+     S0, the H = ½, η → 0 limit within 3 se + 0.01 of Black-Scholes, f32
+     paths the same bits with TF32 on;
+   * varswap_strike_mc (GBM, Heston QE) and cliquet_price_mc at 65 536 x
+     252 against σ², the Heston closed form and cliquet_price_bs;
+   * price_book on a book of one row of every method against device="cpu"
+     (deterministic rows 1e-9, MC rows 4·hypot(se, se), the mc rows' K3
+     launch 2e-5 of the plain version), its module as a subprocess equal
+     to the call; calibrate_surface (svi, essvi, heston, vg) on 3 x 21
+     quotes equal to --device cpu at 1e-6; the CLI's heston --american and
+     varswap --mc as subprocesses equal to the same calls.
+   Phase 3 holds K7 at this path's shapes: the tridiag_inv solve at 96 x
+   256 systems of 256 and 96 of 96 (f64, f32) against the plain version,
+   the inverse against torch.linalg.inv (1e-12) or the f64 inverse cast
+   to f32 (2e-7); the forward build (1 023 x 1 025, f64, θ 1 and ½)
+   against the plain version and the host's banded LU at 1e-13 of each
+   column's largest entry; the local-vol march's per-step solve (1 023
+   rows x 2 systems, f64) on the operands of the 1 024 x 512 round trip's
+   first θ 1 and θ ½ steps against the plain version at 1e-12.
 6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
    plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
    draws and its plain version at 2^24 and 1 000 000; K2 and its plain
@@ -306,7 +340,12 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    shards' ordered sums once), and each call of the mesh and scan path
    and of the American and multilevel path as the closed forms' (one run
    above 0.3 s; a call under 20 ms repeated under the profiler to fill
-   20 ms).
+   20 ms); K7 at the tridiag_inv shape (96 x 256 systems of 256, f64 and
+   f32, the bands and one identity read in place, also behind a queued
+   sleep) beside its plain version, its byte bound (the bands and the
+   identity read, the solution written) and batched torch.linalg.inv, and
+   each call of the ADI, forward and script path as
+   the American path's.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -322,7 +361,9 @@ derivatives and the two w of ∂w/∂T; K6 and K4-lsv per path-step by
 the dense batched ``torch.linalg.solve``; null for the others, which no
 single PyTorch call computes). K7's ``max_abs_err`` is in solution units,
 K8's in price units, K3's the largest over the book's contracts. K7's
-entry also has its launches by (rows, systems) on the PDE path, K8's its
+entry also has its launches by (rows, systems) on the PDE path (and on
+the ADI, forward and script path, with its times, plain, bound and
+batched torch.linalg.inv at the tridiag_inv shape: ``*_tridiag_inv_*``), K8's its
 launches by method, both forms' times for calls and American puts and the
 pre-kernel's; K6's its resident blocks per SM at each shape; K1's, K4's
 and K6's their sharded entry's time on 4 x cuda:0 beside its plain
@@ -404,6 +445,7 @@ import time
 from contextlib import redirect_stdout
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -438,22 +480,21 @@ SV_TIMED = {"heston": SV_PHASE5[0],
             "sabr_cev": dict(sabr=dict(SV_PHASE5[1]["sabr"], beta=0.5))}
 # K4's timed instantiations (all antithetic): label -> (dynamics, payoff,
 # Greek moments, paths, steps) of the main-path call each times
-# The reference's Heston ADI PDE (optpricer_tpu heston_fd_price, not yet in
-# the port) at tests/test_lsmc.py's fixture: S0 100, K 110, T 1, r 0.05,
-# q 0, the put, v0 0.04, κ 1.5, θ 0.04, ξ 0.5, ρ −0.6. The American
-# (:186-215, :249-257), the Bermudan-9 (8 interior dates, n_t 504: :199-201)
-# and the LSV bracket's 9 dates with maturity (:339-361), and the European
-# (n_t 504). tests/test_torch_lsmc_sv.py recomputes each with the reference.
+# The Heston ADI calls that the Heston and LSV brackets are held to, at
+# tests/test_lsmc.py's fixture: S0 100, K 110, T 1, r 0.05, q 0, the put,
+# v0 0.04, κ 1.5, θ 0.04, ξ 0.5, ρ −0.6 (``HESTON_HP``). The American
+# (:186-215, :249-257), the Bermudan-9 (8 interior dates, n_t 504:
+# :199-201) and the LSV bracket's 9 dates with maturity (:339-361), and the
+# European (n_t 504). ``heston_adi_values`` prices them with the port's own
+# ``heston_fd_price``; the ADI slice holds the card's to device="cpu"'s at
+# 1e-9, and tests/test_torch_lsmc_sv.py the CPU's to the reference's.
+HESTON_HP = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6)
 HESTON_ADI_CALLS = {
     "american": dict(american=True),
     "bermudan9": dict(n_t=504, exercise_dates=[j / 9 for j in range(1, 9)]),
     "bermudan9_lsv": dict(exercise_dates=[j / 9.0 for j in range(1, 10)]),
     "european": dict(n_t=504),
 }
-HESTON_ADI = {"american": 10.99654271554002,
-              "bermudan9": 10.883671651939883,
-              "bermudan9_lsv": 10.883570990048963,
-              "european": 9.426900991077956}
 K4_TIMED = {
     "gbm asian": ("gbm", "asian", False, 1_000_000, 252),
     "gbm asian greeks": ("gbm", "asian", True, 1_000_000, 252),
@@ -1267,7 +1308,7 @@ class PdeSlice:
                 lambda: flv.fd_lv_plan(ops[0], tab, **plan_kw))
             if method == "pcr":   # the European calls
                 times[("k8plain", method)] = cuda_ms(
-                    lambda: flv._fd_lv_plain(*ops, tab, **kw), reps=3)
+                    lambda: flv._fd_lv_plain(*ops, tab, **kw), reps=1)
         times[("k8plain", "thomas")] = self.plain_thomas_ms
         for solver in ("auto", "fused", "fused_thomas"):
             times[(f"ladder {solver}", "call")] = cuda_ms(
@@ -1294,13 +1335,15 @@ class PdeSlice:
         }
         walls_ms = {}
         for label, fn in calls.items():
-            walls = [timed(fn)[1] for _ in range(3)]
+            walls = [timed(fn)[1]]
+            if walls[0] < 1.0:    # one run for a call above a second
+                walls += [timed(fn)[1] for _ in range(2)]
             walls_ms[label] = statistics.median(walls) * 1e3
             first = self.wall.get(label)
             first = "" if first is None else \
                 f" (first call in phase 5: {first * 1e3:.4f} ms)"
             print(f"phase 6 wall {label} {g4['N_S']} x {g4['N_t']}: "
-                  f"{statistics.median(walls) * 1e3:.4f} ms, median of 3"
+                  f"{walls_ms[label]:.4f} ms, median of {len(walls)}"
                   f"{first} [{self.card}]")
         # device-busy share against the unprofiled wall (the profiler
         # slows the host)
@@ -1850,7 +1893,7 @@ class Config5Slice:
         times[("k3", "1000 x 2^20")] = cuda_ms(lambda: tmb.mc_batch(*ops,
                                                                      **kw))
         times[("k3plain", "1000 x 2^20")] = cuda_ms(
-            lambda: tmb._mc_batch_plain(*ops, **kw), reps=3)
+            lambda: tmb._mc_batch_plain(*ops, **kw), reps=1)
         for what in ("k4 lv_milstein", "k4 lv_euler", "k4plain lv_milstein"):
             print(f"phase 6 time {what} 200000 x 500: "
                   f"{times[(what, '200000 x 500')]:.4f} ms [{self.card}]")
@@ -3733,7 +3776,7 @@ class AmericanMlmcSlice:
     routes on 4 x cuda:0 and every deterministic core on the card against
     the CPU."""
 
-    HP = dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.5, rho=-0.6)
+    HP = HESTON_HP
 
     def __init__(self, dev, card):
         self.dev, self.card = dev, card
@@ -3824,15 +3867,17 @@ class AmericanMlmcSlice:
               f"(N 4000) {ref:.6f} inside; {wall * 1e3:.3f} ms wall")
 
     def heston(self):
-        """[lsmc-heston] (200 000 x 50 QE, two-pass) against the recorded
-        American ADI value with tests/test_lsmc.py:249-257's bands, and the
-        Heston and LSV bound="both" brackets at tests/test_lsmc.py's sizes
-        against the recorded Bermudan-9 values (``HESTON_ADI``)."""
+        """[lsmc-heston] (200 000 x 50 QE, two-pass) against the port's
+        American ADI value on the card with tests/test_lsmc.py:249-257's
+        bands, and the Heston and LSV bound="both" brackets at
+        tests/test_lsmc.py's sizes against its Bermudan-9 values
+        (``heston_adi_values``)."""
         import optpricer_tpu_torch as tp
 
         dev, hp = self.dev, self.HP
         opt = tp.OptionSpec(S0=100.0, K=110.0, T=1.0, r=0.05, sigma=0.2)
-        am = HESTON_ADI["american"]
+        adi = heston_adi_values(dev)
+        am = adi["american"]
         lo, se = self.call(
             "[lsmc-heston] lsmc_price heston two-pass 200000 x 50",
             lambda: tp.lsmc_price(opt, "put", heston=hp, n_paths=200_000,
@@ -3844,7 +3889,7 @@ class AmericanMlmcSlice:
                   f"[lsmc-heston] {lo} ± {se} vs ADI {am}, COS {eu}")
         print(f"  [lsmc-heston] lower {lo:.6f} ± {se:.6f} vs American ADI "
               f"{am:.6f} (COS European {eu:.6f}); {self.secs * 1e3:.3f} ms")
-        b9 = HESTON_ADI["bermudan9"]
+        b9 = adi["bermudan9"]
         br = self.call(
             "lsmc_price heston bound='both' 20000 x 9 (n_inner 64, 1024)",
             lambda: tp.lsmc_price(opt, "put", heston=hp, n_paths=20_000,
@@ -3867,7 +3912,7 @@ class AmericanMlmcSlice:
         model = tp.LSVModel(S0=100.0, r=0.05, q=0.0, T=1.0, **hp,
                             x_bins=torch.linspace(-1.0, 1.0, 9),
                             leverage=torch.ones((9, 9)), scheme="qe")
-        b9l = HESTON_ADI["bermudan9_lsv"]
+        b9l = adi["bermudan9_lsv"]
         br = self.call(
             "lsmc_price lsv bound='both' 20000 x 9 (n_inner 64, 1024)",
             lambda: tp.lsmc_price(opt, "put", lsv=model, n_paths=20_000,
@@ -4255,26 +4300,742 @@ class AmericanMlmcSlice:
         return launches
 
     def phase6(self):
-        """Each call's host-clock wall (phase 5's run is its warm-up; one
-        run above 0.3 s, else the median of 3) and its device-busy share
-        under torch.profiler (the CUDA activity alone; a call of under
-        20 ms repeated to fill 20 ms)."""
+        """Each call's host-clock wall and device-busy share
+        (:func:`user_call_walls`)."""
         t0 = time.perf_counter()
-        for label, fn in self.calls.items():
-            _, first = timed(fn)
-            wall = first * 1e3 if first > 0.3 else wall_ms(fn, reps=3)
-            reps = max(1, min(50, int(20.0 / wall)))
-
-            def repeated(fn=fn, reps=reps):
-                for _ in range(reps):
-                    fn()
-            busy, n_kernels = ClosedFormSlice.kernel_busy(repeated)
-            busy, n_kernels = busy / reps, n_kernels / reps
-            print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
-                  f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
-                  f"{n_kernels:.0f} kernels, {reps} calls profiled) "
-                  f"[{self.card}]")
+        user_call_walls(self.calls, self.card)
         print(f"phase 6 American and MLMC {time.perf_counter() - t0:.2f} s")
+
+
+def user_call_walls(calls: dict, card: str):
+    """Print each call's host-clock wall (phase 5's run is its warm-up; one
+    run above 0.3 s, else the median of 3) and its device-busy share under
+    torch.profiler (the CUDA activity alone; a call of under 20 ms repeated
+    to fill 20 ms)."""
+    for label, fn in calls.items():
+        _, first = timed(fn)
+        wall = first * 1e3 if first > 0.3 else wall_ms(fn, reps=3)
+        reps = max(1, min(50, int(20.0 / wall)))
+
+        def repeated(fn=fn, reps=reps):
+            for _ in range(reps):
+                fn()
+        busy, n_kernels = ClosedFormSlice.kernel_busy(repeated)
+        busy, n_kernels = busy / reps, n_kernels / reps
+        print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
+              f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
+              f"{n_kernels:.0f} kernels, {reps} calls profiled) [{card}]")
+
+def quiet(fn):
+    """``fn`` with its standard output discarded (the scripts' report
+    lines)."""
+    def run():
+        with redirect_stdout(io.StringIO()):
+            return fn()
+    return run
+
+
+def heston_adi_values(device) -> dict:
+    """The port's ``heston_fd_price`` at ``HESTON_ADI_CALLS`` (the Heston
+    and LSV brackets' oracle) on ``device``: name -> price."""
+    import optpricer_tpu_torch as tp
+
+    return {name: tp.heston_fd_price(100.0, 110.0, 1.0, 0.05, 0.0,
+                                     **HESTON_HP, kind="put", **kw,
+                                     device=device)
+            for name, kw in HESTON_ADI_CALLS.items()}
+
+
+def tridiag_inv_plain(lo, mid, hi):
+    """:func:`~optpricer_tpu_torch.ops.tridiag.tridiag_inv`'s solve
+    (``newton=False``) by K7's plain version on the same operands: the
+    systems (matrix, unit vector k) solved down axis 0 of stride-0 views
+    of the bands and of one identity, the result as the inverse."""
+    from optpricer_tpu_torch.ops.thomas import _thomas_plain
+
+    n = mid.shape[-1]
+    shape = (*mid.shape[:-1], n, n)
+    eye = torch.eye(n, dtype=mid.dtype, device=mid.device)
+    rows = (t.expand(shape).movedim(-1, 0) for t in (
+        lo[..., None, :], mid[..., None, :], hi[..., None, :], eye))
+    return _thomas_plain(*rows).movedim(0, -1).transpose(-1, -2)
+
+
+class AdiForwardSlice:
+    """The Heston ADI, forward PDE, variance-swap, cliquet, rBergomi and
+    script slice (``models/heston_pde.py``, ``forward_pde.py``,
+    ``varswap.py``, ``cliquet.py``, ``rough.py``, ``scripts/price_book.py``,
+    ``scripts/calibrate_surface.py``). Its kernels are K7 (``tridiag_inv``
+    in the ADI builds, the forward build, the local-vol march) and, from
+    ``price_book``, K3, K5, K6 and K7."""
+
+    HP = HESTON_HP
+    N_Y, N_T = 1024, 512              # the forward bench's surface
+
+    def __init__(self, dev, card):
+        self.dev, self.card = dev, card
+        self.calls = {}               # label -> the slice's user call
+        self.k7 = {}                  # phase 3's tridiag_inv cases
+
+    def call(self, label, fn):
+        out, secs = timed(fn)
+        self.calls[label] = fn
+        self.secs = secs
+        return out
+
+    need = staticmethod(AmericanMlmcSlice.need)
+
+    @staticmethod
+    def heston_bands(dtype, dev):
+        """The (lo, mid, hi) bands of the [heston-adi] x-propagators'
+        I − θΔt·A_x, (96, 256) each, and of the v-propagator's, (96,)."""
+        from optpricer_tpu_torch.models import heston_pde as hpde
+
+        x, v, dt = hpde._grids(100.0, 1.0, 0.04, 0.04, 256, 96, 512, 6.0,
+                               10.0)
+        _, _, step_x, step_v = hpde._step_bands(
+            x, v, 0.05, 0.0, 1.5, 0.04, 0.5, dt, 0.5, dtype=dtype,
+            device=dev)
+        return {"x": step_x, "v": step_v}
+
+    S0, R, Q = 100.0, 0.05, 0.01      # the forward bench's market
+    LV = dict(k_lo=-0.5, k_hi=0.5, n_k=21)
+
+    def svi_surface(self, device):
+        """The SVI surface whose local vol the round trip marches."""
+        from optpricer_tpu_torch.models.calibration import SVIParams, VolSurface
+
+        slices = {T: SVIParams(a=0.03 * T, b=0.12 * T, rho=-0.4, m=0.0,
+                               sigma=0.2, expiry=T) for T in (0.25, 0.5, 1.0)}
+        fwd = {T: self.S0 * np.exp((self.R - self.Q) * T) for T in slices}
+        return VolSurface(slices, forward_curve=fwd, device=device)
+
+    # -- phase 3 ---------------------------------------------------------
+    def phase3(self, record):
+        """K7 on this slice's shapes against its plain version: the
+        tridiag_inv solve at the [heston-adi] x-bands (96 x 256 systems of
+        256, one launch) and v-bands (96 of 96) in f64 and f32 (norm-wise
+        rtol 1e-10 / 2e-5), the inverse against torch.linalg.inv (f64 1e-12
+        of its scale, f32 within 2e-7 of the f64 inverse cast to f32); the
+        forward build (1 023 rows x 1 025 right-hand sides in f64, θ 1 and
+        ½) against the plain version and against the host's banded LU
+        entrywise at 1e-13 of each column's largest entry; the local-vol
+        march's per-step solve (2 systems of 1 023 rows in f64) on the
+        operands of the round trip's first Rannacher (θ 1) and
+        Crank-Nicolson (θ ½) steps at 1 024 x 512, against the plain
+        version at 1e-12 of the solution's largest entry."""
+        import optpricer_tpu_torch as tp
+        from optpricer_tpu_torch.models import forward_pde as fpde
+        from optpricer_tpu_torch.ops.thomas import _thomas_plain
+        from optpricer_tpu_torch.ops.tridiag import tridiag_dense, tridiag_inv
+
+        dev = self.dev
+        ref64 = {}
+        for dtype in (torch.float64, torch.float32):
+            name = "f64" if dtype == torch.float64 else "f32"
+            for which, bands in self.heston_bands(dtype, dev).items():
+                case = f"tridiag_inv {which} {tuple(bands[1].shape)} {name}"
+                raw = tridiag_inv(*bands, newton=False)
+                plain = tridiag_inv_plain(*bands)
+                rel = ((raw - plain).abs().max()
+                       / plain.abs().max()).item()
+                limit = 1e-10 if name == "f64" else 2e-5
+                self.need(rel <= limit, f"{case}: kernel vs plain {rel:.3e}")
+                record("tridiag", rel, 0.0, 0.0, case)
+                inv = tridiag_inv(*bands)
+                if name == "f64":
+                    lib = torch.linalg.inv(tridiag_dense(*bands))
+                    err = ((inv - lib).abs().max() / lib.abs().max()).item()
+                    self.need(err <= 1e-12, f"{case}: vs linalg.inv {err:.3e}")
+                    ref64[which] = inv
+                else:
+                    want = ref64[which].float()
+                    err = ((inv - want).abs().max()
+                           / want.abs().max()).item()
+                    self.need(err <= 2e-7, f"{case}: vs f64 inverse {err:.3e}")
+                self.k7[case] = (rel, err)
+                print(f"phase 3 {case}: K7 vs plain {rel:.3e}, inverse vs "
+                      f"{'linalg.inv' if name == 'f64' else 'f64 cast'} "
+                      f"{err:.3e}")
+        y = np.linspace(np.log(100.0) - 6 * 0.2 * math.sqrt(2.0),
+                        np.log(100.0) + 6 * 0.2 * math.sqrt(2.0),
+                        self.N_Y + 1)
+        for th in (1.0, 0.5):
+            args = (y, 2.0 / self.N_T, 0.05, 0.01, 0.2, th)
+            card = fpde._prop_device(*args, dev)
+            host = fpde._prop_host(*args)
+            plain = fpde._prop_device(*args, torch.device("cpu"))
+            worst = 0.0
+            for c, h, p in zip(card[:3], host[:3], plain[:3]):
+                c = c.cpu().numpy()
+                scale = np.abs(h).max(axis=0)
+                worst = max(worst, float((np.abs(c - h).max(axis=0)
+                                          / scale).max()))
+                rel = float(np.abs(c - p.numpy()).max() / np.abs(h).max())
+                record("tridiag", rel, 0.0, 0.0, f"forward build θ {th}")
+            self.need(worst <= 1e-13, f"forward build θ {th}: {worst:.3e}")
+            self.k7[f"forward build θ {th}"] = (rel, worst)
+            print(f"phase 3 forward build θ {th} ({self.N_Y - 1} x "
+                  f"{self.N_Y + 1} f64): K7 vs plain {rel:.3e}, vs the host "
+                  f"banded LU {worst:.3e} of each column's largest entry")
+
+        class Captured(Exception):
+            """Ends the march once the steps to check have been solved."""
+
+        steps = []
+        solve = fpde.tridiag_solve_thomas
+
+        def capture(a, b, c, d):
+            x = solve(a, b, c, d)
+            steps.append((a, b, c, d, x))
+            if len(steps) == 3:          # steps 0, 1 (θ 1) and 2 (θ ½)
+                raise Captured
+            return x
+
+        fpde.tridiag_solve_thomas = capture
+        try:
+            tp.reprice_surface_forward(self.svi_surface(dev), self.S0,
+                                       self.R, self.Q, n_y=self.N_Y,
+                                       n_t=self.N_T, **self.LV, device=dev)
+        except Captured:
+            pass
+        finally:
+            fpde.tridiag_solve_thomas = solve
+        for step, th in ((0, 1.0), (2, 0.5)):
+            a, b, c, d, x = steps[step]
+            self.need(x.dtype == torch.float64 and x.device.type == "cuda"
+                      and tuple(x.shape) == (2, self.N_Y - 1),
+                      f"local-vol step {step}: {x.dtype} {tuple(x.shape)}")
+            plain = _thomas_plain(a[:, None], b[:, None], c[:, None], d.T).T
+            rel = ((x - plain).abs().max() / plain.abs().max()).item()
+            case = f"local-vol step θ {th} ({self.N_Y - 1}, 2) f64"
+            record("tridiag", rel, 0.0, 0.0, case)
+            self.need(rel <= 1e-12, f"{case}: K7 vs plain {rel:.3e}")
+            self.k7[case] = (rel, rel)
+            print(f"phase 3 {case}: K7 vs plain {rel:.3e} of the solution's "
+                  f"largest entry")
+
+    # -- phase 5 ---------------------------------------------------------
+    def adi(self):
+        """[heston-adi]: the American put 256 x 96 x 512 (f64), its
+        European twin against heston_price_cos, HESTON_ADI_CALLS on the
+        card against device="cpu" at 1e-9, an up-and-out call and an
+        American put with two dividends (each against device="cpu" on a
+        96 x 48 x 128 grid), an 8-strike ladder equal to its scalar calls,
+        the f32 American the same bits with TF32 on process-wide."""
+        import optpricer_tpu_torch as tp
+
+        dev, hp = self.dev, self.HP
+        mkt = (100.0, 110.0, 1.0, 0.05, 0.0)
+        am = self.call("[heston-adi] heston_fd_price American put "
+                       "256 x 96 x 512",
+                       lambda: tp.heston_fd_price(*mkt, **hp, kind="put",
+                                                  american=True, device=dev))
+        eu = tp.heston_fd_price(*mkt, **hp, kind="put", device=dev)
+        cos = float(tp.heston_price_cos(*mkt, **hp, kind="put", device=dev))
+        self.need(abs(eu - cos) < 5e-3 and am > eu + 0.5,
+                  f"[heston-adi] European {eu} vs COS {cos}, American {am}")
+        card = heston_adi_values(dev)
+        self.adi_values = card
+        cpu = heston_adi_values("cpu")
+        worst = max(abs(card[k] - cpu[k]) for k in card)
+        self.need(worst <= 1e-9, f"HESTON_ADI_CALLS card vs cpu {worst:.3e}")
+        print(f"  [heston-adi] American put {am:.10f}, European {eu:.10f} "
+              f"vs COS {cos:.10f} ({self.secs * 1e3:.3f} ms wall); "
+              f"HESTON_ADI_CALLS on the card "
+              + ", ".join(f"{k} {v:.12f}" for k, v in card.items())
+              + f", max |card − cpu| {worst:.3e}")
+        kw = dict(barrier=130.0, barrier_type="up-and-out", kind="call")
+        bar = self.call("heston_fd_price_barrier up-and-out 130 call",
+                        lambda: tp.heston_fd_price_barrier(
+                            100.0, 100.0, 1.0, 0.05, 0.0, **hp, **kw,
+                            device=dev))
+        divs = [(0.25, 1.0), (0.75, 1.0)]
+        div = self.call("heston_fd_price American put, 2 dividends",
+                        lambda: tp.heston_fd_price(*mkt, **hp, kind="put",
+                                                   american=True,
+                                                   dividends=divs,
+                                                   device=dev))
+        # card against cpu on a 96 x 48 x 128 grid (the CPU is the slow
+        # side)
+        small = dict(n_x=96, n_v=48, n_t=128)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(*(
+            (tp.heston_fd_price_barrier(100.0, 100.0, 1.0, 0.05, 0.0, **hp,
+                                        **kw, **small, device=d),
+             tp.heston_fd_price(*mkt, **hp, kind="put", american=True,
+                                dividends=divs, **small, device=d))
+            for d in (dev, "cpu"))))
+        call = float(tp.heston_price_cos(100.0, 100.0, 1.0, 0.05, 0.0, **hp,
+                                         device=dev))
+        self.need(gap <= 1e-9 and 0.0 < bar < call and div > am,
+                  f"barrier {bar}, dividends {div}, card vs cpu {gap}")
+        K = np.linspace(80.0, 120.0, 8)
+        ladder = self.call("heston_fd_price_batch 8 American puts",
+                           lambda: tp.heston_fd_price_batch(
+                               100.0, K, 1.0, 0.05, 0.0, **hp, kind="put",
+                               american=True, device=dev))
+        singles = np.array([tp.heston_fd_price(100.0, k, 1.0, 0.05, 0.0,
+                                               **hp, kind="put",
+                                               american=True, device=dev)
+                            for k in K])
+        gap = float(np.abs(ladder - singles).max())
+        self.need(gap <= 1e-12 * float(np.abs(singles).max()),
+                  f"ladder vs scalar calls {gap:.3e}")
+        g = tp.heston_fd_greeks(100.0, 100.0, 1.0, 0.05, 0.0, **hp,
+                                device=dev)
+        previous = torch.backends.cuda.matmul.allow_tf32
+        f32 = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            f32.append(tp.heston_fd_price(*mkt, **hp, kind="put",
+                                          american=True, dtype="float32",
+                                          device=dev))
+        torch.backends.cuda.matmul.allow_tf32 = previous
+        self.need(f32[0] == f32[1] and abs(f32[0] - am) < 1e-3,
+                  f"f32 American {f32} vs f64 {am}")
+        print(f"  up-and-out 130 call {bar:.10f}, American put with 2 "
+              f"dividends {div:.10f} (each = cpu to 1e-9 at 96 x 48 x 128); "
+              f"8-put ladder = "
+              f"its scalar calls to {gap:.3e}; Greeks {g}; f32 American "
+              f"{f32[0]:.8f}, the same bits with TF32 on")
+
+    def forward(self):
+        """[forward-pde] 1 024 x 512 to T = 2 (constant vol, f64): every
+        (K, T) of tests/test_forward_pde.py's board within 2e-3 of
+        Black-Scholes, the card's surface equal to device="cpu"'s to 1e-9;
+        the f32 ATM error at most cpu's + 1e-6; an SVI local vol surface
+        (K7 a step) repricing the surface's own vols within 2e-3 on
+        k ∈ [−0.5, 0.5], and at 256 x 128 equal to device="cpu"'s in vol
+        to 1e-8."""
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        S0, R, Q, SIG = self.S0, self.R, self.Q, 0.2
+        kw = dict(T=2.0, sigma=SIG, n_y=self.N_Y, n_t=self.N_T)
+        fs = self.call("[forward-pde] dupire_forward_surface 1024 x 512",
+                       lambda: tp.dupire_forward_surface(S0, R, Q, **kw,
+                                                         device=dev))
+        wall = self.secs
+        fs_cpu = tp.dupire_forward_surface(S0, R, Q, **kw, device="cpu")
+        KK, TT = np.meshgrid(np.array([70.0, 85.0, 100.0, 115.0, 140.0]),
+                             np.array([0.25, 0.5, 1.0, 2.0]))
+        ref = tp.bs_price_vec(S0, KK.ravel(), TT.ravel(), R, Q, SIG, "call",
+                              device="cpu").numpy().reshape(KK.shape)
+        board = float(np.abs(fs.price(KK, TT) - ref).max())
+        same = float(np.abs(fs.C - fs_cpu.C).max() / np.abs(fs_cpu.C).max())
+        atm = tp.bs_price_vec(S0, 100.0, 2.0, R, Q, SIG, "call",
+                              device="cpu").item()
+        err = {}
+        for device in (dev, "cpu"):
+            f32 = tp.dupire_forward_surface(S0, R, Q, **kw, dtype="float32",
+                                            device=device)
+            err[str(device)] = abs(f32.price(100.0, 2.0) - atm)
+        self.need(board <= 2e-3 and same <= 1e-9
+                  and err[str(dev)] <= err["cpu"] + 1e-6,
+                  f"[forward-pde] board {board}, card vs cpu {same}, f32 "
+                  f"ATM {err}")
+        lv = self.LV
+        surf = self.svi_surface(dev)
+        full = self.call("reprice_surface_forward SVI local vol 1024 x 512",
+                         lambda: tp.reprice_surface_forward(
+                             surf, S0, R, Q, n_y=self.N_Y, n_t=self.N_T,
+                             **lv, device=dev))
+        iv_gap = max(float(np.nanmax(np.abs(m - mk)))
+                     for _, m, mk in full.values())
+        # card against cpu on a 256 x 128 grid (the CPU march is the
+        # slow side)
+        out = [tp.reprice_surface_forward(
+            self.svi_surface(device), S0, R, Q, n_y=256, n_t=128, **lv,
+            device=device) for device in (dev, "cpu")]
+        lv_same = max(float(np.nanmax(np.abs(a[1] - b[1])))
+                      for a, b in zip(out[0].values(), out[1].values()))
+        self.need(iv_gap < 2e-3 and lv_same < 1e-8,
+                  f"local vol: iv gap {iv_gap}, card vs cpu {lv_same}")
+        print(f"  [forward-pde] {self.N_Y} x {self.N_T} to T 2: board within "
+              f"{board:.3e} of BS, card = cpu to {same:.3e} "
+              f"({wall * 1e3:.3f} ms wall); f32 ATM error card "
+              f"{err[str(dev)]:.3e}, cpu {err['cpu']:.3e}; SVI local vol: "
+              f"iv within {iv_gap:.3e} of the surface, card = cpu at 256 x "
+              f"128 to {lv_same:.3e} in vol")
+
+    def rough(self):
+        """[rbergomi] BFG ATM (262 144 x 128, H 0.07, η 1.9, ρ −0.9, ξ0
+        0.0552, T 0.5, r 0) finite with a spot mean within 4 se of S0; the
+        H = ½, η → 0 limit within 3 se + 0.01 of Black-Scholes; the f32
+        paths the same bits with TF32 on process-wide."""
+        import optpricer_tpu_torch as tp
+
+        dev = self.dev
+        bfg = dict(xi0=0.0552, eta=1.9, H=0.07, rho=-0.9)
+        px, se = self.call("[rbergomi] rbergomi_price BFG 262144 x 128",
+                           lambda: tp.rbergomi_price(
+                               100.0, 100.0, 0.5, 0.0, **bfg, n_steps=128,
+                               n_paths=262_144, seed=7, device=dev))
+        S = tp.rbergomi_paths(100.0, 0.0, 0.0, 0.5, 128, 262_144, **bfg,
+                              seed=7, device=dev)[-1].double()
+        m, s = S.mean().item(), S.std().item() / math.sqrt(S.numel())
+        lim, lse = tp.rbergomi_price(100.0, 100.0, 1.0, 0.05, xi0=0.04,
+                                     eta=1e-9, H=0.5, rho=0.0, n_steps=64,
+                                     n_paths=262_144, seed=5, device=dev)
+        bs = tp.bs_price_vec(100.0, 100.0, 1.0, 0.05, 0.0, 0.2, "call",
+                             device="cpu").item()
+        previous = torch.backends.cuda.matmul.allow_tf32
+        paths = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            paths.append(tp.rbergomi_paths(
+                100.0, 0.0, 0.0, 0.5, 128, 65_536, **bfg, seed=7,
+                dtype="float32", device=dev))
+        torch.backends.cuda.matmul.allow_tf32 = previous
+        self.need(math.isfinite(px) and abs(m - 100.0) < 4 * s
+                  and abs(lim - bs) < 3 * lse + 0.01
+                  and torch.equal(paths[0], paths[1]),
+                  f"[rbergomi] {px} ± {se}, mean {m} ± {s}, H=½ {lim} vs {bs}")
+        print(f"  [rbergomi] BFG ATM {px:.6f} ± {se:.6f} ({self.secs * 1e3:.3f}"
+              f" ms wall), spot mean {m:.4f} ± {s:.4f}; H ½ η→0 {lim:.6f} ± "
+              f"{lse:.6f} vs BS {bs:.6f}; f32 paths equal with TF32 on")
+
+    def products(self):
+        """varswap_strike_mc (GBM, Heston QE) and cliquet_price_mc (GBM, 12
+        periods x 21 steps) at 65 536 x 252 against σ², the Heston closed
+        form and cliquet_price_bs; the replication and forward-start closed
+        forms equal to device="cpu"."""
+        import optpricer_tpu_torch as tp
+
+        dev, hp = self.dev, dict(self.HP, xi=0.4)
+        mc = dict(n_steps=252, n_paths=65_536, seed=5, device=dev)
+        km, se = self.call("varswap_strike_mc GBM 65536 x 252",
+                           lambda: tp.varswap_strike_mc(
+                               100.0, 0.03, 0.0, 1.0, sigma=0.2, **mc))
+        kh, seh = tp.varswap_strike_mc(100.0, 0.03, 0.0, 1.0, heston=hp,
+                                       **mc)
+        kc = tp.varswap_strike_heston(hp["v0"], hp["kappa"], hp["theta"], 1.0)
+        cl = dict(sigma=0.2, n_periods=12, local_floor=-0.02, local_cap=0.05)
+        cp, cse = self.call("cliquet_price_mc GBM 12 x 21 steps, 65536",
+                            lambda: tp.cliquet_price_mc(
+                                100.0, 1.0, 0.03, 0.0, **cl,
+                                steps_per_period=21, n_paths=65_536, seed=5,
+                                device=dev))
+        cb = tp.cliquet_price_bs(100.0, 1.0, 0.03, 0.0, **cl)
+        rep = [tp.varswap_strike_replication(0.2, 100.0, 0.03, 0.01, 1.0,
+                                             device=d) for d in (dev, "cpu")]
+        fsp = [tp.forward_start_price(100.0, 1.05, 0.5, 1.5, 0.03, 0.01,
+                                      sigma=0.25, device=d)
+               for d in (dev, "cpu")]
+        self.need(abs(km - 0.04) < 4 * se + 1e-4
+                  and abs(kh - kc) < 4 * seh + 5e-4
+                  and abs(cp - cb) < 4 * cse + 1e-5
+                  and abs(rep[0] - rep[1]) < 1e-12
+                  and abs(fsp[0] - fsp[1]) < 1e-12,
+                  f"varswap {km} ± {se}, heston {kh} ± {seh} vs {kc}, "
+                  f"cliquet {cp} ± {cse} vs {cb}, {rep}, {fsp}")
+        print(f"  varswap GBM {km:.8f} ± {se:.2e} vs 0.04; Heston QE "
+              f"{kh:.8f} ± {seh:.2e} vs {kc:.8f}; cliquet {cp:.8f} ± "
+              f"{cse:.2e} vs closed form {cb:.8f}; replication {rep[0]:.12f}"
+              f", forward start {fsp[0]:.10f} (each = cpu)")
+
+    BOOK = (
+        dict(id="bs1", method="bs"),
+        dict(id="bs2", K="110", T="0.5", r="0.03", sigma="0.25", q="0.01",
+             kind="put", method="bs"),
+        dict(id="bin1", K="105", kind="put", method="binomial",
+             american="true"),
+        dict(id="am1", K="105", q="0.02", kind="put", method="amer_analytic",
+             engine="baw"),
+        dict(id="mc1", method="mc"),
+        dict(id="mc2", S0="95", T="0.75", r="0.03", sigma="0.3", q="0.01",
+             kind="put", method="mc"),
+        dict(id="ex1", method="exotic", exotic_type="asian", n_steps="64",
+             n_paths="100000"),
+        dict(id="lsmc1", K="110", sigma="0.25", kind="put", method="lsmc",
+             n_steps="50", n_paths="100000"),
+        dict(id="qmc1", method="qmc", exotic_type="asian", n_steps="64",
+             n_paths="65536"),
+        dict(id="fd1", kind="put", method="fd", american="true",
+             dividends="0.5:2"),
+        dict(id="mlmc1", method="mlmc", exotic_type="vanilla", eps="0.02"),
+        dict(id="hes1", K="110", kind="put", method="heston",
+             american="true", v0="0.04", xi="0.5"),
+        dict(id="hes2", method="heston", v0="0.04", xi="0.5"),
+        dict(id="levy1", method="levy", model="nig"),
+        dict(id="quanto1", q="0.01", method="quanto", sigma_fx="0.1",
+             rho_sfx="-0.3"),
+        dict(id="fs1", K="", T="1.5", r="0.03", sigma="0.25", q="0.01",
+             kind="put", method="forward_start", k_ratio="1.05", T0="0.5"),
+        dict(id="cl1", K="", r="0.03", method="cliquet", local_floor="-0.02",
+             local_cap="0.05"),
+        dict(id="cl2", K="", r="0.03", method="cliquet", local_floor="-0.02",
+             local_cap="0.05", global_floor="0.01", n_paths="65536"),
+        dict(id="ch1", method="chooser", t_choose="0.5"),
+        dict(id="co1", K="5", method="compound", t_choose="0.5", K2="100",
+             underlying="put"),
+        dict(id="bk1", S0="100;95;105", sigma="0.2;0.3;0.25", r="0.03",
+             method="basket", basket_payoff="asian_basket", n_steps="64"),
+        dict(id="bad1", K="abc", method="mc"),
+    )
+
+    def book_rows(self):
+        base = dict(S0="100", K="100", T="1", r="0.05", sigma="0.2", q="0",
+                    kind="call")
+        return [dict(base, **row) for row in self.BOOK]
+
+    def scripts(self):
+        """price_book on a book of one row of every method (two mc rows: one
+        K3 launch) on the card against device="cpu": deterministic rows to
+        rtol 1e-9, Monte-Carlo rows within 4·hypot(se, se) (K3 against its
+        plain version within 2e-5 relative), the bad row's error captured;
+        the module as a subprocess equal to the call in-process;
+        calibrate_surface (svi, essvi, heston, vg) on a 3 x 21 quote grid
+        against --device cpu to rtol 1e-6."""
+        import csv
+
+        from optpricer_tpu_torch.scripts import calibrate_surface, price_book
+
+        dev = self.dev
+        rows = self.book_rows()
+        card = self.call("price_book one row of every method (22 rows)",
+                         quiet(lambda: price_book.price_book(rows,
+                                                             device=dev)))
+        cpu = quiet(lambda: price_book.price_book(rows, device="cpu"))()
+        worst_det, worst_z = 0.0, 0.0
+        for a, b in zip(card, cpu):
+            if b.get("error"):
+                self.need(a.get("error") == b["error"], f"{a} vs {b}")
+                continue
+            if b["stderr"] is None:
+                rel = abs(a["price"] - b["price"]) / abs(b["price"])
+                worst_det = max(worst_det, rel)
+                self.need(rel <= 1e-9, f"price_book {a} vs {b}")
+            else:
+                z = abs(a["price"] - b["price"]) / math.hypot(a["stderr"],
+                                                              b["stderr"])
+                worst_z = max(worst_z, z)
+                self.need(z <= 4.0, f"price_book {a} vs {b}")
+                if a["id"].startswith("mc"):
+                    rel = abs(a["price"] - b["price"]) / abs(b["price"])
+                    self.need(rel <= 2e-5, f"K3 book row {a} vs {b}")
+        # kept until phase 6 has timed the calls that read it
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = self.tmp.name
+        book = Path(tmp) / "book.csv"
+        cols = list(dict.fromkeys(c for row in rows for c in row))
+        with open(book, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=cols)
+            writer.writeheader()
+            writer.writerows(rows)
+        out = Path(tmp) / "prices.json"
+        # the module as a subprocess, read in cli() with the CLI's
+        self.procs["price_book"] = (subprocess.Popen(
+            [sys.executable, "-m", "optpricer_tpu_torch.scripts.price_book",
+             "--input", str(book), "--output", str(out), "--device",
+             dev.type], cwd=ROOT, stdout=subprocess.DEVNULL),
+            lambda _: self.book_matches(json.loads(out.read_text()), card))
+        quotes = Path(tmp) / "quotes.csv"
+        with open(quotes, "w") as f:
+            f.write("expiry,strike,forward,iv\n")
+            for T, F in ((0.25, 100.5), (0.5, 101.0), (1.0, 102.0)):
+                for k in np.linspace(-0.3, 0.3, 21):
+                    w = 0.04 * T + 0.04 * math.sqrt(T) * (
+                        -0.3 * k + math.sqrt(k * k + 0.01))
+                    f.write(f"{T},{F * math.exp(k)!r},{F},"
+                            f"{math.sqrt(w / T)!r}\n")
+        fits = {}
+        for model in ("svi", "essvi", "heston", "vg"):
+            for device in (dev.type, "cpu"):
+                target = Path(tmp) / f"{model}_{device}.json"
+                argv = ["--input", str(quotes), "--output", str(target),
+                        "--model", model, "--rate", "0.02",
+                        "--device", device]
+                run = quiet(lambda argv=argv: calibrate_surface.main(argv))
+                if device != "cpu":
+                    self.call(f"calibrate_surface --model {model} 3 x 21",
+                              run)
+                else:
+                    run()
+                fits[model, device] = json.loads(target.read_text())
+        worst_fit = 0.0
+        for model in ("svi", "essvi", "heston", "vg"):
+            a, b = fits[model, dev.type], fits[model, "cpu"]
+            flat = lambda d: {k: v for k, v in d.items()
+                              if isinstance(v, float)} if "model" in d else \
+                {f"{T} {k}": v for T, p in d.items() for k, v in p.items()}
+            fa, fb = flat(a), flat(b)
+            self.need(fa.keys() == fb.keys(), f"{model} keys")
+            for k in fb:
+                gap = abs(fa[k] - fb[k]) / max(abs(fb[k]), 1e-3)
+                worst_fit = max(worst_fit, gap)
+                self.need(gap <= 1e-6, f"calibrate {model} {k}: {fa[k]} vs "
+                                       f"{fb[k]}")
+        print(f"  price_book {len(rows)} rows: deterministic rows = cpu to "
+              f"{worst_det:.3e}, MC rows within {worst_z:.2f} hypot(se, se); "
+              f"calibrate_surface svi/essvi/heston/vg = cpu to "
+              f"{worst_fit:.3e} (relative)")
+
+    def book_matches(self, sub, card):
+        """The price_book module's JSON against the call in-process."""
+        self.need(len(sub) == len(card) and all(
+            a.get("error") == b.get("error") and (
+                a["price"] is None or abs(a["price"] - b["price"])
+                <= 1e-9 * abs(b["price"])) for a, b in zip(sub, card)),
+            "price_book subprocess differs from the call")
+        return "price_book = the call"
+
+    def start_cli(self):
+        """Start heston --american and varswap --mc as subprocesses (read
+        by :meth:`cli`), each to be held to the same call in-process."""
+        dev = self.dev
+        market = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.05",
+                  "--sigma", "0.2"]
+        for name, args in (
+                ("heston", ["heston", *market, "--xi", "0.5", "--american",
+                            "--kind", "put"]),
+                ("varswap", ["varswap", "--S0", "100", "--T", "1", "--r",
+                             "0.03", "--v0", "0.04", "--mc", "--seed",
+                             "1"])):
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "optpricer_tpu_torch.cli", *args,
+                 "--device", dev.type], cwd=ROOT, stdout=subprocess.PIPE,
+                text=True), getattr(self, f"{name}_line"))
+
+    def heston_line(self, out):
+        import optpricer_tpu_torch as tp
+
+        want = tp.heston_fd_price(100.0, 110.0, 1.0, 0.05, 0.0, **self.HP,
+                                  kind="put", american=True, device=self.dev)
+        self.need(out == f"{want:.10f}", f"cli heston {out} vs {want}")
+        return f"heston --american {out}"
+
+    def varswap_line(self, out):
+        import optpricer_tpu_torch as tp
+
+        kd, _ = tp.varswap_strike_mc(100.0, 0.03, 0.0, 1.0, heston=dict(
+            v0=0.04, kappa=1.5, theta=0.04, xi=0.4, rho=-0.6), seed=1,
+            device=self.dev)
+        self.need(f"{kd:.8f}" in out, f"cli varswap {out} vs {kd}")
+        return "varswap --mc " + " | ".join(out.splitlines())
+
+    def cli(self):
+        """The subprocesses (the CLI's heston --american and varswap --mc,
+        the price_book module), each equal to the same call in-process."""
+        lines = []
+        for name, (proc, check) in self.procs.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} exited {proc.returncode}")
+            lines.append(check(out.strip() if out else None))
+        print("  subprocesses, each equal to the call in-process: "
+              + "; ".join(lines))
+
+    def phase5(self) -> dict:
+        """The slice's path with every kernel's launch count set to 0 just
+        before it and read just after; K7 (tridiag_inv, the forward build,
+        the local-vol march) and K3 (price_book's mc rows) must have been
+        launched."""
+        from optpricer_tpu_torch.ops import (basket_mc, fd_lv, mc_batch,
+                                             path_mc, qmc_path, terminal_mc,
+                                             thomas)
+
+        fns = {"terminal_mc_kernel": terminal_mc.terminal_mc,
+               "terminal_qmc_kernel": terminal_mc.terminal_qmc,
+               "path_mc_kernel": path_mc.path_mc,
+               "qmc_path_kernel": qmc_path.qmc_path,
+               "tridiag_pcr_kernel": thomas.tridiag_solve_kernel,
+               "fd_lv_kernel": fd_lv.fd_lv,
+               "mc_batch_kernel": mc_batch.mc_batch,
+               "basket_mc_kernel": basket_mc.basket_mc}
+        for fn in fns.values():
+            fn.launches = 0
+        thomas.tridiag_solve_kernel.launches_by_shape.clear()
+        print("phase 5 main path, Heston ADI, forward PDE, variance swaps, "
+              "cliquets, rBergomi, price_book and calibrate_surface:")
+        t0 = time.perf_counter()
+        parts = {}
+        self.procs = {}
+        self.start_cli()
+        for part in (self.adi, self.forward, self.rough, self.products,
+                     self.scripts, self.cli):
+            t1 = time.perf_counter()
+            part()
+            parts[part.__name__] = round(time.perf_counter() - t1, 2)
+        print(f"  seconds by part (card and cpu calls): {parts}")
+        launches = {name: fn.launches for name, fn in fns.items()}
+        self.k7_shapes = dict(thomas.tridiag_solve_kernel.launches_by_shape)
+        print(f"  ADI and forward path {time.perf_counter() - t0:.2f} s; "
+              f"kernel launches: {launches}; K7 by (rows, systems): "
+              f"{sorted(self.k7_shapes.items())}")
+        for name in ("tridiag_pcr_kernel", "mc_batch_kernel"):
+            self.need(launches[name] > 0, f"{name} was not launched on the "
+                                          "ADI and forward path")
+        for shape in ((256, 96 * 256), (96, 96), (self.N_Y - 1, self.N_Y + 1),
+                      (self.N_Y - 1, 2)):
+            self.need(self.k7_shapes.get(shape, 0) > 0,
+                      f"K7 was not launched at {shape}")
+        self.launches = launches
+        return launches
+
+    # -- phase 6 ---------------------------------------------------------
+    def phase6(self, times):
+        """K7 inside tridiag_inv at the [heston-adi] x-bands (96 x 256
+        systems of 256) in f64 and f32 (tridiag_inv with newton=False: the
+        identity made and one launch), with the start event behind a
+        queued sleep too, its plain version, batched torch.linalg.inv on the
+        dense (96, 256, 256) matrices, and the whole tridiag_inv; then each
+        user call's wall and device-busy share as AmericanMlmcSlice's."""
+        from optpricer_tpu_torch.ops.tridiag import tridiag_dense, tridiag_inv
+
+        t0 = time.perf_counter()
+        for dtype in (torch.float64, torch.float32):
+            name = "f64" if dtype == torch.float64 else "f32"
+            lo, mid, hi = self.heston_bands(dtype, self.dev)["x"]
+            # the solve as tridiag_inv runs it: one K7 launch on the bands
+            # and one identity, read where they lie
+            k7 = lambda: tridiag_inv(lo, mid, hi, newton=False)
+            times[("k7 inv", name)] = cuda_ms(k7)
+            times[("k7 inv device", name)] = cuda_ms(k7, queued=True)
+            times[("k7 inv plain", name)] = cuda_ms(
+                lambda: tridiag_inv_plain(lo, mid, hi), reps=3)
+            dense = tridiag_dense(lo, mid, hi)
+            times[("k7 inv library", name)] = cuda_ms(
+                lambda: torch.linalg.inv(dense))
+            times[("tridiag_inv", name)] = cuda_ms(
+                lambda: tridiag_inv(lo, mid, hi))
+            print(f"phase 6 time K7 tridiag_inv solve 96 x 256 systems of 256 "
+                  f"{name}: {times[('k7 inv', name)]:.4f} ms (device "
+                  f"{times[('k7 inv device', name)]:.4f} ms), plain "
+                  f"{times[('k7 inv plain', name)]:.4f} ms, batched "
+                  f"torch.linalg.inv {times[('k7 inv library', name)]:.4f} "
+                  f"ms; tridiag_inv with its Newton step "
+                  f"{times[('tridiag_inv', name)]:.4f} ms [{self.card}]")
+        user_call_walls(self.calls, self.card)
+        self.tmp.cleanup()
+        print(f"phase 6 ADI and forward {time.perf_counter() - t0:.2f} s")
+
+    def kernel_fields(self, times) -> dict:
+        """K7's entry fields of this slice: its launches here by shape, its
+        time at the tridiag_inv shape beside its bound (what the function
+        must move: the three (96, 256) bands and one (256, 256) identity
+        read, the (96, 256, 256) solution written), the plain version's and
+        batched torch.linalg.inv's."""
+        n, m = 256, 96
+        out = {"launches_adi_forward": self.launches["tridiag_pcr_kernel"],
+               "launches_by_shape_adi_forward": {
+                   f"{r} x {b}": k for (r, b), k in sorted(
+                       self.k7_shapes.items())},
+               "cases_adi_forward": {k: list(v) for k, v in self.k7.items()}}
+        for name, size in (("f64", 8), ("f32", 4)):
+            n_bytes = size * (3 * m * n + n * n + m * n * n)
+            out.update({
+                f"ms_tridiag_inv_{name}": times[("k7 inv", name)],
+                f"device_ms_tridiag_inv_{name}": times[("k7 inv device",
+                                                        name)],
+                f"plain_ms_tridiag_inv_{name}": times[("k7 inv plain", name)],
+                f"bound_ms_tridiag_inv_{name}": bound(10 * n * m * n,
+                                                      n_bytes)[0],
+                f"library_ms_tridiag_inv_{name}": times[("k7 inv library",
+                                                         name)],
+                f"ms_tridiag_inv_with_newton_{name}": times[("tridiag_inv",
+                                                             name)]})
+        return out
 
 
 def main():
@@ -4470,6 +5231,8 @@ def main():
     multi.phase3(record)
     mesh_scan = MeshScanSlice(dev, card, multi)
     mesh_scan.phase3()
+    adi = AdiForwardSlice(dev, card)
+    adi.phase3(record)
 
     for name, (rel, dprice, case) in worst.items():
         if name == "tridiag":
@@ -4693,6 +5456,7 @@ def main():
     mesh_launches = mesh_scan.phase5()
     american = AmericanMlmcSlice(dev, card)
     american.phase5()
+    adi_launches = adi.phase5()
 
     # phase 6: time
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4735,7 +5499,7 @@ def main():
     times[("k4", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4))
     times[("k4plain", "1M x 252")] = cuda_ms(
-        lambda: pmc._path_mc_plain(seed4, params4, **run4))
+        lambda: pmc._path_mc_plain(seed4, params4, **run4), reps=1)
     run4g = dict(run4, with_greeks=True)
     times[("k4greeks", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4g))
@@ -4765,7 +5529,7 @@ def main():
             queued=True)
         times[("k5plain", shape)] = cuda_ms(
             lambda: qmp._qmc_path_plain(*tensors, **kw5),
-            reps=3 if d > 64 else 5)
+            reps=1 if d > 64 else 5)
         # the kernel reads every input but B, which it reads by its plan
         in_bytes = sum(t.numel() * t.element_size()
                        for i, t in enumerate(tensors) if i != 4)
@@ -4798,6 +5562,7 @@ def main():
     closed.phase6()
     mesh_scan.phase6()
     american.phase6()
+    adi.phase6(times)
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -4878,6 +5643,11 @@ def main():
     for entry in kernels:   # K1 and K7 on the closed-form path
         if entry["name"] in closed_launches:
             entry["launches_closed_form"] = closed_launches[entry["name"]]
+    for entry in kernels:   # the ADI, forward and script path
+        if entry["name"] in adi_launches:
+            entry["launches_adi_forward"] = adi_launches[entry["name"]]
+        if entry["name"] == "tridiag_pcr_kernel":
+            entry.update(adi.kernel_fields(times))
     for entry in kernels:   # K1, K4, K6 and K7 on the mesh and scan path
         if entry["name"] in mesh_launches:
             entry["launches_mesh_scan"] = mesh_launches[entry["name"]]

@@ -88,6 +88,20 @@ from .models.mlmc import mlmc_price
 from .models.american_mc import (lsmc_price, lsmc_price_basket,
                                  lsmc_price_batch, lsmc_price_sharded)
 
+# Heston ADI PDE, Dupire forward PDE, volatility products, rough vol
+from .models.heston_pde import (heston_fd_price, heston_fd_grid,
+                                heston_fd_greeks, heston_fd_price_batch,
+                                heston_fd_price_barrier)
+from .models.forward_pde import (ForwardSurface, dupire_forward_surface,
+                                 dupire_forward_price, forward_surface_iv,
+                                 reprice_surface_forward)
+from .models.varswap import (varswap_strike_replication,
+                             varswap_strike_heston, varswap_strike_mc,
+                             volswap_strike_mc)
+from .models.rough import rbergomi_paths, rbergomi_price
+from .models.cliquet import (forward_start_price, cliquet_price_bs,
+                             cliquet_price_mc)
+
 __all__ = [
     # Legacy
     "OptionSpec", "CALL", "PUT",
@@ -135,6 +149,15 @@ __all__ = [
     # American and multilevel Monte Carlo
     "mlmc_price", "lsmc_price", "lsmc_price_batch", "lsmc_price_sharded",
     "lsmc_price_basket",
+    # Heston ADI, forward PDE, variance swaps, rough vol, cliquets
+    "heston_fd_price", "heston_fd_grid", "heston_fd_greeks",
+    "heston_fd_price_batch", "heston_fd_price_barrier",
+    "ForwardSurface", "dupire_forward_surface", "dupire_forward_price",
+    "forward_surface_iv", "reprice_surface_forward",
+    "varswap_strike_replication", "varswap_strike_heston",
+    "varswap_strike_mc", "volswap_strike_mc",
+    "rbergomi_paths", "rbergomi_price",
+    "forward_start_price", "cliquet_price_bs", "cliquet_price_mc",
 ]
 
 __version__ = "0.1.0"

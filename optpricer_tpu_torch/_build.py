@@ -57,8 +57,9 @@ _SIGNATURES = {
     "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P),
     "optpricer_qmc_path_occupancy": (_I, _I),
-    "optpricer_thomas": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                         _L, _L, _P, _I, _I, _I, _P),
+    "optpricer_thomas": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                         _P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I,
+                         _P),
     "optpricer_fd_lv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                         _I, _I, _P),
     "optpricer_fd_lv_plan": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _P),

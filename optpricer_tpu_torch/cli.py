@@ -1,14 +1,13 @@
 """Command-line pricing tool of the PyTorch port.
 
-Counterpart of ``optpricer_tpu/cli.py`` for the engines ported so far:
-``bs``, ``binomial``, ``mc``, ``greeks``, ``fd``, ``heston``, ``american``,
-``barrier``, ``lookback``, ``levy``, ``lsmc``, ``qmc``, ``lsv``, ``mlmc``
-and ``basket`` (``--american`` included), with the same flags and the
-same 10-decimal output, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions). Routes whose engine is not ported raise
-``NotImplementedError`` naming the ROADMAP item that ports it: ``heston
---engine adi`` / ``--american`` / ``--barrier`` / ``--dividends`` (the
-Heston ADI PDE, A.14). ``varswap`` waits for its engine (ROADMAP A.14).
+Counterpart of ``optpricer_tpu/cli.py``, all 16 subcommands: ``bs``,
+``binomial``, ``mc``, ``greeks``, ``fd``, ``heston`` (COS, Bates, and the
+2-D ADI PDE for ``--engine adi`` / ``--american`` / ``--barrier`` /
+``--dividends``), ``american``, ``barrier``, ``lookback``, ``levy``,
+``lsmc``, ``qmc``, ``lsv``, ``mlmc``, ``basket`` (``--american``
+included) and ``varswap``, with the same flags and the same output, plus
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
+versions).
 
     python -m optpricer_tpu_torch.cli mc --S0 100 --K 110 --T 1 --r 0.03 \\
         --sigma 0.2 --n-paths 1000000 --seed 7
@@ -28,6 +27,10 @@ Heston ADI PDE, A.14). ``varswap`` waits for its engine (ROADMAP A.14).
         --sigma 0.25 --kind put --n-paths 100000 --seed 0 --bound
     python -m optpricer_tpu_torch.cli mlmc --S0 100 --K 100 --T 1 --r 0.05 \\
         --sigma 0.2 --payoff barrier --barrier 130 --eps 0.005 --seed 7
+    python -m optpricer_tpu_torch.cli heston --S0 100 --K 110 --T 1 \\
+        --r 0.05 --sigma 0.2 --xi 0.5 --american --kind put
+    python -m optpricer_tpu_torch.cli varswap --S0 100 --T 1 --r 0.03 \\
+        --v0 0.04 --mc --n-paths 65536 --seed 1
 """
 from __future__ import annotations
 
@@ -102,12 +105,6 @@ def _parse_dividends(cell: str):
             (pair.split(":") for pair in cell.split(","))]
 
 
-def _heston_pde_route(route: str):
-    return NotImplementedError(
-        f"heston {route} needs the Heston ADI PDE (models/heston_pde), "
-        "which is not ported yet (ROADMAP A.14)")
-
-
 def _run_heston(ns) -> str:
     kind = "call" if ns.kind == CALL else "put"
     hp = dict(v0=ns.v0, kappa=ns.kappa, theta=ns.theta, xi=ns.xi,
@@ -127,15 +124,23 @@ def _run_heston(ns) -> str:
                                       device=ns.device))
         return f"{value:.10f}"
     if ns.barrier > 0.0:
-        raise _heston_pde_route("--barrier")
-    if ns.engine == "adi" or ns.american or divs is not None:
-        raise _heston_pde_route("--engine adi" if ns.engine == "adi" else
-                                "--american" if ns.american else
-                                "--dividends")
-    from .models.analytic import heston_price_cos
+        from .models.heston_pde import heston_fd_price_barrier
 
-    value = float(heston_price_cos(ns.S0, ns.K, ns.T, ns.r, ns.q, **hp,
-                                   kind=kind, device=ns.device))
+        value = heston_fd_price_barrier(
+            ns.S0, ns.K, ns.T, ns.r, ns.q, **hp, kind=kind,
+            barrier=ns.barrier, barrier_type=ns.barrier_type,
+            american=ns.american, device=ns.device)
+    elif ns.engine == "adi" or ns.american or divs is not None:
+        from .models.heston_pde import heston_fd_price
+
+        value = heston_fd_price(ns.S0, ns.K, ns.T, ns.r, ns.q, **hp,
+                                kind=kind, american=ns.american,
+                                dividends=divs, device=ns.device)
+    else:
+        from .models.analytic import heston_price_cos
+
+        value = float(heston_price_cos(ns.S0, ns.K, ns.T, ns.r, ns.q,
+                                       **hp, kind=kind, device=ns.device))
     return f"{value:.10f}"
 
 
@@ -382,17 +387,14 @@ _ENGINES: dict[str, tuple[str, tuple, Callable]] = {
         ("--rho", dict(type=float, default=-0.6)),
         ("--engine", dict(choices=("cos", "adi"), default="cos")),
         ("--american", dict(action="store_true",
-                            help="American exercise (forces the ADI PDE; "
-                                 "not ported: raises)")),
+                            help="American exercise (forces the ADI PDE)")),
         ("--barrier", dict(type=float, default=0.0,
-                           help="barrier level (forces the ADI PDE; "
-                                "not ported: raises)")),
+                           help="barrier level (forces the ADI PDE)")),
         ("--barrier-type", dict(dest="barrier_type",
                                 default="up-and-out")),
         ("--dividends", dict(default="",
                              help="discrete cash dividends 't:amt,t:amt' "
-                                  "(forces the ADI PDE; not ported: "
-                                  "raises)")),
+                                  "(forces the ADI PDE)")),
         ("--lam", dict(type=float, default=0.0,
                        help="jump intensity (> 0 prices BATES via COS)")),
         ("--mJ", dict(type=float, default=0.0, help="mean log jump")),
@@ -551,6 +553,58 @@ _BASKET_FLAGS = (
 )
 
 
+def _run_varswap(ns) -> str:
+    from .models.varswap import (varswap_strike_heston, varswap_strike_mc,
+                                 varswap_strike_replication,
+                                 volswap_strike_mc)
+
+    use_heston = ns.v0 > 0.0
+    if use_heston:
+        k_cont = varswap_strike_heston(ns.v0, ns.kappa, ns.theta, ns.T)
+    else:
+        k_cont = varswap_strike_replication(ns.sigma, ns.S0, ns.r, ns.q,
+                                            ns.T, device=ns.device)
+    lines = [f"fair variance (continuous): {k_cont:.8f}  "
+             f"(vol strike {100.0 * k_cont ** 0.5:.4f})"]
+    if ns.mc:
+        dyn = (dict(heston=dict(v0=ns.v0, kappa=ns.kappa, theta=ns.theta,
+                                xi=ns.xi, rho=ns.rho))
+               if use_heston else dict(sigma=ns.sigma))
+        kw = dict(n_steps=ns.n_steps, n_paths=ns.n_paths, seed=ns.seed,
+                  device=ns.device)
+        kd, se = varswap_strike_mc(ns.S0, ns.r, ns.q, ns.T, **dyn, **kw)
+        vs, vse = volswap_strike_mc(ns.S0, ns.r, ns.q, ns.T, **dyn, **kw)
+        lines.append(f"fair variance ({ns.n_steps} fixings): "
+                     f"{kd:.8f}  (stderr {se:.2e})")
+        lines.append(f"fair volatility ({ns.n_steps} fixings): "
+                     f"{100.0 * vs:.4f}  (stderr {100.0 * vse:.2e}; "
+                     f"convexity gap {100.0 * (k_cont ** 0.5 - vs):.4f})")
+    return "\n".join(lines)
+
+
+_VARSWAP_FLAGS = (
+    ("--S0", dict(type=float, required=True)),
+    ("--T", dict(type=float, required=True, help="years")),
+    ("--r", dict(type=float, required=True)),
+    ("--q", dict(type=float, default=0.0)),
+    ("--sigma", dict(type=float, default=0.2,
+                     help="flat vol (GBM route; ignored when --v0 > 0)")),
+    ("--v0", dict(type=float, default=0.0,
+                  help="Heston v0 (> 0 switches to the Heston routes)")),
+    ("--kappa", dict(type=float, default=1.5)),
+    ("--theta", dict(type=float, default=0.04)),
+    ("--xi", dict(type=float, default=0.4)),
+    ("--rho", dict(type=float, default=-0.6)),
+    ("--mc", dict(action="store_true",
+                  help="also print the discretely-monitored MC strike "
+                       "and the vol-swap strike")),
+    ("--n-steps", dict(dest="n_steps", type=int, default=252)),
+    ("--n-paths", dict(dest="n_paths", type=int, default=65_536)),
+    ("--seed", dict(type=int, default=None)),
+    ("--device", dict(default="cuda", help="cuda (default) or cpu")),
+)
+
+
 def build_parser() -> argparse.ArgumentParser:
     root = argparse.ArgumentParser(prog="optpricer-tpu-torch",
                                    description="options pricing CLI "
@@ -570,6 +624,11 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_argument("--kind", type=_parse_kind, default=CALL,
                      help="call|put")
     sub.set_defaults(runner=_run_basket)
+    sub = subs.add_parser("varswap", help="variance-swap fair strike "
+                          "(log-contract / Heston closed form / MC)")
+    for flag, kw in _VARSWAP_FLAGS:
+        sub.add_argument(flag, **kw)
+    sub.set_defaults(runner=_run_varswap)
     return root
 
 

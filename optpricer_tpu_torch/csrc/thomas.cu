@@ -32,12 +32,17 @@
 //   chunk. The chunk's modified rows go to a scratch (3, batch, M,
 //   PART_THREADS), interleaved so that a warp's accesses are coalesced.
 //
-// Layout: element (i, j), row i of system j, of each operand sits at
-// i*row + j*col, each operand with its own strides. The PDE stack's (...,
-// n) rows pass with row = 1 and col = n, so a block reads its system as
-// contiguous words; the (n, batch) layout passes row = batch and col = 1;
-// a coefficient column shared by every system passes col = 0 and is read
-// through the cache by every block. Nothing is transposed or copied.
+// Layout: system j is the pair (q, r) = (j / inner, j % inner), and
+// element (i, j), row i of system j, of each operand sits at
+// i*row + r*col + q*outer, each operand with its own strides. The PDE
+// stack's (..., n) rows pass with row = 1 and col = n, so a block reads
+// its system as contiguous words; the (n, batch) layout passes row = batch
+// and col = 1 (inner = batch, q = 0); a coefficient column shared by every
+// system passes col = outer = 0 and is read through the cache by every
+// block. The two levels let a batch of matrices against a set of
+// right-hand sides (tridiag_inv: matrix q, unit vector r) read each
+// matrix's bands with col = 0 and the one identity with outer = 0.
+// Nothing is transposed or copied.
 //
 // Shared memory: 6 buffers of the level's rows, 6 * 1024 * 8 bytes = 48 KB
 // at most (f64, n = 1024, or the partitioned kernel's 2 * 512 boundary
@@ -61,7 +66,7 @@ constexpr int PCR_MAX_ROWS = 1024;   // ops/thomas.PCR_MAX_ROWS
 constexpr int PART_THREADS = 512;    // ops/thomas.PART_THREADS
 
 struct Strides {
-  long long row, col;
+  long long row, col, outer;
 };
 
 // One operand of one system: element i at base[i * row].
@@ -74,9 +79,23 @@ struct Column {
   }
 };
 
+// System j = (q, r): q = j / inner, r = j % inner.
+struct System {
+  long long q, r;
+};
+
+__device__ __forceinline__ System system_of(int j, int inner) {
+  return System{j / inner, j % inner};
+}
+
+__device__ __forceinline__ long long offset(Strides s, System sys) {
+  return sys.r * s.col + sys.q * s.outer;
+}
+
 template <typename T>
-__device__ __forceinline__ Column<T> column(const T *p, Strides s, int j) {
-  return Column<T>{p + static_cast<long long>(j) * s.col, s.row};
+__device__ __forceinline__ Column<T> column(const T *p, Strides s,
+                                            System sys) {
+  return Column<T>{p + offset(s, sys), s.row};
 }
 
 // Cyclic reduction of a unit-diagonal system of n rows held in shared
@@ -129,10 +148,10 @@ tridiag_pcr_kernel(const T *__restrict__ a, Strides as,
                    const T *__restrict__ b, Strides bs,
                    const T *__restrict__ c, Strides cs,
                    const T *__restrict__ d, Strides ds, T *__restrict__ x,
-                   Strides xs, int n) {
+                   Strides xs, int n, int inner) {
   extern __shared__ __align__(16) unsigned char smem[];
   T *sm = reinterpret_cast<T *>(smem);
-  const int j = blockIdx.x;
+  const System j = system_of(blockIdx.x, inner);
   const int i = threadIdx.x;
   T ar[1] = {T(0)}, cr[1] = {T(0)}, dr[1] = {T(0)};
   if (i < n) {
@@ -142,7 +161,7 @@ tridiag_pcr_kernel(const T *__restrict__ a, Strides as,
     dr[0] = column(d, ds, j)[i] * rb;
   }
   pcr<T, 1>(ar, cr, dr, i, n, sm, blockDim.x);
-  if (i < n) x[static_cast<long long>(j) * xs.col + i * xs.row] = dr[0];
+  if (i < n) x[offset(xs, j) + i * xs.row] = dr[0];
 }
 
 // Row g of the system, or an identity row past n; a[0] and c[n-1] read 0.
@@ -172,13 +191,14 @@ tridiag_partition_kernel(const T *__restrict__ a, Strides as,
                          const T *__restrict__ c, Strides cs,
                          const T *__restrict__ d, Strides ds,
                          T *__restrict__ x, Strides xs, T *__restrict__ work,
-                         int n, int M) {
+                         int n, int M, int inner) {
   extern __shared__ __align__(16) unsigned char smem[];
   T *sm = reinterpret_cast<T *>(smem);
   const int j = blockIdx.x;
   const int t = threadIdx.x;
-  const Column<T> A = column(a, as, j), B = column(b, bs, j),
-                  C = column(c, cs, j), D = column(d, ds, j);
+  const System sys = system_of(j, inner);
+  const Column<T> A = column(a, as, sys), B = column(b, bs, sys),
+                  C = column(c, cs, sys), D = column(d, ds, sys);
   // this system's modified rows: (a, c, d) of local row l at l * P + t
   const long long P = PART_THREADS;
   const long long plane = static_cast<long long>(gridDim.x) * M * P;
@@ -236,7 +256,7 @@ tridiag_partition_kernel(const T *__restrict__ a, Strides as,
   pcr<T, 2>(red_a, red_c, red_d, 2 * t, 2 * PART_THREADS, sm,
             2 * PART_THREADS);
   const T x0 = red_d[0], xl = red_d[1];
-  T *xj = x + static_cast<long long>(j) * xs.col;
+  T *xj = x + offset(xs, sys);
   for (int l = 0; l < M; ++l) {
     const long long g = g0 + l;
     if (g >= n) break;
@@ -256,7 +276,7 @@ template <typename T>
 cudaError_t launch(const void *a, Strides as, const void *b, Strides bs,
                    const void *c, Strides cs, const void *d, Strides ds,
                    void *x, Strides xs, void *work, int n, int batch,
-                   cudaStream_t s) {
+                   int inner, cudaStream_t s) {
   const T *A = static_cast<const T *>(a), *B = static_cast<const T *>(b),
           *C = static_cast<const T *>(c), *D = static_cast<const T *>(d);
   T *X = static_cast<T *>(x);
@@ -264,13 +284,14 @@ cudaError_t launch(const void *a, Strides as, const void *b, Strides bs,
     const int threads = (n + 31) / 32 * 32;
     const size_t shm = 6 * static_cast<size_t>(threads) * sizeof(T);
     tridiag_pcr_kernel<T><<<batch, threads, shm, s>>>(A, as, B, bs, C, cs, D,
-                                                      ds, X, xs, n);
+                                                      ds, X, xs, n, inner);
   } else {
     if (work == nullptr) return cudaErrorInvalidValue;
     const int M = (n + PART_THREADS - 1) / PART_THREADS;
     const size_t shm = 6 * 2 * static_cast<size_t>(PART_THREADS) * sizeof(T);
     tridiag_partition_kernel<T><<<batch, PART_THREADS, shm, s>>>(
-        A, as, B, bs, C, cs, D, ds, X, xs, static_cast<T *>(work), n, M);
+        A, as, B, bs, C, cs, D, ds, X, xs, static_cast<T *>(work), n, M,
+        inner);
   }
   return cudaGetLastError();
 }
@@ -280,27 +301,28 @@ cudaError_t launch(const void *a, Strides as, const void *b, Strides bs,
 
 using namespace optpricer;
 
-// Solve batch tridiagonal systems of n rows. Element (i, j) of a, b, c, d
-// and x at i*row + j*col (each its own strides). work: scratch of 3 * batch
-// * ceil(n / 512) * 512 elements when n > 1024, else unused (may be null).
-// is_double: 0 float, 1 double.
-extern "C" int optpricer_thomas(const void *a, long long a_row,
-                                long long a_col, const void *b,
-                                long long b_row, long long b_col,
-                                const void *c, long long c_row,
-                                long long c_col, const void *d,
-                                long long d_row, long long d_col, void *x,
-                                long long x_row, long long x_col, void *work,
-                                int n, int batch, int is_double,
-                                void *stream) {
-  if (n < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Solve batch tridiagonal systems of n rows. System j is (q, r) = (j /
+// inner, j % inner); element (i, j) of a, b, c, d and x at i*row + r*col +
+// q*outer (each its own strides). work: scratch of 3 * batch * ceil(n /
+// 512) * 512 elements when n > 1024, else unused (may be null). is_double:
+// 0 float, 1 double.
+extern "C" int optpricer_thomas(
+    const void *a, long long a_row, long long a_col, long long a_outer,
+    const void *b, long long b_row, long long b_col, long long b_outer,
+    const void *c, long long c_row, long long c_col, long long c_outer,
+    const void *d, long long d_row, long long d_col, long long d_outer,
+    void *x, long long x_row, long long x_col, long long x_outer, void *work,
+    int n, int batch, int inner, int is_double, void *stream) {
+  if (n < 1 || batch < 1 || inner < 1 || batch % inner != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides as{a_row, a_col}, bs{b_row, b_col}, cs{c_row, c_col},
-      ds{d_row, d_col}, xs{x_row, x_col};
+  const Strides as{a_row, a_col, a_outer}, bs{b_row, b_col, b_outer},
+      cs{c_row, c_col, c_outer}, ds{d_row, d_col, d_outer},
+      xs{x_row, x_col, x_outer};
   cudaError_t err =
       is_double ? launch<double>(a, as, b, bs, c, cs, d, ds, x, xs, work, n,
-                                 batch, s)
+                                 batch, inner, s)
                 : launch<float>(a, as, b, bs, c, cs, d, ds, x, xs, work, n,
-                                batch, s);
+                                batch, inner, s);
   return static_cast<int>(err);
 }

@@ -12,8 +12,13 @@ depends on ``jax_enable_x64``; the port states its own policy instead:
   device is ``"cuda"``: the port is written for the card, and a CPU run is
   an explicit ``device="cpu"``. A CUDA request on a host without a card
   raises; nothing falls back to the CPU.
+* Float32 products that the reference runs at ``Precision.HIGHEST`` (the
+  PDE propagators, the LSMC regressions, rBergomi's Cholesky product) run
+  under :func:`full_f32`, with TF32 off whatever the process-wide setting.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -52,3 +57,15 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+@contextmanager
+def full_f32():
+    """Full-precision float32 matmuls (no TF32) for the block's duration,
+    restoring the caller's setting after it."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous

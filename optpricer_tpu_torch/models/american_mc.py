@@ -12,7 +12,7 @@ end of a pass.
 
 * The regression products run in full float32 where the reference asks
   for ``Precision.HIGHEST``: every float32 matmul of this module runs
-  under :func:`_full_f32`, which turns TF32 off for its duration whatever
+  under ``dtypes.full_f32``, which turns TF32 off for its duration whatever
   the process-wide setting.
 * Every engine is a draw step and a deterministic core. The LSMC passes
   take a path matrix and draw nothing; the three Andersen-Broadie duals
@@ -37,14 +37,13 @@ Every entry point takes ``device=`` (default ``"cuda"``); float64 unless
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
 from typing import Literal, Optional
 
 import numpy as np
 import torch
 
 from ..core import CALL, OptionSpec
-from ..dtypes import canonical, resolve_device
+from ..dtypes import canonical, full_f32, resolve_device
 from ..ops.black_scholes import is_call_mask
 from .monte_carlo import keyed_generator, resolve_seed
 from .processes import gbm_paths
@@ -56,18 +55,6 @@ _RIDGE = 1e-7
 # samples per COS block in the Heston dual's control variate: a block's
 # (samples, 64) complex128 temporaries stay under ~1 GB
 _COS_CHUNK = 1 << 16
-
-
-@contextmanager
-def _full_f32():
-    """Full-precision float32 matmuls (no TF32) for the block's duration,
-    restoring the caller's setting after it."""
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
 
 
 def _scalar(value, dtype, device) -> torch.Tensor:
@@ -130,7 +117,7 @@ def _backward(n_dates, cash, date_state, disc, ex_mask=None):
     terminal payoff. Returns (the t = 1 cashflow, β a date in date order,
     None where ``ex_mask`` grants no exercise)."""
     betas = [None] * n_dates
-    with _full_f32():
+    with full_f32():
         for t in range(n_dates, 0, -1):
             cont = disc * cash
             if ex_mask is not None and not ex_mask[t - 1]:
@@ -148,7 +135,7 @@ def _forward(n_dates, date_state, terminal_ex, betas, r, dt):
     exceeds the β-fitted continuation; the maturity payoff otherwise."""
     alive = torch.ones_like(terminal_ex, dtype=torch.bool)
     value = torch.zeros_like(terminal_ex)
-    with _full_f32():
+    with full_f32():
         for t in range(1, n_dates + 1):
             ex, X = date_state(t)
             stop = alive & (ex > 0.0) & (ex > X @ betas[t - 1])
@@ -390,7 +377,7 @@ def _lsmc_dual_upper(draws, betas, S0, K, T, r, q, sigma, is_call, *,
     def policy_stop(S, k):
         return stop_at(S, betas_pad[k - 1])
 
-    with _full_f32():
+    with full_f32():
         S0v = torch.full((n_paths,), 0.0, dtype=dtype, device=dev) + S0
         return _outer_pass(n_steps, n_paths, S0v, step, policy_stop,
                            continuation, intrinsic(S0), r, dt, dtype, dev)
@@ -483,7 +470,7 @@ def _lsmc_dual_upper_sv(draws, betas, S0, v0, kappa, theta_h, xi, rho,
     def policy_stop(state, k):
         return stop_at(state[0], state[1], betas_pad[k - 1])
 
-    with _full_f32():
+    with full_f32():
         zero = torch.zeros((n_paths,), dtype=dtype, device=dev)
         state0 = (zero + S0, zero + torch.clamp(v0, min=0.0))
         return _outer_pass(n_steps, n_paths, state0, step, policy_stop,
@@ -622,7 +609,7 @@ def _lsmc_dual_upper_lsv(draws, betas, model, K, is_call, *, basis_dim: int,
     def policy_stop(state, k):
         return stop_at(state[0], state[1], betas_pad[k - 1])
 
-    with _full_f32():
+    with full_f32():
         zero = torch.zeros((n_paths,), dtype=dtype, device=dev)
         state0 = (zero + S0, zero + max(float(model.v0), 0.0))
         return _outer_pass(n_steps, n_paths, state0, step, policy_stop,
@@ -825,7 +812,7 @@ def _lsmc_backward_batch(paths, K_b, r, dt, is_call_b, *, basis_dim: int,
         return torch.clamp(sign * (S_row[None, :] - K_col), min=0.0)
 
     cash = intrinsic(paths[-1])
-    with _full_f32():
+    with full_f32():
         for t in range(paths.shape[0] - 2, 0, -1):
             S_t = paths[t]
             y = disc * cash                                   # (B, n)
@@ -931,7 +918,7 @@ def _lsmc_sharded_core(shards, S0, K, r, dt, is_call, *, basis_dim: int,
 
     cash = [intrinsic(S[-1], c) for (S, _), c in zip(shards, consts)]
     eye = torch.eye(k, dtype=dt_, device=dev0)
-    with _full_f32():
+    with full_f32():
         for t in range(n_dates, 0, -1):
             parts, locals_ = [], []
             for (S, v), c, cf in zip(shards, consts, cash):
@@ -995,7 +982,7 @@ def _ma_core(z, S0s, r, qs, sigmas, chol, T, *, antithetic: bool):
     dt = T / n_steps
     if antithetic:
         z = torch.cat([z, -z], dim=1)
-    with _full_f32():
+    with full_f32():
         eps = z @ chol.T
     drift = (r - qs - 0.5 * sigmas * sigmas) * dt
     inc = drift[None, None, :] + sigmas[None, None, :] * torch.sqrt(dt) * eps
@@ -1036,7 +1023,7 @@ def _lsmc_backward_ma(paths, w, K, r, dt, sign, *, payoff: str,
         S_t = paths[t]
         return _ma_intrinsic(S_t, w, K, sign, payoff), _ma_basis(S_t, w, K)
 
-    with _full_f32():
+    with full_f32():
         cash, betas = _backward(
             paths.shape[0] - 2, _ma_intrinsic(paths[-1], w, K, sign, payoff),
             date_state, disc)
@@ -1054,7 +1041,7 @@ def _lsmc_forward_fixed_policy_ma(paths, betas, w, K, r, dt, sign, *,
         S_t = paths[t]
         return _ma_intrinsic(S_t, w, K, sign, payoff), _ma_basis(S_t, w, K)
 
-    with _full_f32():
+    with full_f32():
         value = _forward(betas.shape[0], date_state,
                          _ma_intrinsic(paths[-1], w, K, sign, payoff),
                          betas, r, dt)

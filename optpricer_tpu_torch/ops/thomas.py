@@ -26,11 +26,14 @@ back into the chunks. What bounds it is the bytes (a, b, c, d read once,
 x written once) for a batch of systems, and the levels' latency plus the
 launch for a single system (the per-step solve of a local-vol march).
 
-Layout: every operand is addressed by a row stride and a system stride,
-so the PDE stack's ``(..., n)`` rows go in and come out as they are
+Layout: every operand is addressed by a row stride and two system
+strides, the systems being the pairs (q, r) of an outer and an inner
+axis, so the PDE stack's ``(..., n)`` rows go in and come out as they are
 (``tridiag_solve_kernel_lastdim``), ``(n, batch)`` columns as well
-(``tridiag_solve_kernel``), and a coefficient shared by every system is
-read with a system stride of 0. Nothing is transposed, padded or copied.
+(``tridiag_solve_kernel``), and a coefficient shared along either axis is
+read with a stride of 0 there: ``tridiag_inv``'s batch of matrices (outer)
+against the unit vectors (inner) reads each matrix's bands and the one
+identity where they lie. Nothing is transposed, padded or copied.
 
 Plain versions: ``_thomas_plain`` is the Pallas kernel's Thomas
 elimination in torch (two divisions per forward row), the CPU path of the
@@ -168,21 +171,23 @@ def _check(a, b, c, d):
         raise ValueError(f"unsupported device {d.device}")
 
 
-def _strides(t, batch: int):
-    """(row, system) strides of an (n, batch) or (n, 1) operand; a single
-    column, or a system axis of stride 0, is one column for every system."""
-    row, system = t.stride()
-    return row, system if t.shape[1] == batch else 0
+def _strides(t, shape):
+    """(row, inner, outer) strides of an (n, outer, inner) operand; an axis
+    of size 1 where the systems have more is read with stride 0."""
+    row, outer, inner = t.stride()
+    return (row, inner if t.shape[2] == shape[2] else 0,
+            outer if t.shape[1] == shape[1] else 0)
 
 
 def _solve_into(a, b, c, d, x):
-    """x ← the solution of the (n, batch) systems (a, b, c, d), checked by
-    ``_check``, each operand a view of any strides. The kernel on a CUDA
-    device, else ``_thomas_plain``."""
+    """x ← the solution of the (n, outer, inner) systems (a, b, c, d), each
+    operand a view of any strides that broadcasts to x's shape (checked by
+    the callers). The kernel on a CUDA device, else ``_thomas_plain``."""
     if d.device.type == "cpu":
         x.copy_(_thomas_plain(a, b, c, d))
         return
-    n, batch = d.shape
+    shape = x.shape
+    n, batch, inner = shape[0], shape[1] * shape[2], shape[2]
     work = None
     if n > PCR_MAX_ROWS:
         work = torch.empty(3 * batch * -(-n // PART_THREADS) * PART_THREADS,
@@ -190,11 +195,11 @@ def _solve_into(a, b, c, d, x):
     lib = _build.load()
     with torch.cuda.device(d.device):
         err = lib.optpricer_thomas(
-            a.data_ptr(), *_strides(a, batch), b.data_ptr(),
-            *_strides(b, batch), c.data_ptr(), *_strides(c, batch),
-            d.data_ptr(), *_strides(d, batch), x.data_ptr(),
-            *_strides(x, batch), None if work is None else work.data_ptr(),
-            n, batch, _DTYPES[d.dtype], _stream(d.device))
+            a.data_ptr(), *_strides(a, shape), b.data_ptr(),
+            *_strides(b, shape), c.data_ptr(), *_strides(c, shape),
+            d.data_ptr(), *_strides(d, shape), x.data_ptr(),
+            *_strides(x, shape), None if work is None else work.data_ptr(),
+            n, batch, inner, _DTYPES[d.dtype], _stream(d.device))
     if err != 0:
         raise RuntimeError(f"tridiagonal kernel launch failed: CUDA error "
                            f"{err}")
@@ -213,7 +218,7 @@ def tridiag_solve_kernel(a, b, c, d) -> torch.Tensor:
     """
     _check(a, b, c, d)
     x = torch.empty(d.shape, dtype=d.dtype, device=d.device)
-    _solve_into(a, b, c, d, x)
+    _solve_into(*(t[:, None] for t in (a, b, c, d, x)))
     return x
 
 
@@ -225,16 +230,26 @@ def tridiag_solve_kernel_lastdim(a, b, c, d) -> torch.Tensor:
     """Solve along the LAST axis with any leading batch axes, the layout of
     the PDE stack's systems (``(..., n)``, as
     :func:`~optpricer_tpu_torch.ops.tridiag.tridiag_solve`). ``a``, ``b``,
-    ``c`` broadcast against ``d``; a coefficient that is one row for every
-    system is read with a system stride of 0. The kernel reads the rows
-    where they lie and writes the ``(..., n)`` solution; nothing is
-    transposed or padded."""
+    ``c`` broadcast against ``d``, and any of them (``d`` too) may be
+    shared along a leading axis: the last leading axis is the kernel's
+    inner system axis and the others merge into its outer one, each read
+    with a stride of 0 where the operand is broadcast. The kernel reads the
+    rows where they lie and writes the ``(..., n)`` solution; nothing is
+    transposed, padded or copied (unless the leading axes before the last
+    do not merge into one view)."""
     shape = torch.broadcast_shapes(a.shape, b.shape, c.shape, d.shape)
     n = shape[-1]
-    batch = math.prod(shape[:-1])
-    # (n, batch) views: a view wherever the leading axes merge
-    A, B, C, D = (t.expand(shape).reshape(batch, n).t() for t in (a, b, c, d))
-    _check(A, B, C, D)
+    inner = shape[-2] if len(shape) > 1 else 1
+    outer = math.prod(shape[:-2])
+    for name, t in (("a", a), ("b", b), ("c", c)):
+        if t.dtype != d.dtype or t.device != d.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, d is "
+                             f"{d.dtype} on {d.device}")
+    if d.dtype not in _DTYPES or d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported {d.dtype} on {d.device}")
+    # (n, outer, inner) views of the broadcast operands
+    A, B, C, D = (t.expand(shape).reshape(outer, inner, n).permute(2, 0, 1)
+                  for t in (a, b, c, d))
     x = torch.empty(shape, dtype=d.dtype, device=d.device)
-    _solve_into(A, B, C, D, x.view(batch, n).t())
+    _solve_into(A, B, C, D, x.view(outer, inner, n).permute(2, 0, 1))
     return x

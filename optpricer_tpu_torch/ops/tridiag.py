@@ -18,19 +18,21 @@ Counterpart of ``optpricer_tpu/ops/tridiag.py``. Every solver takes
   divisions per forward row), which differs from the reference's
   ``lax.scan`` form (pivot then one division per row in the back
   substitution) by round-off.
+* :func:`tridiag_inv` — the inverse of batched tridiagonal matrices, the
+  Heston ADI's propagator build: one K7 launch (the plain Thomas solve on
+  the CPU) against the identity's columns, then one Newton-Schulz step in
+  full float32.
 * :func:`tridiag_matvec` and :func:`tridiag_dense`.
-
-``tridiag_inv`` waits for its consumers (the Heston ADI and forward-PDE
-solvers, ROADMAP A.14).
 """
 from __future__ import annotations
 
 import torch
 
+from ..dtypes import full_f32
 from .thomas import tridiag_solve_kernel_lastdim
 
 __all__ = ["tridiag_solve", "tridiag_solve_thomas", "tridiag_matvec",
-           "tridiag_dense"]
+           "tridiag_dense", "tridiag_inv"]
 
 
 def tridiag_matvec(a, b, c, x):
@@ -137,3 +139,40 @@ def tridiag_solve_thomas(a, b, c, d):
     """Tridiagonal solve along the last axis, batched over leading axes:
     K7 for CUDA tensors, the plain Thomas loop on the CPU."""
     return tridiag_solve_kernel_lastdim(a, b, c, d)
+
+
+def _band_product(lo, mid, hi, X):
+    """M X for tridiagonal M = (lo, mid, hi) of (…, n) bands and X
+    (…, n, m): three scaled row slices, no dense M."""
+    out = mid[..., :, None] * X
+    out[..., 1:, :] += lo[..., 1:, None] * X[..., :-1, :]
+    out[..., :-1, :] += hi[..., :-1, None] * X[..., 1:, :]
+    return out
+
+
+def tridiag_inv(lo, mid, hi, newton: bool = True):
+    """Inverse of batched tridiagonal matrices given as (…, n) bands
+    (``lo[..., 0]`` and ``hi[..., -1]`` unused); returns (…, n, n).
+
+    The reference solves against the n unit vectors with its log-depth scan
+    and then applies one Newton-Schulz step X ← X(2I − MX), which squares
+    the solver's O(cond·ε) error down to the working dtype's floor. Here
+    the solve is ONE launch of K7 (``ops/thomas``) for every (matrix, unit
+    vector) pair, the identity's rows the right-hand sides and the
+    solutions written as the rows of the inverse's transpose. Each
+    matrix's bands are read with a stride of 0 along the unit vectors, and
+    the one identity with a stride of 0 along the matrices: the solve reads
+    the bands and an (n, n) identity and writes the (…, n, n) result, and
+    nothing is expanded or copied. On the CPU the solve is K7's plain
+    Thomas version. The Newton step's MX is a band product and
+    X(2I − MX) one ``torch.matmul`` in full float32 (TF32 off, the
+    reference's ``Precision.HIGHEST``)."""
+    n = mid.shape[-1]
+    eye = torch.eye(n, dtype=mid.dtype, device=mid.device)
+    # row k of the solution solves M x = e_k: column k of M⁻¹
+    X = tridiag_solve_kernel_lastdim(lo[..., None, :], mid[..., None, :],
+                                     hi[..., None, :], eye).transpose(-1, -2)
+    if not newton:
+        return X
+    with full_f32():
+        return torch.matmul(X, 2.0 * eye - _band_product(lo, mid, hi, X))

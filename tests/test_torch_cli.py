@@ -14,9 +14,12 @@ written by the JAX package and pricing again from its saved model), and
 subcommands ``heston`` (COS, Bates), ``american`` (bs2002, baw, rgw),
 ``barrier`` (analytic and fd, single and double), ``lookback`` and
 ``levy`` (vg, nig, cgmy) print what the port's in-process call gives, and
-the reference CLI's line too (deterministic f64 engines); ``heston``'s
-ADI, ``--american``, ``--barrier`` and ``--dividends`` routes raise
-``NotImplementedError`` naming ROADMAP A.14.
+the reference CLI's line too (deterministic f64 engines); so do
+``heston``'s ADI, ``--american``, ``--barrier`` and ``--dividends`` routes
+(the Heston ADI PDE, its grid defaults cut to 48 x 24 x 64 in both
+packages for the test) and ``varswap``'s closed-form lines; ``varswap
+--mc`` prints the port's own calls, within Monte-Carlo error of the
+reference's.
 """
 import numpy as np
 import pytest
@@ -277,9 +280,66 @@ def test_closed_form_lines(cmd, extra, capsys):
     assert got == _run(jcli.main, argv, capsys)
 
 
+@pytest.fixture
+def small_adi_grid(monkeypatch):
+    """Both packages' Heston ADI grid defaults cut to 48 x 24 x 64."""
+    from optpricer_tpu.models import heston_pde as jh
+    from optpricer_tpu_torch.models import heston_pde as th
+
+    for mod in (jh, th):
+        for fn in (mod.heston_fd_price, mod.heston_fd_grid):
+            for name, value in (("n_x", 48), ("n_v", 24), ("n_t", 64)):
+                monkeypatch.setitem(fn.__kwdefaults__, name, value)
+
+
 @pytest.mark.parametrize("extra", [["--engine", "adi"], ["--american"],
                                    ["--barrier", "130"],
                                    ["--dividends", "0.5:2"]])
-def test_heston_pde_routes_are_not_ported(extra):
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tcli.main(["heston", *MARKET, *extra, "--device", "cpu"])
+def test_heston_pde_routes_are_not_ported(extra, small_adi_grid, capsys):
+    """The name predates the port of the Heston ADI PDE: each of its routes
+    now prints the reference CLI's line."""
+    argv = ["heston", *MARKET, *extra]
+    got = _run(tcli.main, argv + ["--device", "cpu"], capsys)
+    assert got == _run(jcli.main, argv, capsys)
+    assert float(got) > 0.0
+
+
+def test_heston_pde_guards(capsys):
+    with pytest.raises(SystemExit):
+        tcli.main(["heston", *MARKET, "--barrier", "130", "--dividends",
+                   "0.5:2", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        tcli.main(["heston", *MARKET, "--lam", "0.3", "--american",
+                   "--device", "cpu"])
+
+
+VARSWAP = ["varswap", "--S0", "100", "--T", "1", "--r", "0.03"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--sigma", "0.3", "--q", "0.01"],
+                                   ["--v0", "0.05", "--theta", "0.04"]])
+def test_varswap_lines(extra, capsys):
+    argv = VARSWAP + extra
+    got = _run(tcli.main, argv + ["--device", "cpu"], capsys)
+    assert got == _run(jcli.main, argv, capsys)
+    assert got.startswith("fair variance (continuous): ")
+
+
+@pytest.mark.parametrize("extra", [[], ["--v0", "0.04"]])
+def test_varswap_mc_lines(extra, capsys):
+    argv = VARSWAP + extra + ["--mc", "--n-steps", "32", "--n-paths",
+                              "8192", "--seed", "3"]
+    got = _run(tcli.main, argv + ["--device", "cpu"], capsys).splitlines()
+    ref = _run(jcli.main, argv, capsys).splitlines()
+    assert got[0] == ref[0] and len(got) == len(ref) == 3
+    dyn = (dict(heston=dict(v0=0.04, kappa=1.5, theta=0.04, xi=0.4,
+                            rho=-0.6)) if extra else dict(sigma=0.2))
+    kw = dict(n_steps=32, n_paths=8192, seed=3, device="cpu")
+    kd, se = tp.varswap_strike_mc(100.0, 0.03, 0.0, 1.0, **dyn, **kw)
+    assert got[1] == f"fair variance (32 fixings): {kd:.8f}  (stderr {se:.2e})"
+    ref_kd = float(ref[1].split(": ")[1].split()[0])
+    ref_se = float(ref[1].split("stderr ")[1].rstrip(")"))
+    assert abs(kd - ref_kd) <= 4.0 * np.hypot(se, ref_se)
+    vs, vse = tp.volswap_strike_mc(100.0, 0.03, 0.0, 1.0, **dyn, **kw)
+    assert got[2].startswith(f"fair volatility (32 fixings): "
+                             f"{100.0 * vs:.4f}  (stderr {100.0 * vse:.2e};")

@@ -443,6 +443,57 @@ def test_thomas_lastdim_with_row_coefficients(cuda_device):
                                atol=1e-10 * ref.abs().max().item())
 
 
+@pytest.mark.parametrize("bands, rhs, dtype, rtol", [
+    ((3, 1, 37), (4, 37), torch.float64, 1e-10),
+    ((2, 1, 1100), (5, 1100), torch.float64, 1e-10),
+    ((3, 1, 37), (4, 37), torch.float32, 2e-5)])
+def test_thomas_lastdim_shared_along_each_system_axis(cuda_device, bands,
+                                                      rhs, dtype, rtol):
+    """Bands shared along the inner system axis and right-hand sides shared
+    along the outer one (tridiag_inv's layout), read in place, solve as
+    their broadcast."""
+    g = torch.Generator().manual_seed(5)
+    lo, mid, hi = (torch.randn(bands, generator=g, dtype=torch.float64)
+                   for _ in range(3))
+    d = torch.randn(rhs, generator=g, dtype=torch.float64)
+    ops = [x.to(dtype=dtype, device=cuda_device)
+           for x in (lo, mid + 4.0, hi, d)]
+    got = tth.tridiag_solve_kernel_lastdim(*ops)
+    shape = (bands[0], rhs[0], bands[-1])
+    ref = tth._thomas_plain(*(t.expand(shape).movedim(-1, 0) for t in ops))
+    torch.testing.assert_close(got, ref.movedim(0, -1), rtol=rtol,
+                               atol=rtol * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("m, n, dtype, rtol", [
+    (96, 256, torch.float64, 1e-10), (96, 256, torch.float32, 2e-5),
+    (2, 1100, torch.float64, 1e-10)])
+def test_tridiag_inv_matches_plain(cuda_device, m, n, dtype, rtol):
+    from optpricer_tpu_torch.ops.tridiag import tridiag_dense, tridiag_inv
+
+    g = torch.Generator().manual_seed(6)
+    lo, mid, hi = (torch.randn(m, n, generator=g, dtype=torch.float64)
+                   for _ in range(3))
+    lo, mid, hi = (x.to(dtype=dtype, device=cuda_device)
+                   for x in (lo, mid + 4.0, hi))
+    before = tth.tridiag_solve_kernel.launches_by_shape[(n, m * n)]
+    raw = tridiag_inv(lo, mid, hi, newton=False)
+    assert tth.tridiag_solve_kernel.launches_by_shape[(n, m * n)] == \
+        before + 1
+    eye = torch.eye(n, dtype=dtype, device=cuda_device)
+    shape = (m, n, n)
+    ref = tth._thomas_plain(*(t.expand(shape).movedim(-1, 0) for t in (
+        lo[:, None], mid[:, None], hi[:, None], eye)))
+    ref = ref.movedim(0, -1).transpose(-1, -2)
+    torch.testing.assert_close(raw, ref, rtol=rtol,
+                               atol=rtol * ref.abs().max().item())
+    if dtype == torch.float64:
+        inv = tridiag_inv(lo, mid, hi)
+        lib = torch.linalg.inv(tridiag_dense(lo, mid, hi))
+        torch.testing.assert_close(inv, lib, rtol=0.0,
+                                   atol=1e-12 * lib.abs().max().item())
+
+
 def _smile(S, t):
     return 0.2 + 0.1 * torch.exp(-((torch.log(S / 100.0)) ** 2)) + 0.05 * t
 

@@ -11,8 +11,8 @@ variate (and with it switched off, ``_SV_INNER_CV``), LSV under both
 schemes with the Black-budget control variate (and without,
 ``_LSV_INNER_CV``). The end-to-end brackets at tests/test_lsmc.py's sizes:
 the GBM Bermudan-16 lattice (the port's ``crr``) inside [lower − 3 se,
-upper + 3 se] and the LSV bracket around the recorded ADI Bermudan-9
-(``chip_smoke.HESTON_ADI``). The Heston bracket at its test size (2·32 x
+upper + 3 se] and the LSV bracket around the port's ADI Bermudan-9
+(``heston_fd_price`` at ``chip_smoke.HESTON_ADI_CALLS``). The Heston bracket at its test size (2·32 x
 1 024 COS evaluations of 64 terms a date) runs on the card, in
 ``chip_smoke.py``.
 """
@@ -192,8 +192,10 @@ def test_lsv_bracket_contains_recorded_adi():
     model = tp.LSVModel(S0=100.0, r=0.05, q=0.0, T=1.0, **HP,
                         x_bins=torch.linspace(-1.0, 1.0, 9),
                         leverage=torch.ones((9, 9)), scheme="qe")
-    ref = chip_smoke.HESTON_ADI["bermudan9_lsv"]
-    ref_amer = chip_smoke.HESTON_ADI["american"]
+    ref, ref_amer = (tp.heston_fd_price(
+        100.0, 110.0, 1.0, 0.05, 0.0, **chip_smoke.HESTON_HP, kind="put",
+        **chip_smoke.HESTON_ADI_CALLS[name], device="cpu")
+        for name in ("bermudan9_lsv", "american"))
     opt = tp.OptionSpec(S0=100.0, K=110.0, T=1.0, r=0.05, sigma=0.2)
     br = tp.lsmc_price(opt, "put", lsv=model, n_paths=20_000, seed=2,
                        bound="both", n_inner=64, n_upper_paths=1_024,

@@ -14,10 +14,9 @@ values that stand in for the Heston PDE until it is ported.
   (GBM) and within tests/test_lsmc.py's band (Heston).
 * The Heston, LSV and Lévy end-to-end calls at tests/test_lsmc.py's and
   tests/test_levy.py's sizes, oracles and tolerances. The Heston oracle is
-  the reference's ADI PDE (``heston_fd_price``), which the port does not
-  have yet: ``chip_smoke.HESTON_ADI`` records its values, and
-  :func:`test_recorded_adi_values` recomputes each with the reference to
-  1e-9.
+  the port's own ADI PDE (``heston_fd_price`` at
+  ``chip_smoke.HESTON_ADI_CALLS``), and :func:`test_recorded_adi_values`
+  holds each of its values to the reference's at 1e-9.
 """
 import jax
 import jax.numpy as jnp
@@ -131,22 +130,29 @@ def test_sv_bermudan_matches_reference(dates):
     _close(st, sj, 1e-10, "stderr")
 
 
-def test_recorded_adi_values():
-    """``chip_smoke.HESTON_ADI`` holds the reference ADI prices that the
-    Heston and LSV brackets are held to on the card: each recomputed here
-    with the reference to 1e-9."""
+@pytest.fixture(scope="module")
+def adi():
+    """The port's ADI prices at ``chip_smoke.HESTON_ADI_CALLS`` on the CPU,
+    the oracle of the Heston and LSV brackets (on the card too)."""
+    assert chip_smoke.HESTON_HP == HP
+    return chip_smoke.heston_adi_values("cpu")
+
+
+def test_recorded_adi_values(adi):
+    """The port's ``heston_fd_price`` at the four ``HESTON_ADI_CALLS``
+    equals the reference's to 1e-9."""
     from optpricer_tpu import heston_fd_price
 
-    assert set(chip_smoke.HESTON_ADI) == set(chip_smoke.HESTON_ADI_CALLS)
+    assert set(adi) == set(chip_smoke.HESTON_ADI_CALLS)
     for name, kw in chip_smoke.HESTON_ADI_CALLS.items():
         ref = float(heston_fd_price(100.0, 110.0, 1.0, 0.05, 0.0, **HP,
                                     kind="put", **kw))
-        assert abs(chip_smoke.HESTON_ADI[name] - ref) <= 1e-9, (name, ref)
+        assert abs(adi[name] - ref) <= 1e-9, (name, adi[name], ref)
 
 
 # -- end to end: tests/test_lsmc.py::TestHestonLsmc on the port ----------
-def test_heston_two_pass_brackets_adi():
-    ref = chip_smoke.HESTON_ADI["american"]
+def test_heston_two_pass_brackets_adi(adi):
+    ref = adi["american"]
     lo, se = tp.lsmc_price(OPT, "put", heston=HP, n_paths=100_000,
                            n_steps=50, seed=2, bound="lower", device="cpu")
     assert lo < ref + 4 * se + 5e-3, (lo, ref)

@@ -42,7 +42,10 @@ def test_import_never_pulls_in_jax():
                    "models.basket", "models.lsv", "ops.bvn", "ops.basket_mc",
                    "utils.serialization", "utils.profiling", "utils.timing",
                    "validation", "models.american_analytic", "models.levy",
-                   "models.mlmc", "models.american_mc"):
+                   "models.mlmc", "models.american_mc", "models.heston_pde",
+                   "models.forward_pde", "models.varswap", "models.cliquet",
+                   "models.rough", "scripts.price_book",
+                   "scripts.calibrate_surface"):
         assert f"optpricer_tpu_torch.{module}" in names, module
 
 
@@ -84,14 +87,15 @@ SLICE_NAMES = (
 
 
 def test_slice_names_keep_the_reference_parameters():
-    """108 of the reference's names; each of the slice's 29 takes the
+    """All 127 of the reference's names; each of the slice's 29 takes the
     reference's parameters, of the same kind and with the same defaults,
     and adds at most ``dtype=`` and ``device=``."""
     import inspect
 
     import optpricer_tpu as jp
 
-    assert len(SLICE_NAMES) == 29 and len(tp.__all__) == 108
+    assert len(SLICE_NAMES) == 29 and len(tp.__all__) == 127
+    assert set(tp.__all__) == set(jp.__all__)
     for name in SLICE_NAMES:
         assert name in tp.__all__, name
         ours = inspect.signature(getattr(tp, name)).parameters
@@ -127,6 +131,43 @@ def test_mc_slice_names_keep_the_reference_parameters(name):
     assert set(ours) - set(theirs) <= {"device"}, name
     order = [n for n in jp.__all__ if n in MC_SLICE_NAMES]
     assert [n for n in tp.__all__ if n in MC_SLICE_NAMES] == order
+
+
+# the Heston ADI, forward PDE, variance-swap, rough-vol and cliquet slice
+PDE_SLICE_NAMES = (
+    "heston_fd_price", "heston_fd_grid", "heston_fd_greeks",
+    "heston_fd_price_batch", "heston_fd_price_barrier",
+    "ForwardSurface", "dupire_forward_surface", "dupire_forward_price",
+    "forward_surface_iv", "reprice_surface_forward",
+    "varswap_strike_replication", "varswap_strike_heston",
+    "varswap_strike_mc", "volswap_strike_mc",
+    "forward_start_price", "cliquet_price_bs", "cliquet_price_mc",
+    "rbergomi_paths", "rbergomi_price",
+)
+
+
+@pytest.mark.parametrize("name", PDE_SLICE_NAMES)
+def test_pde_slice_names_keep_the_reference_parameters(name):
+    """Each of the 19 takes the reference's parameters, in its order, of
+    the same kind and with the same defaults, and adds at most
+    ``device=``; ``ForwardSurface`` has the reference's fields and
+    methods."""
+    import inspect
+
+    import optpricer_tpu as jp
+
+    assert name in tp.__all__ and name in jp.__all__
+    ours = inspect.signature(getattr(tp, name)).parameters
+    theirs = inspect.signature(getattr(jp, name)).parameters
+    assert list(ours)[:len(theirs)] == list(theirs), name
+    for pname, param in theirs.items():
+        assert ours[pname].kind == param.kind, (name, pname)
+        assert ours[pname].default == param.default, (name, pname)
+    assert set(ours) - set(theirs) <= {"device"}, name
+    if name == "ForwardSurface":
+        assert tp.ForwardSurface._fields == jp.ForwardSurface._fields
+        assert inspect.signature(tp.ForwardSurface.price) == \
+            inspect.signature(jp.ForwardSurface.price)
 
 
 def test_option_spec_round_trip():

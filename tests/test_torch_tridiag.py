@@ -249,8 +249,8 @@ def test_pcr_mirror_takes_shared_columns():
 
 
 def test_lastdim_hands_the_launcher_views(monkeypatch):
-    """(..., n) operands reach the launcher as (n, batch) views of the
-    caller's storage, and the solution is written where the caller gets
+    """(..., n) operands reach the launcher as (n, outer, inner) views of
+    the caller's storage, and the solution is written where the caller gets
     it: no transposed copy on the way in or out."""
     a, b, c, d = (torch.from_numpy(x) for x in _system((5, 2, 21), seed=4))
     rows = [t[0, 0] for t in (a, b)]
@@ -265,10 +265,40 @@ def test_lastdim_hands_the_launcher_views(monkeypatch):
     x = tth.tridiag_solve_kernel_lastdim(*rows, c, d)
     (A, B, C, D, X), = seen
     for view, caller in ((A, a), (B, b), (C, c), (D, d), (X, x)):
-        assert view.shape == (21, 10)
+        assert view.shape == (21, 5, 2)
         assert view.untyped_storage().data_ptr() == \
             caller.untyped_storage().data_ptr()
-    assert A.stride() == (1, 0) and D.stride() == (1, 21)
+    assert A.stride() == (1, 0, 0) and D.stride() == (1, 42, 21)
     ref = tth._thomas_plain(*(t.expand(5, 2, 21).reshape(10, 21).t()
                               for t in (*rows, c, d)))
     assert torch.equal(x, ref.t().reshape(5, 2, 21))
+
+
+def test_tridiag_inv_hands_the_launcher_bands_and_one_identity(monkeypatch):
+    """tridiag_inv's systems (matrix, unit vector) reach the launcher as
+    views: each matrix's bands with a stride of 0 along the unit vectors,
+    one (n, n) identity with a stride of 0 along the matrices, and the
+    inverse's transpose written in place; the result equals the plain
+    solve of the expanded systems."""
+    lo, mid, hi, _ = (torch.from_numpy(x) for x in _system((3, 11), seed=5))
+    seen = []
+    solve_into = tth._solve_into
+
+    def recording(A, B, C, D, X):
+        seen.append((A, B, C, D, X))
+        solve_into(A, B, C, D, X)
+
+    monkeypatch.setattr(tth, "_solve_into", recording)
+    inv = ttd.tridiag_inv(lo, mid, hi, newton=False)
+    (A, B, C, D, X), = seen
+    for view, band in ((A, lo), (B, mid), (C, hi)):
+        assert view.shape == (11, 3, 11) and view.stride() == (1, 11, 0)
+        assert view.data_ptr() == band.data_ptr()
+    assert D.shape == (11, 3, 11) and D.stride() == (1, 0, 11)
+    assert X.stride() == (1, 121, 11)
+    assert X.data_ptr() == inv.data_ptr()
+    eye = torch.eye(11, dtype=torch.float64)
+    ref = tth._thomas_plain(*(t.reshape(3, 1, 11).expand(3, 11, 11)
+                              .reshape(33, 11).t() for t in (lo, mid, hi)),
+                            eye.expand(3, 11, 11).reshape(33, 11).t())
+    assert torch.equal(inv.transpose(-1, -2), ref.t().reshape(3, 11, 11))
