@@ -48,8 +48,10 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      (f64, f32), every case with garbage in a[0] and c[n-1];
    * the fused local-vol march (K8) on the full ladder (1 024 strikes x 511
      rows x 512 steps): PCR for calls and puts, with and without the
-     American projection; Thomas for a call and an American put (the plain
-     Thomas march, ~5·10^6 small launches, is timed once here); PCR on a
+     American projection; Thomas for a call and an American put at the
+     ladder's full width over 32 steps (``PdeSlice.THOMAS_STEPS``; all 512
+     with ``--full``: the plain Thomas march is ~10^4 small launches
+     a step); each form's plain European call timed once here; PCR on a
      ragged ladder (1 025 strikes, calls and puts mixed, American) and on
      1 024 rows (N_S = 1 025) at 512 steps, Thomas on the ragged ladder at
      32 steps; the pre-kernel's plan of both forms at the ladder's shape
@@ -80,6 +82,8 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      shard's kernel stats against its plain version over the same program
      offset, and the entry's result equal, bit for bit, to the shards'
      kernel stats added in mesh order.
+   Each slice starts its CLI subprocesses when its phase 5 starts and
+   reads them at its checks, so their start-up overlaps its own calls.
    Counts must be equal; every unsigned sum within rtol 2e-5 (f32 sums in
    another order; K1/K2 also sincospi against cos), every signed Greek sum
    of K4 within 2e-5·√(n·ΣY²); K7's solution within rtol 1e-10 (f64) or
@@ -295,19 +299,20 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    column's largest entry; the local-vol march's per-step solve (1 023
    rows x 2 systems, f64) on the operands of the 1 024 x 512 round trip's
    first θ 1 and θ ½ steps against the plain version at 1e-12.
-6. time — CUDA events, median of 5 after a warm-up (3 for the slowest
-   plain version and the dense solve): K1 at 2^30, 2^24 and 1 000 000 base
+6. time — CUDA events, median of 5 after a warm-up (3 for the dense
+   solve; a plain version that takes seconds a call is phase 3's one run
+   of it at that shape): K1 at 2^30, 2^24 and 1 000 000 base
    draws and its plain version at 2^24 and 1 000 000; K2 and its plain
    version at 2^22 and 2^20 points x 16 (seed 7, the main path's call; the
    rows at 2^22 held to ``K2_SUMS``), K2 also with the start event behind
    a queued device sleep, its block size and waves and its static SASS
-   (``k2_issue_lines``); K4
-   and its plain version at the main path's shape, K4 with Greek moments
+   (``k2_issue_lines``); K4 and its plain version (phase 3's run) at the
+   main path's shape, K4 with Greek moments
    there, and K4's Heston Euler and SABR β=1 vanillas at 1M x 64; K5 and
    its plain version at 65 536 x 8 x 64 and at 2^20 x 8 x 252 (median of
-   3 there; the kernel's sums there held to ``QMC_PATH_SUMS``), also with
-   the start event behind a queued device sleep (the device's time
-   alone); K1's and
+   3 there; the kernel's sums there held to ``QMC_PATH_SUMS``; the plain
+   version there only with ``--full``), also with the start event
+   behind a queued device sleep (the device's time alone); K1's and
    K5's registers and local memory (``cuobjdump -res-usage``) and the
    static SASS counts of K1's rep loops and K5's loops by class with the
    issue time they give (``k1_k5_sass_lines``); K7 at (511, 1024) in f64
@@ -317,14 +322,15 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    (199, 1), median of 21, each twice: like every kernel (the host's launch
    latency in) and with the start event behind a queued device sleep (the
    device's time alone, ``device_ms``); K8 PCR and Thomas on the full
-   ladder, European calls and American puts, with the plain PCR (the plain
-   Thomas is phase 3's one run) and the pre-kernel alone; the "auto",
+   ladder, European calls and American puts, and Thomas's call over 32
+   steps, beside the plain versions' European calls from phase 3's one
+   run each, and the pre-kernel alone; the "auto",
    "fused" and "fused_thomas" ladder calls; the host-clock wall time of
    each config-4 call; and, under torch.profiler, the device-busy share of
    the PSOR put, the European call and the "auto", "fused" and
    "fused_thomas" ladders; K4 lv_milstein at the desk's call and its plain
-   version (median of 3), and lv_euler at the same call; K3 at 1 000
-   contracts x 2^20 and its plain version (median of 3); the host-clock
+   version (phase 3's one run), and lv_euler at the same call; K3 at 1 000
+   contracts x 2^20 and its plain version (phase 3's one run); the host-clock
    wall of fit_svi_surface and of each desk stage; K6 at the
    `[basket-path]` shape and K4-lsv / lsv_qe at 2^20 x 96 (their plain
    versions timed once, in phase 3), K6 also at phase 5's 16-asset basket
@@ -333,19 +339,22 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    (phase 5's runs); the walls (median of 21) of the user calls around K6
    and K3: basket_exotic_mc on the `[basket-path]` book and on the
    16-asset basket barrier, and euro_price_mc_batch on 1 000 contracts x
-   1M; each closed-form call of phase 5 (median of 3, or one run for a
-   call of more than a second) with its device-busy share under
-   torch.profiler (the CUDA activity alone, its raw events summed); the
-   three sharded entries on 4 x cuda:0 at phase 3's shapes (the plain
-   shards' ordered sums once), and each call of the mesh and scan path
-   and of the American and multilevel path as the closed forms' (one run
-   above 0.3 s; a call under 20 ms repeated under the profiler to fill
-   20 ms); K7 at the tridiag_inv shape (96 x 256 systems of 256, f64 and
-   f32, the bands and one identity read in place, also behind a queued
-   sleep) beside its plain version, its byte bound (the bands and the
-   identity read, the solution written) and batched torch.linalg.inv, and
-   each call of the ADI, forward and script path as
-   the American path's.
+   1M; the three sharded entries on 4 x cuda:0 at phase 3's shapes (the
+   plain shards from phase 3's one run each); K7 at the tridiag_inv shape
+   (96 x 256 systems of 256, f64 and f32, the bands and one identity read
+   in place, also behind a queued sleep) beside its plain version, its
+   byte bound (the bands and the identity read, the solution written) and
+   batched torch.linalg.inv. With ``--full``, also each user call of phase
+   5 on the closed-form, mesh and scan, American and multilevel, and ADI,
+   forward and script paths: its host-clock wall (one run above 0.3 s,
+   else the median of 3) and its device-busy share under torch.profiler
+   (the CUDA activity alone, its raw events summed; a call under 20 ms
+   repeated under the profiler to fill 20 ms).
+
+Before them one JSON line, ``{"seconds": {slice: {phase: s}}}``, gives
+the host-clock seconds of each slice in each phase (``build`` is phase 2;
+``mc`` the Monte-Carlo path's kernels K1, K2, K4 and K5), and a line gives
+the whole run's seconds beside the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 launches in phase 5, ``max_abs_err`` (the largest |price from the kernel's
@@ -365,12 +374,23 @@ entry also has its launches by (rows, systems) on the PDE path (and on
 the ADI, forward and script path, with its times, plain, bound and
 batched torch.linalg.inv at the tridiag_inv shape: ``*_tridiag_inv_*``), K8's its
 launches by method, both forms' times for calls and American puts and the
-pre-kernel's; K6's its resident blocks per SM at each shape; K1's, K4's
+pre-kernel's, and Thomas's call over ``thomas_steps`` beside its plain
+version and bound (``*_thomas_steps``; ``plain_ms_thomas`` over all 512
+steps is null without ``--full``); K6's its resident blocks per SM at
+each shape; K1's, K4's
 and K6's their sharded entry's time on 4 x cuda:0 beside its plain
 version and bound (``ms_sharded``, ``plain_ms_sharded``,
 ``bound_ms_sharded``) and phase 3's worst shard
 (``max_rel_err_sharded``). The last line is ``{"ok": true, "device":
 {...}}``.
+
+    python3 chip_smoke.py --full
+
+also runs what takes minutes and checks nothing: the plain versions
+that take seconds a call at their full size, K8 Thomas over all 512
+steps (phase 3, timed once) and K5 at 2^20 x 8 x 252 (phase 6), and the
+user calls' walls and device-busy shares of the four slices without a
+kernel of their own (phase 6), ~300 s more.
 
     python3 chip_smoke.py --ab OTHER_TREE [GROUP,...]
 
@@ -834,18 +854,22 @@ def device_busy(fn, names=None):
     """(wall ms, device-busy ms, kernels, busy ms of the kernels whose name
     ``names`` matches) of one call of ``fn`` under torch.profiler: the
     summed durations of the kernels it ran (one stream, so they do not
-    overlap) against the host clock."""
+    overlap) against the host clock. The CUDA activity alone is recorded
+    and the profiler's raw Kineto events are summed: the host's op events,
+    and turning each kernel record into a ``FunctionEvent``
+    (``prof.events()``), would cost more than the longest calls take (some
+    launch 400 000 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = timed(fn)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    matched = sum(e.time_range.elapsed_us() for e in kernels
-                  if names is not None and names.search(e.name)) / 1e3
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in kernels) / 1e6
+    matched = sum(e.duration_ns() for e in kernels
+                  if names is not None and names.search(e.name())) / 1e6
     return wall * 1e3, busy, len(kernels), matched
 
 
@@ -861,11 +885,40 @@ def check_price(label, price, se, ref, seconds=None, slack=1e-4,
                              f"4 se + {slack}")
 
 
-def run_cli(args):
-    cmd = [sys.executable, "-m", "optpricer_tpu_torch.cli", *args]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         check=True, timeout=600)
-    return out.stdout.strip()
+def start_cli(args, module="optpricer_tpu_torch.cli") -> subprocess.Popen:
+    """The port's CLI (or another of its modules) with ``args`` as a
+    subprocess, started now: a slice starts its CLIs when it starts and
+    reads them (:func:`cli_output`) at the checks, so their start-up
+    overlaps the slice's own work."""
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def cli_output(proc: subprocess.Popen) -> str:
+    """The stripped standard output of a :func:`start_cli` subprocess,
+    which must exit 0."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(proc.args[3:])} exited "
+                             f"{proc.returncode}: {err.strip()[-2000:]}")
+    return out.strip()
+
+
+class PhaseClock:
+    """Host-clock seconds of each slice in each phase: ``lap(slice,
+    phase)`` adds the seconds since the previous lap to ``seconds[slice]
+    [phase]``."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.last = time.perf_counter()
+
+    def lap(self, slice_name: str, phase: str):
+        now = time.perf_counter()
+        by_phase = self.seconds.setdefault(slice_name, {})
+        by_phase[phase] = by_phase.get(phase, 0.0) + now - self.last
+        self.last = now
 
 
 class PdeSlice:
@@ -880,14 +933,19 @@ class PdeSlice:
     K7_SHAPE = (511, 1024)
     GRID4 = dict(N_S=512, N_t=256)  # BASELINE config 4
     CRR_STEPS = 4000
+    # the plain Thomas march is ~10^4 small launches a step: phase 3 holds
+    # it to the kernel at the ladder's full width over this many steps
+    # (all N_T with ``full``)
+    THOMAS_STEPS = 32
 
-    def __init__(self, dev, card):
+    def __init__(self, dev, card, full=False):
         self.dev, self.card = dev, card
         self.strikes = torch.linspace(70.0, 130.0,
                                       self.N_STRIKES).double().numpy()
         self.wall = {}
         self.k7_bytes = {}
-        self.plain_thomas_ms = None
+        self.thomas_steps = self.N_T if full else self.THOMAS_STEPS
+        self.plain_ms = {}   # method -> phase 3's plain European call, ms
 
     # -- inputs ----------------------------------------------------------
     def k7_system(self, n, batch, dtype, shared=False, seed=0,
@@ -1023,17 +1081,19 @@ class PdeSlice:
                 raise AssertionError(f"fd_lv plan {method}: kernel and plain "
                                      f"plans differ (max {gap:.3e})")
 
-        # both methods at the ladder's full 512 steps; the plain Thomas
-        # march (~5·10^6 small launches) is timed once on the European
-        # call; a ragged ladder of 1 025 strikes, calls and puts mixed, and
-        # PCR's largest grid, 1 024 rows; Thomas's ragged ladder at 32
-        # steps (its plain march is a Python loop over rows and steps)
+        # PCR at the ladder's full 512 steps; Thomas at the ladder's full
+        # width over THOMAS_STEPS steps (its plain march is a Python loop
+        # over rows and steps: 53 s at 512); each plain European call is
+        # timed here once, for phase 6; a ragged ladder of 1 025 strikes,
+        # calls and puts mixed, and PCR's largest grid, 1 024 rows;
+        # Thomas's ragged ladder at 32 steps
         ragged = torch.linspace(70.0, 130.0, 1025).double().numpy()
         mixed = (torch.arange(ragged.size) % 2 == 0).numpy()
+        thomas = dict(N_t=self.thomas_steps)
         k8_cases = [(kind, am, "pcr", {}) for kind in ("call", "put")
                     for am in (False, True)]
-        k8_cases += [("call", False, "thomas", {}),
-                     ("put", True, "thomas", {}),
+        k8_cases += [("call", False, "thomas", thomas),
+                     ("put", True, "thomas", thomas),
                      (mixed, True, "pcr", dict(strikes=ragged)),
                      ("put", True, "pcr", dict(N_S=1025)),
                      (mixed, True, "thomas", dict(strikes=ragged, N_t=32))]
@@ -1047,8 +1107,9 @@ class PdeSlice:
             p = flv._fd_lv_plain(*ops, tab, **kw)
             end.record()
             end.synchronize()
-            if method == "thomas" and not am and not shape:  # the call
-                self.plain_thomas_ms = start.elapsed_time(end)
+            if isinstance(kind, str) and kind == "call" and not am:
+                # the European call ladder, timed for phase 6
+                self.plain_ms[method] = start.elapsed_time(end)
             dprice = float(abs(prices(k) - prices(p)).max())
             label = kind if isinstance(kind, str) else "calls and puts"
             case = (f"{method} {label} american={am} {k.shape[1]} x "
@@ -1112,6 +1173,10 @@ class PdeSlice:
         flv.fd_lv.launches_by_method = dict.fromkeys(flv.METHODS, 0)
         print("phase 5 main path, PDE:")
         t0 = time.perf_counter()
+        fd_cli = start_cli([
+            "fd", "--S0", "100", "--K", "100", "--T", "1", "--r", "0.05",
+            "--sigma", "0.2", "--N-S", str(grid4["N_S"]), "--N-t",
+            str(grid4["N_t"]), "--american", "--kind", "put"])
         spec4 = tp.OptionSpec(S0=100.0, K=100.0, T=1.0, r=0.05, sigma=0.2)
         bs4 = {k: tp.bs_price(spec4, k, device=dev) for k in ("call", "put")}
         delta4 = float(tp.bs_greeks_vec(100.0, 100.0, 1.0, 0.05, 0.0, 0.2,
@@ -1214,10 +1279,7 @@ class PdeSlice:
             if rel > 1e-4:
                 raise AssertionError(f"ladder {label} vs float64: {rel:.3e}")
 
-        flags = ["--S0", "100", "--K", "100", "--T", "1", "--r", "0.05",
-                 "--sigma", "0.2", "--N-S", str(grid4["N_S"]), "--N-t",
-                 str(grid4["N_t"]), "--american", "--kind", "put"]
-        out_fd = run_cli(["fd", *flags])
+        out_fd = cli_output(fd_cli)
         proj = tp.fd_price(spec4, "put", american=True, **grid4, device=dev)
         if out_fd != f"{proj:.10f}":
             raise AssertionError(f"cli fd {out_fd!r} vs {proj:.10f}")
@@ -1306,10 +1368,15 @@ class PdeSlice:
                                           "method")}
             times[("k8 plan", method)] = cuda_ms(
                 lambda: flv.fd_lv_plan(ops[0], tab, **plan_kw))
-            if method == "pcr":   # the European calls
-                times[("k8plain", method)] = cuda_ms(
-                    lambda: flv._fd_lv_plain(*ops, tab, **kw), reps=1)
-        times[("k8plain", "thomas")] = self.plain_thomas_ms
+        # the plain European calls: phase 3's one run each, Thomas's over
+        # thomas_steps, beside the kernel over as many
+        times[("k8plain", "pcr")] = self.plain_ms["pcr"]
+        steps = f"thomas {self.thomas_steps} steps"
+        times[("k8plain", steps)] = self.plain_ms["thomas"]
+        ops, tab, kw, _ = self.k8_setup("call", False, "thomas",
+                                        N_t=self.thomas_steps)
+        times[("k8 call", steps)] = cuda_ms(lambda: flv.fd_lv(*ops, tab,
+                                                              **kw))
         for solver in ("auto", "fused", "fused_thomas"):
             times[(f"ladder {solver}", "call")] = cuda_ms(
                 lambda: self.ladder(solver), reps=3)
@@ -1425,7 +1492,22 @@ class PdeSlice:
              "ms_thomas": times[("k8 call", "thomas")],
              "bound_ms_thomas": bound(ops_k8_ladder(B, m, self.N_T),
                                       k8_bytes)[0],
-             "plain_ms_thomas": times[("k8plain", "thomas")],
+             # the plain Thomas march over all N_T steps only with
+             # --full (53 s a call); always over thomas_steps
+             "plain_ms_thomas": times[("k8plain", f"thomas {self.N_T} "
+                                                  "steps")]
+             if self.thomas_steps == self.N_T else None,
+             "thomas_steps": self.thomas_steps,
+             "ms_thomas_steps": times[("k8 call", f"thomas "
+                                                  f"{self.thomas_steps} "
+                                                  "steps")],
+             "plain_ms_thomas_steps": times[("k8plain", f"thomas "
+                                                        f"{self.thomas_steps}"
+                                                        " steps")],
+             "bound_ms_thomas_steps": bound(
+                 ops_k8_ladder(B, m, self.thomas_steps),
+                 4 * (self.thomas_steps * (m + 1) + (m + 1) * B + 2 * B
+                      + 6))[0],
              "ms_american_put": times[("k8 american put", "pcr")],
              "ms_thomas_american_put": times[("k8 american put", "thomas")],
              "bound_ms_american_put": bound(ops_k8_ladder(
@@ -1661,7 +1743,9 @@ class Config5Slice:
             for anti in (True, False):
                 ops, kw, book = self.k3(n_paths, anti)
                 k = tmb.mc_batch(*ops, **kw)
-                p = tmb._mc_batch_plain(*ops, **kw)
+                p, ms = event_ms(lambda: tmb._mc_batch_plain(*ops, **kw))
+                if n_paths == 1 << 20 and anti:    # phase 6's shape
+                    self.plain_ms["k3"] = ms
                 case = (f"book {self.BOOK_SIZE} contracts x {n_paths} paths "
                         f"anti={anti}")
                 rows = [t.transpose(1, 2).reshape(-1, tmb.NSTAT)
@@ -1892,8 +1976,8 @@ class Config5Slice:
         ops, kw, _ = self.k3(1 << 20, True)
         times[("k3", "1000 x 2^20")] = cuda_ms(lambda: tmb.mc_batch(*ops,
                                                                      **kw))
-        times[("k3plain", "1000 x 2^20")] = cuda_ms(
-            lambda: tmb._mc_batch_plain(*ops, **kw), reps=1)
+        # one call, in phase 3
+        times[("k3plain", "1000 x 2^20")] = self.plain_ms["k3"]
         for what in ("k4 lv_milstein", "k4 lv_euler", "k4plain lv_milstein"):
             print(f"phase 6 time {what} 200000 x 500: "
                   f"{times[(what, '200000 x 500')]:.4f} ms [{self.card}]")
@@ -2300,6 +2384,13 @@ class MultiAssetLsvSlice:
         tbk.basket_mc.launches = 0
         t0 = time.perf_counter()
         S0s, w, K, sig, corr = self.book()
+        flags = ["--S0s", ",".join(repr(float(v)) for v in S0s), "--sigmas",
+                 ",".join(repr(float(v)) for v in sig), "--rho", "0.35", "--K",
+                 repr(K), "--T", "1", "--r", "0.03", "--payoff",
+                 "asian_basket", "--n-steps", str(self.BASKET["n_steps"]),
+                 "--n-paths", str(self.BASKET["n_paths"]), "--seed",
+                 str(self.BASKET["seed"])]
+        basket_cli = start_cli(["basket", *flags])
         kw = dict(sigmas=sig, corr=corr, payoff="asian_basket",
                   n_steps=self.BASKET["n_steps"],
                   n_paths=self.BASKET["n_paths"], seed=self.BASKET["seed"],
@@ -2387,13 +2478,7 @@ class MultiAssetLsvSlice:
         if abs(g["delta"][0] - ref["delta"]) > 3e-3 \
                 or abs(g["vega"][0] - ref["vega"]) > 0.3:
             raise AssertionError("basket_greeks_mc off the BS bands")
-        flags = ["--S0s", ",".join(repr(float(v)) for v in S0s), "--sigmas",
-                 ",".join(repr(float(v)) for v in sig), "--rho", "0.35", "--K",
-                 repr(K), "--T", "1", "--r", "0.03", "--payoff",
-                 "asian_basket", "--n-steps", str(self.BASKET["n_steps"]),
-                 "--n-paths", str(self.BASKET["n_paths"]), "--seed",
-                 str(self.BASKET["seed"])]
-        out = run_cli(["basket", *flags])
+        out = cli_output(basket_cli)
         px, se = tp.basket_exotic_mc(S0s, w, K, 1.0, 0.03, **kw)
         if out != f"{px:.10f}  (stderr {se:.10f})":
             raise AssertionError(f"cli basket {out!r} vs {px:.10f} {se:.10f}")
@@ -2410,6 +2495,15 @@ class MultiAssetLsvSlice:
         pmc.path_mc.launches = 0
         t0 = time.perf_counter()
         surf = self.surface()
+        tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+        surf_path = str(Path(tmp.name) / "surface.json")
+        model_path = str(Path(tmp.name) / "lsv.json")
+        sz.save_surface(surf, surf_path)
+        lsv_cli = start_cli([
+            "lsv", "--S0", "100", "--K", "100", "--T", "1", "--r", "0.03",
+            "--sigma", "0.2", "--n-steps", "64", "--n-paths", "262144",
+            "--seed", "0", "--surface", surf_path, "--save-model",
+            model_path])
         iv = float(surf.iv_from_logm(math.log(100.0 / (100.0 * math.exp(
             0.03))), 1.0))
         bs = tp.bs_price(tp.OptionSpec(100.0, 100.0, 1.0, 0.03, iv), "call",
@@ -2460,15 +2554,8 @@ class MultiAssetLsvSlice:
               f"{g['d_v0']:.6f}")
         if not abs(g["delta"] - fd) <= band:
             raise AssertionError("lsv_greeks_mc delta off the CRN bump")
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            surf_path = str(Path(tmp) / "surface.json")
-            model_path = str(Path(tmp) / "lsv.json")
-            sz.save_surface(surf, surf_path)
-            flags = ["--S0", "100", "--K", "100", "--T", "1", "--r", "0.03",
-                     "--sigma", "0.2", "--n-steps", "64", "--n-paths",
-                     "262144", "--seed", "0"]
-            out = run_cli(["lsv", *flags, "--surface", surf_path,
-                           "--save-model", model_path])
+        with tmp:
+            out = cli_output(lsv_cli)
             cli_model = tp.lsv_calibrate(
                 surf, self.HESTON, 100.0, 0.03, 0.0, T=1.0, n_steps=64,
                 n_paths=65_536, n_bins=128, seed=0, device=dev)
@@ -2912,46 +2999,46 @@ class ClosedFormSlice:
                 or not mem[0]["bytes_limit"] > 0:
             raise AssertionError(f"device_memory: {mem}")
 
-    def cli(self):
-        """The five subcommands as subprocesses, started together, each
-        against the same call in-process."""
+    CLI_MARKET = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.03",
+                  "--sigma", "0.2"]
+    CLI_FLAGS = {"heston": ["--lam", "0.3", "--mJ", "-0.1", "--sJ", "0.15"],
+                 "american": ["--kind", "put"],
+                 "barrier": ["--lower", "80", "--upper", "130", "--engine",
+                             "fd"],
+                 "lookback": [], "levy": ["--model", "nig"]}
+
+    def start_clis(self) -> dict:
+        """The five subcommands as subprocesses, started together when the
+        slice starts."""
+        return {name: start_cli([name, *self.CLI_MARKET, *extra])
+                for name, extra in self.CLI_FLAGS.items()}
+
+    def cli(self, procs):
+        """Each subcommand's output against the same call in-process."""
         import optpricer_tpu_torch as tp
 
-        market = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.03",
-                  "--sigma", "0.2"]
         cases = {
-            "heston": (["--lam", "0.3", "--mJ", "-0.1", "--sJ", "0.15"],
-                       lambda: tp.bates_price_cos(
-                           100.0, 110.0, 1.0, 0.03, 0.0, v0=0.04, kappa=1.5,
-                           theta=0.04, xi=0.4, rho=-0.6, lam=0.3, mJ=-0.1,
-                           sJ=0.15, device=self.dev)),
-            "american": (["--kind", "put"],
-                         lambda: tp.bjerksund_stensland_price(
-                             100.0, 110.0, 1.0, 0.03, 0.0, sigma=0.2,
-                             kind="put", device=self.dev)),
-            "barrier": (["--lower", "80", "--upper", "130", "--engine", "fd"],
-                        lambda: tp.fd_price_double_barrier(
-                            tp.OptionSpec(100.0, 110.0, 1.0, 0.03, 0.2),
-                            "call", lower=80.0, upper=130.0, N_S=400,
-                            N_t=400, device=self.dev)),
-            "lookback": ([], lambda: tp.lookback_price_bs(
-                100.0, 1.0, 0.03, 0.0, sigma=0.2, K=110.0, device=self.dev)),
-            "levy": (["--model", "nig"], lambda: tp.nig_price_cos(
-                100.0, 110.0, 1.0, 0.03, 0.0, **self.NIG, device=self.dev)),
+            "heston": lambda: tp.bates_price_cos(
+                100.0, 110.0, 1.0, 0.03, 0.0, v0=0.04, kappa=1.5, theta=0.04,
+                xi=0.4, rho=-0.6, lam=0.3, mJ=-0.1, sJ=0.15, device=self.dev),
+            "american": lambda: tp.bjerksund_stensland_price(
+                100.0, 110.0, 1.0, 0.03, 0.0, sigma=0.2, kind="put",
+                device=self.dev),
+            "barrier": lambda: tp.fd_price_double_barrier(
+                tp.OptionSpec(100.0, 110.0, 1.0, 0.03, 0.2), "call",
+                lower=80.0, upper=130.0, N_S=400, N_t=400, device=self.dev),
+            "lookback": lambda: tp.lookback_price_bs(
+                100.0, 1.0, 0.03, 0.0, sigma=0.2, K=110.0, device=self.dev),
+            "levy": lambda: tp.nig_price_cos(
+                100.0, 110.0, 1.0, 0.03, 0.0, **self.NIG, device=self.dev),
         }
-        procs = {name: subprocess.Popen(
-            [sys.executable, "-m", "optpricer_tpu_torch.cli", name, *market,
-             *extra], cwd=ROOT, stdout=subprocess.PIPE, text=True)
-            for name, (extra, _) in cases.items()}
         lines = []
         for name, proc in procs.items():
-            out, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"cli {name} exited {proc.returncode}")
-            want = f"{float(cases[name][1]()):.10f}"
-            if out.strip() != want:
-                raise AssertionError(f"cli {name} {out.strip()!r} vs {want}")
-            lines.append(f"{name} {' '.join(cases[name][0])} {want}")
+            out = cli_output(proc)
+            want = f"{float(cases[name]()):.10f}"
+            if out != want:
+                raise AssertionError(f"cli {name} {out!r} vs {want}")
+            lines.append(f"{name} {' '.join(self.CLI_FLAGS[name])} {want}")
         print("  cli (subprocesses, each equal to the call in-process): "
               + " | ".join(lines))
 
@@ -2968,12 +3055,13 @@ class ClosedFormSlice:
         print("phase 5 main path, closed forms (COS, analytic Americans, "
               "Lévy, validation, profiling):")
         t0 = time.perf_counter()
+        procs = self.start_clis()
         self.heston()
         self.american()
         self.levy()
         self.validation()
         self.profiling()
-        self.cli()
+        self.cli(procs)
         launches = {name: fn.launches for name, fn in fns.items()}
         print(f"  closed-form path {time.perf_counter() - t0:.2f} s; "
               f"launches in this process: {launches}")
@@ -2984,40 +3072,10 @@ class ClosedFormSlice:
         return launches
 
     # -- phase 6 ---------------------------------------------------------
-    @staticmethod
-    def kernel_busy(fn):
-        """(summed kernel ms, kernels) of one call of ``fn`` under
-        torch.profiler, recording the CUDA activity alone and summing the
-        profiler's raw Kineto events: the host's op events, and turning
-        each event into a Python ``FunctionEvent`` (``prof.events()``),
-        would cost more than the longest calls here take (some launch
-        400 000 kernels)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e.duration_ns()
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA]
-        return sum(kernels) / 1e6, len(kernels)
-
-    def phase6(self):
-        """Each call's host-clock wall (median of 3 after a warm-up; one
-        run for a call of more than a second, phase 5's call its warm-up)
-        and, from one more run under torch.profiler, the time its kernels
-        kept the device busy and that time's share of the wall."""
-        t0 = time.perf_counter()
-        for label, fn in self.calls.items():
-            _, first = timed(fn)
-            wall = first * 1e3 if first > 1.0 else wall_ms(fn, reps=3)
-            busy, n_kernels = self.kernel_busy(fn)
-            print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
-                  f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
-                  f"{n_kernels} kernels) [{self.card}]")
-        print(f"phase 6 closed forms {time.perf_counter() - t0:.2f} s")
+    def phase6(self, full):
+        """With ``full``, each call's wall and device-busy share
+        (:func:`user_call_walls`)."""
+        user_call_walls("closed forms", self.calls, self.card, full)
 
 
 class MeshScanSlice:
@@ -3054,8 +3112,8 @@ class MeshScanSlice:
     def shard_cases(self, mesh):
         """[(kernel name, case, [(kernel stats, plain stats)] a shard, the
         entry's result, signed stats, the entry's call, the plain shards'
-        ordered sum as one call, (bound ms, bound by))] at the shapes
-        phase 5 runs."""
+        milliseconds summed, (bound ms, bound by))] at the shapes phase 5
+        runs."""
         import numpy as np
 
         from optpricer_tpu_torch.ops import basket_mc as tbk
@@ -3065,24 +3123,23 @@ class MeshScanSlice:
         dev = mesh.device_list[0]
 
         def shards(kernel, plain, seed, params, per_rep, n):
-            """The shard pairs, and the plain shards' ordered sum."""
+            """The shard pairs, and the plain shards' milliseconds (CUDA
+            events, one run each) summed."""
             reps, per, offs = tmc._shard_plan(mesh, n, per_rep)
             seeds = [tmc._seed_pair(seed, dev, off) for _, off in offs]
             kw = dict(n_programs=per, reps=reps)
-            pairs = [(kernel(sd, params, **kw), plain(sd, params, **kw))
-                     for sd in seeds]
-
-            def plain_sum():
-                total = plain(seeds[0], params, **kw)
-                for sd in seeds[1:]:
-                    total = total + plain(sd, params, **kw)
-                return total
-            return pairs, plain_sum
+            pairs, plain_ms = [], 0.0
+            for sd in seeds:
+                k = kernel(sd, params, **kw)
+                p, ms = event_ms(lambda: plain(sd, params, **kw))
+                pairs.append((k, p))
+                plain_ms += ms
+            return pairs, plain_ms
 
         out = []
         n1 = 1 << 24                             # K1-m: 2^24 draws
         params1 = tmc._terminal_params(n1, *MARKET, True).to(dev)
-        pairs, plain_sum = shards(
+        pairs, plain_ms = shards(
             lambda sd, p, **kw: tmc.terminal_mc(sd, p, antithetic=True, **kw),
             lambda sd, p, **kw: tmc._mc_sumstats_plain(sd, p, antithetic=True,
                                                        **kw),
@@ -3090,7 +3147,7 @@ class MeshScanSlice:
         entry1 = lambda: tmc.mc_sumstats_kernel_sharded(  # noqa: E731
             mesh, 7, n1, *MARKET, True, antithetic=True)
         out.append(("terminal_mc_kernel", "K1-m 2^24 call antithetic", pairs,
-                    entry1(), (), entry1, plain_sum,
+                    entry1(), (), entry1, plain_ms,
                     bound(n1 * OPS_K1_DRAW, 36 * len(pairs))))
         n4, steps4 = 1 << 20, 252                # K4-m: config 3's asian
         host4, static4 = pmc._resolve_config(
@@ -3098,7 +3155,7 @@ class MeshScanSlice:
             0.0, "arithmetic", "fixed", 1.0, None, "log_euler", 0.01, None,
             None, False, None)
         static4.pop("svi")
-        pairs, plain_sum = shards(
+        pairs, plain_ms = shards(
             lambda sd, p, **kw: pmc.path_mc(sd, p, with_greeks=True,
                                             **static4, **kw),
             lambda sd, p, **kw: pmc._path_mc_plain(sd, p, with_greeks=True,
@@ -3108,7 +3165,7 @@ class MeshScanSlice:
             mesh, 11, n4, steps4, *MARKET, True, payoff="asian",
             antithetic=True, greek_stats=True)
         out.append(("path_mc_kernel", "K4-m asian 2^20 x 252 greek_stats",
-                    pairs, entry4(), K4_SIGNED, entry4, plain_sum,
+                    pairs, entry4(), K4_SIGNED, entry4, plain_ms,
                     bound(n4 * steps4 * ops_k4_path_step(True, True),
                           188 * len(pairs))))
         S0s, w, K, sig, corr = self.multi.book()  # K6-m: [basket-path]
@@ -3117,7 +3174,7 @@ class MeshScanSlice:
                  "down-and-in", 0.0)
         host6, static6 = tbk._entry_config(*args6)
         a = static6["n_assets"]
-        pairs, plain_sum = shards(
+        pairs, plain_ms = shards(
             lambda sd, p, **kw: tbk.basket_mc(sd, p, antithetic=True,
                                               host_params=host6, **static6,
                                               **kw),
@@ -3127,7 +3184,7 @@ class MeshScanSlice:
         entry6 = lambda: tbk.basket_path_sumstats_kernel_sharded(  # noqa: E731
             mesh, 3, *args6[:11], payoff="asian_basket", antithetic=True)
         out.append(("basket_mc_kernel", "K6-m [basket-path] 2^18 x 64",
-                    pairs, entry6(), (), entry6, plain_sum,
+                    pairs, entry6(), (), entry6, plain_ms,
                     bound(args6[0] * args6[1] * ops_k6_path_step(a, True,
                                                                   False),
                           len(pairs) * (8 + 4 * (7 + 4 * a + a * a)
@@ -3140,7 +3197,7 @@ class MeshScanSlice:
         kernel stats added in mesh order."""
         self.timed_entries = {}
         for label, mesh in self.meshes().items():
-            for name, case, pairs, result, signed, entry, plain_sum, bnd \
+            for name, case, pairs, result, signed, entry, plain_ms, bnd \
                     in self.shard_cases(mesh):
                 rel = max(compare(k, p, f"{case} [{label}] shard {i}",
                                   signed=signed)
@@ -3155,7 +3212,7 @@ class MeshScanSlice:
                                        (rel, f"{case} [{label}]"))
                 if label.startswith("4 x"):
                     self.timed_entries[name] = (f"{case} [{label}]", entry,
-                                                plain_sum, bnd)
+                                                plain_ms, bnd)
                 print(f"phase 3 {case} on {label}: {len(pairs)} shards, "
                       f"each kernel vs plain max rel err {rel:.3e} (rtol "
                       f"{RTOL}); the entry = the ordered sum, bit for bit")
@@ -3550,20 +3607,16 @@ class MeshScanSlice:
         return launches
 
     # -- phase 6 ---------------------------------------------------------
-    def phase6(self):
+    def phase6(self, full):
         """The sharded entries' times (CUDA events, median of 5; the plain
-        shards' ordered sum once, phase 3's run its warm-up: up to 8 s a
-        call) beside their bounds; each call's wall (median of 3 after a
-        warm-up; one run for a call of more than 0.3 s, phase 5's call its
-        warm-up) and its device-busy share under torch.profiler (the CUDA
-        activity alone; a call of under 20 ms repeated to fill 20 ms, the
-        busy time per call, since CUPTI can drop the records of a window of
-        a millisecond)."""
+        shards' summed from phase 3's one run each: up to 6 s a call)
+        beside their bounds; with ``full``, each call's wall and
+        device-busy share (:func:`user_call_walls`)."""
         t0 = time.perf_counter()
         self.times = {}
-        for name, (case, entry, plain_sum, bnd) in \
+        for name, (case, entry, plain_ms, bnd) in \
                 self.timed_entries.items():
-            ms, plain_ms = cuda_ms(entry), event_ms(plain_sum)[1]
+            ms = cuda_ms(entry)
             self.times[name] = dict(
                 ms_sharded=ms, plain_ms_sharded=plain_ms,
                 bound_ms_sharded=bnd[0], bound_by_sharded=bnd[1],
@@ -3571,20 +3624,7 @@ class MeshScanSlice:
             print(f"phase 6 time {case}: {ms:.4f} ms (plain shards "
                   f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}) "
                   f"[{self.card}]")
-        for label, fn in self.calls.items():
-            _, first = timed(fn)
-            wall = first * 1e3 if first > 0.3 else wall_ms(fn, reps=3)
-            reps = max(1, min(50, int(20.0 / wall)))
-
-            def repeated(fn=fn, reps=reps):
-                for _ in range(reps):
-                    fn()
-            busy, n_kernels = ClosedFormSlice.kernel_busy(repeated)
-            busy, n_kernels = busy / reps, n_kernels / reps
-            print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
-                  f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
-                  f"{n_kernels:.0f} kernels, {reps} calls profiled) "
-                  f"[{self.card}]")
+        user_call_walls("mesh and scan", self.calls, self.card, full)
         print(f"phase 6 mesh and scan {time.perf_counter() - t0:.2f} s")
 
 
@@ -4213,53 +4253,53 @@ class AmericanMlmcSlice:
               f"paths): {launches} kernel launches and no synchronize "
               f"call inside its span")
 
-    def cli(self):
-        """lsmc, mlmc and basket --american as subprocesses started
-        together, each equal to the same call in-process."""
+    CLI_MARKET = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.05",
+                  "--sigma", "0.25"]
+    CLI_ARGS = {
+        "lsmc": ["lsmc", *CLI_MARKET, "--kind", "put", "--n-paths", "100000",
+                 "--n-steps", "50", "--seed", "3"],
+        "mlmc": ["mlmc", *CLI_MARKET, "--payoff", "barrier", "--barrier",
+                 "130", "--eps", "0.02", "--seed", "7"],
+        "basket --american": [
+            "basket", "--S0s", "100,95,105", "--sigmas", "0.2,0.3,0.25",
+            "--K", "100", "--T", "1", "--r", "0.03", "--payoff",
+            "rainbow_max", "--n-steps", "16", "--n-paths", "100000",
+            "--seed", "4", "--american"],
+    }
+
+    def start_clis(self) -> dict:
+        """lsmc, mlmc and basket --american as subprocesses, started
+        together when the slice starts."""
+        return {name: start_cli(args) for name, args in self.CLI_ARGS.items()}
+
+    def cli(self, procs):
+        """Each subprocess's output equal to the same call in-process."""
         import numpy as np
 
         import optpricer_tpu_torch as tp
 
         dev = self.dev
-        market = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.05",
-                  "--sigma", "0.25"]
         corr = 0.3 * np.ones((3, 3)) + 0.7 * np.eye(3)
         cases = {
-            "lsmc": (["lsmc", *market, "--kind", "put", "--n-paths",
-                      "100000", "--n-steps", "50", "--seed", "3"],
-                     lambda: tp.lsmc_price(
-                         tp.OptionSpec(100.0, 110.0, 1.0, 0.05, 0.25),
-                         "put", n_paths=100_000, n_steps=50, seed=3,
-                         device=dev)),
-            "mlmc": (["mlmc", *market, "--payoff", "barrier", "--barrier",
-                      "130", "--eps", "0.02", "--seed", "7"],
-                     lambda: tp.mlmc_price(
-                         "barrier", 100.0, 110.0, 1.0, 0.05, sigma=0.25,
-                         eps=0.02, seed=7, barrier=130.0, device=dev)),
-            "basket --american": (
-                ["basket", "--S0s", "100,95,105", "--sigmas",
-                 "0.2,0.3,0.25", "--K", "100", "--T", "1", "--r", "0.03",
-                 "--payoff", "rainbow_max", "--n-steps", "16", "--n-paths",
-                 "100000", "--seed", "4", "--american"],
-                lambda: tp.lsmc_price_basket(
-                    [100.0, 95.0, 105.0], [1 / 3] * 3, 100.0, 1.0, 0.03,
-                    None, sigmas=[0.2, 0.3, 0.25], corr=corr, kind="call",
-                    payoff="rainbow_max", n_paths=100_000, n_steps=16,
-                    seed=4, device=dev)),
+            "lsmc": lambda: tp.lsmc_price(
+                tp.OptionSpec(100.0, 110.0, 1.0, 0.05, 0.25), "put",
+                n_paths=100_000, n_steps=50, seed=3, device=dev),
+            "mlmc": lambda: tp.mlmc_price(
+                "barrier", 100.0, 110.0, 1.0, 0.05, sigma=0.25, eps=0.02,
+                seed=7, barrier=130.0, device=dev),
+            "basket --american": lambda: tp.lsmc_price_basket(
+                [100.0, 95.0, 105.0], [1 / 3] * 3, 100.0, 1.0, 0.03, None,
+                sigmas=[0.2, 0.3, 0.25], corr=corr, kind="call",
+                payoff="rainbow_max", n_paths=100_000, n_steps=16, seed=4,
+                device=dev),
         }
-        procs = {name: subprocess.Popen(
-            [sys.executable, "-m", "optpricer_tpu_torch.cli", *args],
-            cwd=ROOT, stdout=subprocess.PIPE, text=True)
-            for name, (args, _) in cases.items()}
         lines = []
         for name, proc in procs.items():
-            out, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"cli {name} exited {proc.returncode}")
-            px, se = cases[name][1]()
+            out = cli_output(proc)
+            px, se = cases[name]()
             want = f"{px:.10f}  (stderr {se:.10f})"
-            if out.strip() != want:
-                raise AssertionError(f"cli {name} {out.strip()!r} vs {want}")
+            if out != want:
+                raise AssertionError(f"cli {name} {out!r} vs {want}")
             lines.append(f"{name} {want}")
         print("  cli (subprocesses, each equal to the call in-process): "
               + " | ".join(lines))
@@ -4284,6 +4324,7 @@ class AmericanMlmcSlice:
         print("phase 5 main path, American and multilevel Monte Carlo (LSMC, "
               "the dual bounds, the ladder, the basket, MLMC, the mesh):")
         t0 = time.perf_counter()
+        procs = self.start_clis()
         self.ladder()
         self.bracket()
         self.heston()
@@ -4292,26 +4333,31 @@ class AmericanMlmcSlice:
         self.mlmc()
         self.mesh()
         self.cores()
-        self.cli()
+        self.cli(procs)
         launches = {name: fn.launches for name, fn in fns.items()}
         print(f"  American and MLMC path {time.perf_counter() - t0:.2f} s; "
               f"kernel launches in this process (the slice runs none of its "
               f"own): {launches}")
         return launches
 
-    def phase6(self):
-        """Each call's host-clock wall and device-busy share
+    def phase6(self, full):
+        """With ``full``, each call's wall and device-busy share
         (:func:`user_call_walls`)."""
-        t0 = time.perf_counter()
-        user_call_walls(self.calls, self.card)
-        print(f"phase 6 American and MLMC {time.perf_counter() - t0:.2f} s")
+        user_call_walls("American and MLMC", self.calls, self.card, full)
 
 
-def user_call_walls(calls: dict, card: str):
-    """Print each call's host-clock wall (phase 5's run is its warm-up; one
-    run above 0.3 s, else the median of 3) and its device-busy share under
-    torch.profiler (the CUDA activity alone; a call of under 20 ms repeated
-    to fill 20 ms)."""
+def user_call_walls(what: str, calls: dict, card: str, full: bool):
+    """With ``full``, print each call's host-clock wall (phase 5's run is
+    its warm-up; one run above 0.3 s, else the median of 3) and its
+    device-busy share under torch.profiler (the CUDA activity alone; a call
+    of under 20 ms repeated to fill 20 ms, the busy time per call, since
+    CUPTI can drop the records of a window of a millisecond); without it,
+    one line saying so (these calls' walls take minutes)."""
+    if not full:
+        print(f"phase 6 {what}: {len(calls)} user calls' walls and "
+              "device-busy shares with --full")
+        return
+    t0 = time.perf_counter()
     for label, fn in calls.items():
         _, first = timed(fn)
         wall = first * 1e3 if first > 0.3 else wall_ms(fn, reps=3)
@@ -4320,11 +4366,12 @@ def user_call_walls(calls: dict, card: str):
         def repeated(fn=fn, reps=reps):
             for _ in range(reps):
                 fn()
-        busy, n_kernels = ClosedFormSlice.kernel_busy(repeated)
+        _, busy, n_kernels, _ = device_busy(repeated)
         busy, n_kernels = busy / reps, n_kernels / reps
         print(f"phase 6 wall {label}: {wall:.4f} ms, device busy "
               f"{busy:.4f} ms ({100.0 * busy / wall:.1f}%, "
               f"{n_kernels:.0f} kernels, {reps} calls profiled) [{card}]")
+    print(f"phase 6 {what} {time.perf_counter() - t0:.2f} s")
 
 def quiet(fn):
     """``fn`` with its standard output discarded (the scripts' report
@@ -4825,10 +4872,9 @@ class AdiForwardSlice:
             writer.writerows(rows)
         out = Path(tmp) / "prices.json"
         # the module as a subprocess, read in cli() with the CLI's
-        self.procs["price_book"] = (subprocess.Popen(
-            [sys.executable, "-m", "optpricer_tpu_torch.scripts.price_book",
-             "--input", str(book), "--output", str(out), "--device",
-             dev.type], cwd=ROOT, stdout=subprocess.DEVNULL),
+        self.procs["price_book"] = (start_cli(
+            ["--input", str(book), "--output", str(out), "--device",
+             dev.type], "optpricer_tpu_torch.scripts.price_book"),
             lambda _: self.book_matches(json.loads(out.read_text()), card))
         quotes = Path(tmp) / "quotes.csv"
         with open(quotes, "w") as f:
@@ -4880,7 +4926,7 @@ class AdiForwardSlice:
             "price_book subprocess differs from the call")
         return "price_book = the call"
 
-    def start_cli(self):
+    def start_subprocesses(self):
         """Start heston --american and varswap --mc as subprocesses (read
         by :meth:`cli`), each to be held to the same call in-process."""
         dev = self.dev
@@ -4892,10 +4938,8 @@ class AdiForwardSlice:
                 ("varswap", ["varswap", "--S0", "100", "--T", "1", "--r",
                              "0.03", "--v0", "0.04", "--mc", "--seed",
                              "1"])):
-            self.procs[name] = (subprocess.Popen(
-                [sys.executable, "-m", "optpricer_tpu_torch.cli", *args,
-                 "--device", dev.type], cwd=ROOT, stdout=subprocess.PIPE,
-                text=True), getattr(self, f"{name}_line"))
+            self.procs[name] = (start_cli([*args, "--device", dev.type]),
+                                getattr(self, f"{name}_line"))
 
     def heston_line(self, out):
         import optpricer_tpu_torch as tp
@@ -4917,12 +4961,8 @@ class AdiForwardSlice:
     def cli(self):
         """The subprocesses (the CLI's heston --american and varswap --mc,
         the price_book module), each equal to the same call in-process."""
-        lines = []
-        for name, (proc, check) in self.procs.items():
-            out, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"{name} exited {proc.returncode}")
-            lines.append(check(out.strip() if out else None))
+        lines = [check(cli_output(proc))
+                 for proc, check in self.procs.values()]
         print("  subprocesses, each equal to the call in-process: "
               + "; ".join(lines))
 
@@ -4951,7 +4991,7 @@ class AdiForwardSlice:
         t0 = time.perf_counter()
         parts = {}
         self.procs = {}
-        self.start_cli()
+        self.start_subprocesses()
         for part in (self.adi, self.forward, self.rough, self.products,
                      self.scripts, self.cli):
             t1 = time.perf_counter()
@@ -4974,13 +5014,14 @@ class AdiForwardSlice:
         return launches
 
     # -- phase 6 ---------------------------------------------------------
-    def phase6(self, times):
+    def phase6(self, times, full):
         """K7 inside tridiag_inv at the [heston-adi] x-bands (96 x 256
         systems of 256) in f64 and f32 (tridiag_inv with newton=False: the
         identity made and one launch), with the start event behind a
         queued sleep too, its plain version, batched torch.linalg.inv on the
-        dense (96, 256, 256) matrices, and the whole tridiag_inv; then each
-        user call's wall and device-busy share as AmericanMlmcSlice's."""
+        dense (96, 256, 256) matrices, and the whole tridiag_inv; then,
+        with ``full``, each user call's wall and device-busy share
+        (:func:`user_call_walls`)."""
         from optpricer_tpu_torch.ops.tridiag import tridiag_dense, tridiag_inv
 
         t0 = time.perf_counter()
@@ -5006,7 +5047,7 @@ class AdiForwardSlice:
                   f"torch.linalg.inv {times[('k7 inv library', name)]:.4f} "
                   f"ms; tridiag_inv with its Newton step "
                   f"{times[('tridiag_inv', name)]:.4f} ms [{self.card}]")
-        user_call_walls(self.calls, self.card)
+        user_call_walls("ADI and forward calls", self.calls, self.card, full)
         self.tmp.cleanup()
         print(f"phase 6 ADI and forward {time.perf_counter() - t0:.2f} s")
 
@@ -5038,7 +5079,12 @@ class AdiForwardSlice:
         return out
 
 
-def main():
+def main(full: bool = False):
+    """Phases 1-6; ``full`` also times the slowest plain versions at full
+    size (the K8 Thomas march over all 512 steps, K5 at 2^20 x 8 x 252)
+    and, in phase 6, each user call of the four slices without a kernel of
+    their own (closed forms, mesh and scan, American and MLMC, ADI and
+    forward) with its device-busy share: ~300 s more."""
     t_start = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -5059,6 +5105,7 @@ def main():
           f"{torch.version.cuda}")
 
     # phase 2: build
+    phase_clock = PhaseClock()
     t0 = time.perf_counter()
     report = io.StringIO()
     with redirect_stdout(report):
@@ -5081,6 +5128,8 @@ def main():
     for key, (per_sm, blocks, waves) in occupancy.items():
         print(f"phase 2 {key}: {per_sm} resident blocks per SM, {blocks} "
               f"blocks, {waves:.2f} waves")
+
+    phase_clock.lap("build", "phase2")
 
     # phase 3: kernels against their plain versions, on the card
     print(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5130,14 +5179,16 @@ def main():
           "cases equal K2_SUMS bit for bit")
 
     def k4_check(what, setup, pay, signed=()):
-        """The kernel against its plain version on one K4 setup."""
+        """The kernel against its plain version on one K4 setup; returns
+        the plain call's milliseconds."""
         seed, params, run, dynamics, geo, mkt = setup
         k = pmc.path_mc(seed, params, **run)
-        p = pmc._path_mc_plain(seed, params, **run)
+        p, ms = event_ms(lambda: pmc._path_mc_plain(seed, params, **run))
         rel = compare(k, p, what, signed=signed)
         record("path", rel, *(mc_fused._estimate_from_stats(
             s, *mkt, pay.get("is_call", True), dynamics, True,
             geo_ey=geo)[0] for s in (k, p)), what)
+        return ms
 
     heston = dict(v0=0.04, kappa=1.5, theta=0.05, xi=0.6, rho=-0.7)
     sabr = dict(alpha0=0.2, beta=0.6, nu=0.4, rho=-0.3)
@@ -5158,8 +5209,8 @@ def main():
     # every K4 configuration that phase 5 runs, at its shape and market
     main_k4 = k4_call(dev, 1_000_000, 252, K4_PAYOFFS["asian-geo_cv"], {},
                       True, False, mkt=(100.0, 100.0, *market[2:]))
-    k4_check("path main shape 1M x 252 asian geo_cv", main_k4,
-             K4_PAYOFFS["asian-geo_cv"])
+    k4_plain_ms = k4_check("path main shape 1M x 252 asian geo_cv", main_k4,
+                           K4_PAYOFFS["asian-geo_cv"])
     phase5_k4 = [
         ("asian", dict(payoff="asian"), {}, 252, False,
          (100.0, 100.0, *market[2:])),
@@ -5223,16 +5274,22 @@ def main():
                    rows.double().cpu().numpy().reshape(2, ppr5, 6).sum(1),
                    100.0, 0.0, 1.0)[0] for rows in (k, p)), case)
 
-    pde = PdeSlice(dev, card)
+    phase_clock.lap("mc", "phase3")
+    pde = PdeSlice(dev, card, full)
     pde.phase3(record)
+    phase_clock.lap("pde", "phase3")
     desk = Config5Slice(dev, card)
     desk.phase3(record, K4_PAYOFFS)
+    phase_clock.lap("config5_book", "phase3")
     multi = MultiAssetLsvSlice(dev, card)
     multi.phase3(record)
+    phase_clock.lap("multi_asset_lsv", "phase3")
     mesh_scan = MeshScanSlice(dev, card, multi)
     mesh_scan.phase3()
+    phase_clock.lap("mesh_scan", "phase3")
     adi = AdiForwardSlice(dev, card)
     adi.phase3(record)
+    phase_clock.lap("adi_forward", "phase3")
 
     for name, (rel, dprice, case) in worst.items():
         if name == "tridiag":
@@ -5248,6 +5305,8 @@ def main():
                   f"err of the unsigned stats {rel:.3e} (rtol {RTOL}), max "
                   f"|price difference| {dprice:.3e} in case [{case}]")
 
+    phase_clock.lap("mc", "phase3")
+
     # phase 4: determinism
     print(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     reps, n_prog = tmc._plan_grid(1 << 24, 2 * tmc.TILE)
@@ -5262,9 +5321,13 @@ def main():
     b = pmc.path_mc(*main_k4[:2], **main_k4[2]).clone()
     if not torch.equal(a, b):
         raise AssertionError("path kernel is not bitwise reproducible")
+    phase_clock.lap("mc", "phase4")
     pde.phase4()
+    phase_clock.lap("pde", "phase4")
     desk.phase4()
+    phase_clock.lap("config5_book", "phase4")
     multi.phase4()
+    phase_clock.lap("multi_asset_lsv", "phase4")
     print("phase 4 determinism: terminal kernel at 2^24, path kernel at "
           "1M x 252 and lv_milstein at 200000 x 500, fd_lv PCR and Thomas at "
           "1024 x 511 x 512, the book kernel at 1000 contracts x 2^20, the "
@@ -5272,6 +5335,8 @@ def main():
           "96, two runs on one input each: bitwise equal; lsv_calibrate "
           "(euler, qe; 96 x 128 x 131072, f32, one seed) twice: equal "
           "leverage tables")
+
+    phase_clock.lap("mc", "phase4")
 
     # phase 5: the main path through the public API
     print(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5285,6 +5350,13 @@ def main():
         fn.launches = 0
     print("phase 5 main path, Monte Carlo:")
     t0 = time.perf_counter()
+    flags = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.03",
+             "--sigma", "0.2"]
+    clis = {name: start_cli([name, *flags, *extra]) for name, extra in (
+        ("bs", []), ("binomial", ["--N", "500", "--american", "--kind",
+                                  "put"]),
+        ("mc", ["--n-paths", "1000000", "--seed", "7"]),
+        ("greeks", ["--seed", "7"]), ("qmc", ["--payoff", "asian"]))}
     (px_1m, se), secs = timed(lambda: tp.euro_price_mc(
         spec, "call", n_paths=1_000_000, seed=7, device=dev))
     check_price("euro_price_mc 1M seed 7", px_1m, se, bs, secs)
@@ -5417,23 +5489,20 @@ def main():
         check_price(f"path_mc_sumstats_kernel {label} 1M x 64 spot mean",
                     m1, se1, SPEC["S0"] * math.exp(-SPEC["q"] * SPEC["T"]),
                     slack=0.0, what="S0 e^-qT")
-    flags = ["--S0", "100", "--K", "110", "--T", "1", "--r", "0.03",
-             "--sigma", "0.2"]
-    out_bs = run_cli(["bs", *flags])
+    out_bs = cli_output(clis["bs"])
     if out_bs != f"{bs:.10f}":
         raise AssertionError(f"cli bs {out_bs!r} vs {bs:.10f}")
-    out_bin = run_cli(["binomial", *flags, "--N", "500", "--american",
-                       "--kind", "put"])
+    out_bin = cli_output(clis["binomial"])
     amer_put = tp.crr(spec, "put", N=500, american=True, device=dev)
     if out_bin != f"{amer_put:.10f}":
         raise AssertionError(f"cli binomial {out_bin!r} vs {amer_put:.10f}")
-    out_mc = run_cli(["mc", *flags, "--n-paths", "1000000", "--seed", "7"])
+    out_mc = cli_output(clis["mc"])
     value, rest = out_mc.split("  (stderr ")
     check_price("cli mc 1M", float(value), float(rest.rstrip(")")), bs)
-    out_greeks = run_cli(["greeks", *flags, "--seed", "7"])
+    out_greeks = cli_output(clis["greeks"])
     if len(out_greeks.splitlines()) != 6:
         raise AssertionError(f"cli greeks output {out_greeks!r}")
-    out_qmc = run_cli(["qmc", *flags, "--payoff", "asian"])
+    out_qmc = cli_output(clis["qmc"])
     px, se = tp.exotic_price_mc("asian", *market[:5], **dict(
         qmc, n_steps=64, n_paths=65_536, seed=0))
     if out_qmc != f"{px:.10f}  (stderr {se:.10f})":
@@ -5448,15 +5517,23 @@ def main():
         if count == 0:
             raise AssertionError(f"{name} was not launched on the main path")
 
+    phase_clock.lap("mc", "phase5")
     launches.update(pde.phase5())
+    phase_clock.lap("pde", "phase5")
     launches.update(desk.phase5())
+    phase_clock.lap("config5_book", "phase5")
     launches.update(multi.phase5())
+    phase_clock.lap("multi_asset_lsv", "phase5")
     closed = ClosedFormSlice(dev, card)
     closed_launches = closed.phase5()
+    phase_clock.lap("closed_form", "phase5")
     mesh_launches = mesh_scan.phase5()
+    phase_clock.lap("mesh_scan", "phase5")
     american = AmericanMlmcSlice(dev, card)
     american.phase5()
+    phase_clock.lap("american_mlmc", "phase5")
     adi_launches = adi.phase5()
+    phase_clock.lap("adi_forward", "phase5")
 
     # phase 6: time
     print(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5498,8 +5575,7 @@ def main():
     seed4, params4, run4 = main_k4[:3]
     times[("k4", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4))
-    times[("k4plain", "1M x 252")] = cuda_ms(
-        lambda: pmc._path_mc_plain(seed4, params4, **run4), reps=1)
+    times[("k4plain", "1M x 252")] = k4_plain_ms    # phase 3's one run
     run4g = dict(run4, with_greeks=True)
     times[("k4greeks", "1M x 252")] = cuda_ms(
         lambda: pmc.path_mc(seed4, params4, **run4g))
@@ -5515,7 +5591,7 @@ def main():
           + "; ".join(f"{label} 1M x 64 {times[('k4', label)]:.4f} ms"
                       for label in sv_labels) + f" [{card}]")
     k5_bounds = {}
-    for n, d in ((65_536, 64), (1 << 20, 252)):
+    for n, d in ((65_536, 64), (1 << 20, 252)):   # the second not in phase 3
         tensors, kw5, (R5, _) = k5_setup(qmp, dev, "asian", n, d)
         shape = f"{n} x 8 x {d}"
         if d > 64 and sha256(qmp.qmc_path(*tensors, **kw5)) != \
@@ -5527,9 +5603,10 @@ def main():
         times[("k5 device", shape)] = cuda_ms(
             lambda: qmp.qmc_path(*tensors, **kw5), reps=3 if d > 64 else 5,
             queued=True)
-        times[("k5plain", shape)] = cuda_ms(
-            lambda: qmp._qmc_path_plain(*tensors, **kw5),
-            reps=1 if d > 64 else 5)
+        if d == 64 or full:   # 4.5 s a call at 2^20 x 8 x 252
+            times[("k5plain", shape)] = cuda_ms(
+                lambda: qmp._qmc_path_plain(*tensors, **kw5),
+                reps=1 if d > 64 else 5)
         # the kernel reads every input but B, which it reads by its plan
         in_bytes = sum(t.numel() * t.element_size()
                        for i, t in enumerate(tensors) if i != 4)
@@ -5556,13 +5633,21 @@ def main():
     for line in k2_issue_lines("phase 6", sass_k2(text), k1k5,
                                {str(n): t for n, t in k2_threads.items()}):
         print(line)
+    phase_clock.lap("mc", "phase6")
     pde.phase6(times)
+    phase_clock.lap("pde", "phase6")
     desk.phase6(times)
+    phase_clock.lap("config5_book", "phase6")
     multi.phase6()
-    closed.phase6()
-    mesh_scan.phase6()
-    american.phase6()
-    adi.phase6(times)
+    phase_clock.lap("multi_asset_lsv", "phase6")
+    closed.phase6(full)
+    phase_clock.lap("closed_form", "phase6")
+    mesh_scan.phase6(full)
+    phase_clock.lap("mesh_scan", "phase6")
+    american.phase6(full)
+    phase_clock.lap("american_mlmc", "phase6")
+    adi.phase6(times, full)
+    phase_clock.lap("adi_forward", "phase6")
     k4_ops = 1_000_000 * 252 * ops_k4_path_step(True, False)
     kernels = [
         {"name": "terminal_mc_kernel", "route": "cuda",
@@ -5629,7 +5714,7 @@ def main():
                     k5_bounds["65536 x 8 x 64"])),
          "library_ms": None, "shape": "asian, 65536 points x 8 x 64 steps",
          "ms_2p20x252": times[("k5", "1048576 x 8 x 252")],
-         "plain_ms_2p20x252": times[("k5plain", "1048576 x 8 x 252")],
+         "plain_ms_2p20x252": times.get(("k5plain", "1048576 x 8 x 252")),
          "bound_ms_2p20x252": k5_bounds["1048576 x 8 x 252"][0],
          "device_ms": times[("k5 device", "65536 x 8 x 64")],
          "device_ms_2p20x252": times[("k5 device", "1048576 x 8 x 252")],
@@ -5655,6 +5740,10 @@ def main():
             entry["max_rel_err_sharded"], entry["case_sharded"] = \
                 mesh_scan.worst[entry["name"]]
             entry.update(mesh_scan.times[entry["name"]])
+    phase_clock.lap("mc", "phase6")
+    print(json.dumps({"seconds": {
+        name: {phase: round(secs, 3) for phase, secs in phases.items()}
+        for name, phases in phase_clock.seconds.items()}}))
     print(f"chip_smoke.py {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6775,8 +6864,8 @@ if __name__ == "__main__":
         if not set(chosen) <= set(AB_GROUPS):
             raise SystemExit(f"chip_smoke --ab: groups among {AB_GROUPS}")
         ab(Path(args[1]), chosen)
-    elif not args:
-        main()
+    elif not args or args == ["--full"]:
+        main(full=bool(args))
     else:
-        raise SystemExit("usage: chip_smoke.py [--ab OTHER_TREE "
-                         f"[GROUP,...]], GROUP in {AB_GROUPS}")
+        raise SystemExit("usage: chip_smoke.py [--full | --ab "
+                         f"OTHER_TREE [GROUP,...]], GROUP in {AB_GROUPS}")

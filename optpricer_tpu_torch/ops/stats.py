@@ -4,7 +4,9 @@ Counterpart of ``optpricer_tpu/ops/stats.py``. Every Monte-Carlo engine
 returns only sufficient statistics, so aggregation is exact, associative
 and layout-independent; cross-chunk sums are Kahan-compensated so float32
 holds the 1e-4 price gate at billions of paths. The host estimators are
-float64 numpy, as in the JAX package.
+float64 numpy, as in the JAX package; ``sumstats`` and ``cv_mean_se`` are
+their traced counterparts, tensors in and out on the caller's device with
+no host sync.
 """
 from __future__ import annotations
 
@@ -24,6 +26,26 @@ STATS2_DIM = 10
 # expectations (ops.terminal_mc.terminal_greeks).
 SXZ, SXZ2, SY2Z = 10, 11, 12
 STATSG_DIM = 13
+
+
+def sumstats(X: torch.Tensor, Y: torch.Tensor,
+             weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Sufficient statistics (6,) of payoff X and control variate Y, on X's
+    device and in X's dtype.
+
+    ``weight`` is an optional 0/1 mask (tail-chunk masking) broadcast to X:
+    n is its sum, and X and Y enter weighted.
+    """
+    Y = Y.to(X.dtype)
+    if weight is None:
+        n = torch.full((), X.numel(), dtype=X.dtype, device=X.device)
+        WX, WY = X, Y
+    else:
+        w = weight.to(X.dtype)
+        n = w.sum()
+        WX, WY = X * w, Y * w
+    return torch.stack([n, WX.sum(), (WX * X).sum(), WY.sum(),
+                        (WY * Y).sum(), (WX * Y).sum()])
 
 
 def kahan_add(acc, comp, x):
@@ -95,3 +117,28 @@ def cv_mean_se_np(stats, EY: float):
     mean = meanX - c_hat * (meanY - float(EY))
     var = max(0.0, varX - 2.0 * c_hat * covXY + c_hat * c_hat * varY)
     return float(mean), float(np.sqrt(var / n))
+
+
+def cv_mean_se(stats: torch.Tensor, EY):
+    """Control-variate estimator with known E[Y], traced: (mean, stderr) as
+    0-d tensors on the stats' device.
+
+    ĉ = Cov(X,Y)/Var(Y); mean_cv = mean(X) − ĉ(mean(Y) − EY);
+    Var_cv = Var(X) − 2ĉCov + ĉ²Var(Y). At Var(Y) = 0 the double ``where``
+    gives ĉ = 0 exactly and a finite tangent. ``EY`` is a float or a tensor.
+    """
+    if isinstance(EY, torch.Tensor):
+        EY = EY.to(stats.dtype)
+    zero = torch.zeros((), dtype=stats.dtype, device=stats.device)
+    n = stats[N]
+    meanX = stats[SX] / n
+    varX = torch.maximum(zero, stats[SX2] / n - meanX * meanX)
+    meanY = stats[SY] / n
+    varY = torch.maximum(zero, stats[SY2] / n - meanY * meanY)
+    covXY = stats[SXY] / n - meanX * meanY
+    flat = varY == 0.0
+    c_hat = torch.where(flat, 0.0, covXY / torch.where(flat, 1.0, varY))
+    mean_cv = meanX - c_hat * (meanY - EY)
+    var_cv = torch.maximum(zero, varX - 2.0 * c_hat * covXY
+                           + c_hat * c_hat * varY)
+    return mean_cv, torch.sqrt(var_cv / n)

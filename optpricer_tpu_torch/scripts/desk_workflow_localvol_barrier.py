@@ -63,27 +63,29 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@contextmanager
+def stopwatch(times: dict, name: str, dev: torch.device):
+    """Host-clock seconds of the block into ``times[name]``, the device
+    synchronized on entry and on exit."""
+    _sync(dev)
+    start = time.perf_counter()
+    yield
+    _sync(dev)
+    times[name] = time.perf_counter() - start
+
+
 def run(n_paths: int = 200_000, n_steps: int = 500, device=None) -> dict:
     """The six stages; every number they print, and ``times`` (host-clock
     seconds of each stage, each ending in a synchronize)."""
     dev = resolve_device(device)
     times = {}
-
-    @contextmanager
-    def stage(name):
-        _sync(dev)
-        start = time.perf_counter()
-        yield
-        _sync(dev)
-        times[name] = time.perf_counter() - start
-
     S0, r, q, base_vol, forwards, strikes, ivs = synth_market()
     out = dict(S0=S0, r=r, q=q, base_vol=base_vol, n_paths=int(n_paths),
                n_steps=int(n_steps), device=str(dev),
                n_quotes=sum(map(len, strikes.values())),
                n_expiries=len(strikes))
 
-    with stage("calibration"):
+    with stopwatch(times, "calibration", dev):
         surface = fit_svi_surface(strikes, forwards, ivs, device=dev)
     out["svi"] = {}
     for T, svi in sorted(surface.slices.items()):
@@ -94,7 +96,7 @@ def run(n_paths: int = 200_000, n_steps: int = 500, device=None) -> dict:
                              rmse=float(np.sqrt(np.mean(err * err))))
 
     sigma_loc = dupire_local_vol_func(surface, r=r, q=q)
-    with stage("dupire"):
+    with stopwatch(times, "dupire", dev):
         out["dupire"] = [
             (S, t, float(sigma_loc(torch.tensor([S], dtype=torch.float64,
                                                 device=dev), t)[0]))
@@ -103,14 +105,14 @@ def run(n_paths: int = 200_000, n_steps: int = 500, device=None) -> dict:
     K, T = CONTRACT["K"], CONTRACT["T"]
     barrier, btype = CONTRACT["barrier"], CONTRACT["barrier_type"]
     opt = OptionSpec(S0=S0, K=K, T=T, r=r, sigma=base_vol, q=q)
-    with stage("fdm"):
+    with stopwatch(times, "fdm", dev):
         out["fdm_vanilla"] = fd_price(opt, CALL, device=dev)
         out["fdm_barrier"] = fd_price_barrier(opt, CALL, barrier, btype,
                                               device=dev)
-    with stage("fdm_lv"):
+    with stopwatch(times, "fdm_lv", dev):
         out["fdm_lv_vanilla"] = fd_price_local_vol(S0, K, T, r, q, sigma_loc,
                                                    CALL, device=dev)
-    with stage("mc_paths"):
+    with stopwatch(times, "mc_paths", dev):
         paths = milstein_local_vol_paths(S0, r, q, T, n_steps, n_paths,
                                          sigma_loc, seed=SEED, device=dev)
         out["mc_barrier"], out["mc_se"] = barrier_price(paths, K, r, T, CALL,
@@ -126,11 +128,11 @@ def run(n_paths: int = 200_000, n_steps: int = 500, device=None) -> dict:
             n_paths=paths, seed=SEED, device=dev)
 
     fused(1)  # a one-path first call builds the kernels outside the clock
-    with stage("fused"):
+    with stopwatch(times, "fused", dev):
         out["fused_barrier"], out["fused_se"] = fused(n_paths)
     out["bs_vanilla"] = bs_price(opt, CALL, device=dev)
 
-    with stage("greeks"):
+    with stopwatch(times, "greeks", dev):
         out["grid_greeks"] = fd_greeks(opt, CALL, device=dev)
 
         def fdm_engine(S, K, T, r, q, sigma, kind):
@@ -143,7 +145,7 @@ def run(n_paths: int = 200_000, n_steps: int = 500, device=None) -> dict:
     return out
 
 
-def _cell(value, width: int, decimals: int = 4) -> str:
+def cell(value, width: int, decimals: int = 4) -> str:
     if value is None:
         return "—".rjust(width)
     if isinstance(value, str):
@@ -151,64 +153,66 @@ def _cell(value, width: int, decimals: int = 4) -> str:
     return f"{value:.{decimals}f}".rjust(width)
 
 
-def _table(columns, rows) -> None:
+def print_table(columns, rows) -> None:
     """columns: [(name, width, decimals)]; rows: tuples of values."""
     head = " ".join(name.rjust(w) for name, w, _ in columns)
     print("    " + head)
     print("    " + "-" * len(head))
     for row in rows:
-        print("    " + " ".join(_cell(v, w, d)
+        print("    " + " ".join(cell(v, w, d)
                                 for v, (_, w, d) in zip(row, columns)))
 
 
-def _banner(step: int, title: str) -> None:
+def banner(step: int, title: str) -> None:
     print(f"\n{RULE}\n  Step {step} — {title}\n{RULE}")
 
 
 def report(out: dict) -> None:
     t = out["times"]
-    _banner(1, "Synthetic Market Data")
+    banner(1, "Synthetic Market Data")
     print(f"Generated {out['n_quotes']} synthetic quotes across "
           f"{out['n_expiries']} expiries")
     print(f"Spot: {out['S0']}  |  Rate: {out['r']}  |  Div yield: "
           f"{out['q']}  |  Base vol: {out['base_vol']}  |  Device: "
           f"{out['device']}")
 
-    _banner(2, "SVI Calibration")
+    banner(2, "SVI Calibration")
     print(f"Calibrated SVI surface in {t['calibration']:.3f}s")
     for T, s in sorted(out["svi"].items()):
         print(f"  T={T:.2f}:  a={s['a']:.4f}  b={s['b']:.4f}  "
               f"rho={s['rho']:+.4f}  RMSE={s['rmse']:.6f}")
 
-    _banner(3, "Dupire Local Vol Surface")
-    _table([("S", 8, 1), ("t", 6, 2), ("σ_loc", 10, 4)], out["dupire"])
+    banner(3, "Dupire Local Vol Surface")
+    print_table([("S", 8, 1), ("t", 6, 2), ("σ_loc", 10, 4)], out["dupire"])
 
-    _banner(4, "Barrier Option Pricing (FDM + MC)")
+    banner(4, "Barrier Option Pricing (FDM + MC)")
     c = CONTRACT
     print(f"\nContract:  S0={out['S0']}  K={c['K']}  T={c['T']}  "
           f"barrier={c['barrier']} ({c['barrier_type']})")
-    _table([("Method", 25, 0), ("Vanilla", 10, 4), ("Barrier", 10, 4),
-            ("Time", 9, 3)],
-           [("Black-Scholes (const σ)", out["bs_vanilla"], None, None),
-            ("FDM (const σ)", out["fdm_vanilla"], out["fdm_barrier"],
-             f"{t['fdm']:.3f}s"),
-            ("FDM (local vol)", out["fdm_lv_vanilla"], None,
-             f"{t['fdm_lv']:.3f}s"),
-            ("MC+Milstein (local vol)", out["mc_vanilla"], out["mc_barrier"],
-             f"{t['mc_paths']:.3f}s"),
-            ("Fused kernel (local vol)", None, out["fused_barrier"],
-             f"{t['fused']:.3f}s")])
+    print_table(
+        [("Method", 25, 0), ("Vanilla", 10, 4), ("Barrier", 10, 4),
+         ("Time", 9, 3)],
+        [("Black-Scholes (const σ)", out["bs_vanilla"], None, None),
+         ("FDM (const σ)", out["fdm_vanilla"], out["fdm_barrier"],
+          f"{t['fdm']:.3f}s"),
+         ("FDM (local vol)", out["fdm_lv_vanilla"], None,
+          f"{t['fdm_lv']:.3f}s"),
+         ("MC+Milstein (local vol)", out["mc_vanilla"], out["mc_barrier"],
+          f"{t['mc_paths']:.3f}s"),
+         ("Fused kernel (local vol)", None, out["fused_barrier"],
+          f"{t['fused']:.3f}s")])
     print(f"\n  MC barrier stderr: {out['mc_se']:.4f} (path matrix) / "
           f"{out['fused_se']:.4f} (fused)  ({out['n_paths']:,} paths, "
           f"{out['n_steps']} steps)")
 
-    _banner(5, "Greeks (FDM Grid vs Bump-and-Reprice)")
+    banner(5, "Greeks (FDM Grid vs Bump-and-Reprice)")
     print()
-    _table([("Greek", 8, 0), ("FDM Grid", 12, 6), ("Bump&Reprice", 14, 6)],
-           [(g, out["grid_greeks"].get(g), out["bump_greeks"][g])
-            for g in GREEKS])
+    print_table([("Greek", 8, 0), ("FDM Grid", 12, 6),
+                 ("Bump&Reprice", 14, 6)],
+                [(g, out["grid_greeks"].get(g), out["bump_greeks"][g])
+                 for g in GREEKS])
 
-    _banner(6, "Summary")
+    banner(6, "Summary")
     knockdown = 100.0 * (1.0 - out["fdm_barrier"] / out["fdm_vanilla"])
     lv_shift = out["fdm_lv_vanilla"] - out["fdm_vanilla"]
     for label, text in (

@@ -1493,3 +1493,36 @@ def test_lsmc_passes_make_no_host_sync(cuda_device):
         tam._lsmc_backward_batch(S, Ks, s[1], s[2], kinds, basis_dim=4)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_traced_cv_estimator_makes_no_host_sync(cuda_device):
+    """``ops.stats.sumstats`` and ``cv_mean_se`` (A.17) stay on the card:
+    they run under the CUDA sync debug mode set to raise, with and without
+    a weight and at a constant control, EY a float and a card tensor; the
+    results equal the same calls on the CPU to rtol 1e-12."""
+    from optpricer_tpu_torch.ops import stats as ts
+
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn(1 << 16, generator=g, dtype=torch.float64)
+    Y = 1.0 + 0.3 * X + 0.1 * torch.randn(1 << 16, generator=g,
+                                          dtype=torch.float64)
+    w = (torch.arange(1 << 16) < 60_000).double()
+    cases = [(X, Y, None), (X, Y, w), (X, torch.full_like(Y, 1.25), w)]
+    on_card = [tuple(t.to(cuda_device) if t is not None else None
+                     for t in case) for case in cases]
+    ey = torch.tensor(1.0, dtype=torch.float64, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = []
+        for x, y, wt in on_card:
+            s = ts.sumstats(x, y, wt)
+            got.append((s, *ts.cv_mean_se(s, 1.0), *ts.cv_mean_se(s, ey)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (x, y, wt), card in zip(cases, got):
+        s = ts.sumstats(x, y, wt)
+        want = (s, *ts.cv_mean_se(s, 1.0), *ts.cv_mean_se(s, 1.0))
+        for a, b in zip(card, want):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=0.0)

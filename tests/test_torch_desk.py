@@ -6,10 +6,13 @@ prices are ordered as the contract implies; the two local-vol Monte-Carlo
 barriers (path matrix, fused kernel) agree within their error bars, and the
 calibrated surface is the reference's (tests/test_torch_calibration.py
 holds the fit itself)."""
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from optpricer_tpu.models import calibration as jc
 from optpricer_tpu_torch.scripts import desk_workflow_localvol_barrier as desk
@@ -73,3 +76,43 @@ def test_main_prints_the_six_stages(capsys):
     for step in range(1, 7):
         assert f"Step {step} —" in text
     assert "Fused kernel (local vol)" in text and "2,000 paths" in text
+
+
+def _reference_desk():
+    """The reference script ``scripts/desk_workflow_localvol_barrier.py``
+    as a module (its ``main`` is not run)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "desk_workflow_localvol_barrier.py"
+    spec = importlib.util.spec_from_file_location("reference_desk", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+REPORT_CALLS = {
+    "banner": [(3, "Dupire Local Vol Surface")],
+    "cell": [(None, 8), ("Method", 25, 0), (9.4370816736, 10),
+             (0.586877, 12, 6)],
+    "print_table": [([("S", 8, 1), ("t", 6, 2), ("σ_loc", 10, 4)],
+                     [(85.0, 0.1, 0.2132), (100.0, 0.5, None)])],
+}
+
+
+@pytest.mark.parametrize("helper", sorted(REPORT_CALLS))
+def test_report_helpers_print_as_the_reference(helper, capsys):
+    ref = getattr(_reference_desk(), helper)
+    ours = getattr(desk, helper)
+    for args in REPORT_CALLS[helper]:
+        want = ref(*args), capsys.readouterr().out
+        got = ours(*args), capsys.readouterr().out
+        assert got == want
+
+
+def test_stopwatch_times_a_stage():
+    times = {}
+    with desk.stopwatch(times, "fdm", torch.device("cpu")):
+        sum(range(1000))
+    with desk.stopwatch(times, "greeks", torch.device("cpu")):
+        pass
+    assert list(times) == ["fdm", "greeks"]
+    assert all(isinstance(t, float) and t >= 0.0 for t in times.values())

@@ -1,8 +1,11 @@
 """The port as a package: it never imports jax, and it carries the JAX
 package's containers across (``optpricer_tpu_torch/convert.py``)."""
 import dataclasses
+import fnmatch
+import importlib
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +50,25 @@ def test_import_never_pulls_in_jax():
                    "models.rough", "scripts.price_book",
                    "scripts.calibrate_surface"):
         assert f"optpricer_tpu_torch.{module}" in names, module
+
+
+def test_packaging_installs_the_port():
+    """``pyproject.toml`` installs the port's console script beside the
+    reference's, and ships the port's ``py.typed`` and CUDA sources."""
+    meta = tomllib.loads((REPO / "pyproject.toml").read_text())
+    scripts = meta["project"]["scripts"]
+    assert scripts["optpricer-tpu"] == "optpricer_tpu.cli:main"
+    module, _, attr = scripts["optpricer-tpu-torch"].partition(":")
+    assert getattr(importlib.import_module(module), attr) \
+        is tp.cli.main
+    package_data = meta["tool"]["setuptools"]["package-data"]
+    patterns = package_data["optpricer_tpu_torch"]
+    pkg = REPO / "optpricer_tpu_torch"
+    shipped = [p.relative_to(pkg).as_posix() for p in sorted(pkg.rglob("*"))
+               if p.suffix in (".cu", ".cuh") or p.name == "py.typed"]
+    assert "py.typed" in shipped and len(shipped) > 10
+    for rel in shipped:
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
 
 
 def test_public_names_resolve():
