@@ -63,6 +63,7 @@ from ..ops.path_mc import (path_mc_sumstats_kernel,
                            path_mc_sumstats_kernel_sharded)
 from ..ops.qmc_path import path_qmc_sumstats_kernel, qmc_path_estimate
 from ..ops.terminal_mc import terminal_estimate
+from ..utils.profiling import annotate, annotated
 from .analytic import geometric_asian_price_f64
 from .exotics import _price_from_payoff
 from .monte_carlo import keyed_generator, resolve_seed
@@ -187,23 +188,25 @@ def _estimate_from_stats(stats_vec, S0, K, T, r, q, sigma, is_call: bool,
     """
     s = stats_vec
     if isinstance(s, torch.Tensor):
-        s = s.detach().cpu().numpy()
-    s = np.asarray(s, np.float64)
-    n = s[0]
-    if n == 0:
-        return float("nan"), float("nan")
-    if not control_variate:
-        mX = s[1] / n
-        vX = max(0.0, s[2] / n - mX * mX)
-        return float(mX), float(np.sqrt(vX / n))
-    if geo_ey is not None:
-        mean, se = stats_ops.cv_mean_se_np(s[:6], geo_ey)
-        # f32 moment-roundoff floor
-        return mean, max(se, 2e-6 * (1.0 + abs(mean)))
-    if dynamics == "gbm":
-        return terminal_estimate(s, S0, K, T, r, q, sigma, is_call, True)
-    mean, se = stats_ops.cv_mean_se_np(s[:6], S0 * np.exp(-q * T))
-    return mean, se
+        with annotate("optpricer.read"):
+            s = s.detach().cpu().numpy()
+    with annotate("optpricer.estimate"):
+        s = np.asarray(s, np.float64)
+        n = s[0]
+        if n == 0:
+            return float("nan"), float("nan")
+        if not control_variate:
+            mX = s[1] / n
+            vX = max(0.0, s[2] / n - mX * mX)
+            return float(mX), float(np.sqrt(vX / n))
+        if geo_ey is not None:
+            mean, se = stats_ops.cv_mean_se_np(s[:6], geo_ey)
+            # f32 moment-roundoff floor
+            return mean, max(se, 2e-6 * (1.0 + abs(mean)))
+        if dynamics == "gbm":
+            return terminal_estimate(s, S0, K, T, r, q, sigma, is_call, True)
+        mean, se = stats_ops.cv_mean_se_np(s[:6], S0 * np.exp(-q * T))
+        return mean, se
 
 
 
@@ -1021,6 +1024,7 @@ def _kernel_dtype(dtype) -> bool:
     return dtype is None or canonical(dtype) == MC_DTYPE
 
 
+@annotated("optpricer.call")
 def exotic_price_mc(
     payoff: str,
     S0: float, K: float, T: float, r: float, q: float = 0.0, *,
@@ -1081,71 +1085,86 @@ def exotic_price_mc(
     devices; ``device`` (default ``"cuda"``) is where a run without a
     mesh goes. See the module docstring for the seed semantics.
     """
-    if payoff not in _PAYOFFS:
-        raise ValueError(f"payoff must be one of {_PAYOFFS}, got {payoff!r}")
-    n_models = sum(x is not None
-                   for x in (sigma, sigma_loc, heston, merton, sabr, vg,
-                             nig))
-    if n_models != 1:
-        raise ValueError(
-            "provide exactly one of sigma / sigma_loc / heston / merton"
-            " / sabr / vg / nig")
-    if (vg is not None or nig is not None) and scheme != "log_euler":
-        raise ValueError("vg=/nig= use the exact subordinated transition "
-                         "(no scheme choice)")
-    if nig is not None and not (float(nig["alpha"]) > abs(float(nig["beta"]))
-                                and float(nig["alpha"])
-                                > abs(float(nig["beta"]) + 1.0)):
-        raise ValueError("NIG needs alpha > |beta| (real gamma) and "
-                         "alpha > |beta + 1| (martingale moment)")
-    if vg is not None and not (float(vg["theta"]) * float(vg["nu"])
-                               + 0.5 * float(vg["sigma"]) ** 2
-                               * float(vg["nu"]) < 1.0):
-        raise ValueError("VG martingale moment condition violated: need "
-                         "theta*nu + sigma^2*nu/2 < 1")
-    if merton is not None and sigma is None:
-        sigma = merton["sigma"]
-    if kind not in ("call", "put"):
-        raise ValueError("kind must be 'call' or 'put'")
-    if scheme == "qe" and heston is None:
-        raise ValueError("scheme='qe' is the Andersen QE Heston scheme — "
-                         "it requires heston=")
-    if scheme == "exact":
-        if sabr is None or not (0.0 < float(sabr["beta"]) < 1.0):
+    with annotate("optpricer.prepare"):
+        if payoff not in _PAYOFFS:
+            raise ValueError(f"payoff must be one of {_PAYOFFS}, got "
+                             f"{payoff!r}")
+        n_models = sum(x is not None
+                       for x in (sigma, sigma_loc, heston, merton, sabr, vg,
+                                 nig))
+        if n_models != 1:
             raise ValueError(
-                "scheme='exact' is the dual-BESQ absorbed-CEV sampler — "
-                "it requires sabr= with 0 < beta < 1")
-        if abs(float(sabr["rho"])) >= 1.0:
-            raise ValueError("scheme='exact' requires |rho| < 1")
-        if payoff not in ("vanilla", "digital", "barrier"):
-            raise ValueError(
-                "scheme='exact' prices payoffs that vanish on absorbed "
-                "paths: vanilla, digital, barrier (Asian/lookback "
-                "averages see pre-absorption states — use the Euler "
-                "backbone)")
-        if payoff == "barrier" and (rebate != 0.0 or kind == "put"):
-            raise ValueError("scheme='exact' barriers: calls, zero rebate")
-        if payoff == "digital" and kind == "put":
-            raise ValueError("scheme='exact' digitals: calls (puts via "
-                             "payout·df − call parity)")
-        if mesh is not None or backend == "pallas":
-            raise ValueError("scheme='exact' runs on the single-device "
-                             "XLA engine (Poisson/Gamma sampling)")
-    if dividends:
-        if sigma is None or merton is not None:
-            raise ValueError("dividends= requires GBM dynamics (sigma=)")
-        if control_variate:
-            raise ValueError("control_variate has no closed-form mean "
-                             "under discrete dividends")
-        if backend in ("pallas", "qmc"):
-            raise ValueError("dividends price on the XLA scan engine "
-                             "(backend='auto'/'xla')")
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got "
-                         f"{backend!r}")
+                "provide exactly one of sigma / sigma_loc / heston / merton"
+                " / sabr / vg / nig")
+        if (vg is not None or nig is not None) and scheme != "log_euler":
+            raise ValueError("vg=/nig= use the exact subordinated transition "
+                             "(no scheme choice)")
+        if nig is not None and not (
+                float(nig["alpha"]) > abs(float(nig["beta"]))
+                and float(nig["alpha"]) > abs(float(nig["beta"]) + 1.0)):
+            raise ValueError("NIG needs alpha > |beta| (real gamma) and "
+                             "alpha > |beta + 1| (martingale moment)")
+        if vg is not None and not (float(vg["theta"]) * float(vg["nu"])
+                                   + 0.5 * float(vg["sigma"]) ** 2
+                                   * float(vg["nu"]) < 1.0):
+            raise ValueError("VG martingale moment condition violated: need "
+                             "theta*nu + sigma^2*nu/2 < 1")
+        if merton is not None and sigma is None:
+            sigma = merton["sigma"]
+        if kind not in ("call", "put"):
+            raise ValueError("kind must be 'call' or 'put'")
+        if scheme == "qe" and heston is None:
+            raise ValueError("scheme='qe' is the Andersen QE Heston scheme "
+                             "— it requires heston=")
+        if scheme == "exact":
+            if sabr is None or not (0.0 < float(sabr["beta"]) < 1.0):
+                raise ValueError(
+                    "scheme='exact' is the dual-BESQ absorbed-CEV sampler — "
+                    "it requires sabr= with 0 < beta < 1")
+            if abs(float(sabr["rho"])) >= 1.0:
+                raise ValueError("scheme='exact' requires |rho| < 1")
+            if payoff not in ("vanilla", "digital", "barrier"):
+                raise ValueError(
+                    "scheme='exact' prices payoffs that vanish on absorbed "
+                    "paths: vanilla, digital, barrier (Asian/lookback "
+                    "averages see pre-absorption states — use the Euler "
+                    "backbone)")
+            if payoff == "barrier" and (rebate != 0.0 or kind == "put"):
+                raise ValueError("scheme='exact' barriers: calls, zero rebate")
+            if payoff == "digital" and kind == "put":
+                raise ValueError("scheme='exact' digitals: calls (puts via "
+                                 "payout·df − call parity)")
+            if mesh is not None or backend == "pallas":
+                raise ValueError("scheme='exact' runs on the single-device "
+                                 "XLA engine (Poisson/Gamma sampling)")
+        if dividends:
+            if sigma is None or merton is not None:
+                raise ValueError("dividends= requires GBM dynamics (sigma=)")
+            if control_variate:
+                raise ValueError("control_variate has no closed-form mean "
+                                 "under discrete dividends")
+            if backend in ("pallas", "qmc"):
+                raise ValueError("dividends price on the XLA scan engine "
+                                 "(backend='auto'/'xla')")
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                             f"{backend!r}")
 
-    seed_val = resolve_seed(seed)
-    dt_ = canonical(dtype)
+        seed_val = resolve_seed(seed)
+        dt_ = canonical(dtype)
+        # the fixed-strike arithmetic Asian under GBM takes the
+        # geometric-Asian payoff as its control variate: corr ≈ 1 and
+        # E[Y_geo] is exact
+        use_geo_cv = (bool(control_variate) and payoff == "asian"
+                      and average_type == "arithmetic"
+                      and strike_type == "fixed" and heston is None
+                      and sabr is None and merton is None
+                      and sigma_loc is None and vg is None and nig is None)
+        geo_ey = None
+        if use_geo_cv:
+            geo_ey = geometric_asian_price_f64(S0, K, T, r, q, sigma,
+                                               kind=kind,
+                                               n_steps=int(n_steps))
 
     if scheme == "exact":
         (dev, gen, _), = _shards(None, seed_val, n_paths, device)
@@ -1175,18 +1194,6 @@ def exotic_price_mc(
             fwd = float(S0) * np.exp((float(r) - float(q)) * float(T))
             mean -= np.exp(-float(r) * float(T)) * (fwd - float(K))
         return float(mean), float(se)
-
-    # the fixed-strike arithmetic Asian under GBM takes the geometric-Asian
-    # payoff as its control variate: corr ≈ 1 and E[Y_geo] is exact
-    use_geo_cv = (bool(control_variate) and payoff == "asian"
-                  and average_type == "arithmetic"
-                  and strike_type == "fixed" and heston is None
-                  and sabr is None and merton is None
-                  and sigma_loc is None and vg is None and nig is None)
-    geo_ey = None
-    if use_geo_cv:
-        geo_ey = geometric_asian_price_f64(S0, K, T, r, q, sigma, kind=kind,
-                                           n_steps=int(n_steps))
 
     if backend == "qmc":
         if sigma is None or merton is not None:
@@ -1321,28 +1328,32 @@ def exotic_price_mc_dupire(payoff: str, surface, S0, K, T, r, q=0.0, *,
     kind = kwargs.get("kind", "call")
     if backend in ("auto", "pallas") and n_steps % 2 == 0 \
             and _kernel_dtype(kwargs.get("dtype")):
-        if kind not in ("call", "put"):
-            raise ValueError("kind must be 'call' or 'put'")
-        pk = dict(
-            payoff=payoff, antithetic=bool(kwargs.get("antithetic", True)),
-            barrier=kwargs.get("barrier", 0.0),
-            barrier_type=kwargs.get("barrier_type", "up-and-out"),
-            rebate=kwargs.get("rebate", 0.0),
-            average_type=kwargs.get("average_type", "arithmetic"),
-            strike_type=kwargs.get("strike_type", "fixed"),
-            payout=kwargs.get("payout", 1.0),
-            svi_slices=surface.svi_table(), scheme=scheme,
-            dS_bump=kwargs.get("dS_bump", 0.01))
-        args = (resolve_seed(kwargs.get("seed")),
-                int(kwargs.get("n_paths", 100_000)), n_steps, S0, K, T, r, q,
-                None, kind == "call")
-        mesh = kwargs.get("mesh")
-        stats_vec = path_mc_sumstats_kernel_sharded(mesh, *args, **pk) \
-            if mesh is not None else \
-            path_mc_sumstats_kernel(*args, device=kwargs.get("device"), **pk)
-        return _estimate_from_stats(stats_vec, S0, K, T, r, q, 0.0,
-                                    kind == "call", "local_vol",
-                                    control_variate)
+        with annotate("optpricer.call"):
+            with annotate("optpricer.prepare"):
+                if kind not in ("call", "put"):
+                    raise ValueError("kind must be 'call' or 'put'")
+                pk = dict(
+                    payoff=payoff,
+                    antithetic=bool(kwargs.get("antithetic", True)),
+                    barrier=kwargs.get("barrier", 0.0),
+                    barrier_type=kwargs.get("barrier_type", "up-and-out"),
+                    rebate=kwargs.get("rebate", 0.0),
+                    average_type=kwargs.get("average_type", "arithmetic"),
+                    strike_type=kwargs.get("strike_type", "fixed"),
+                    payout=kwargs.get("payout", 1.0),
+                    svi_slices=surface.svi_table(), scheme=scheme,
+                    dS_bump=kwargs.get("dS_bump", 0.01))
+                args = (resolve_seed(kwargs.get("seed")),
+                        int(kwargs.get("n_paths", 100_000)), n_steps, S0, K,
+                        T, r, q, None, kind == "call")
+                mesh = kwargs.get("mesh")
+            stats_vec = path_mc_sumstats_kernel_sharded(mesh, *args, **pk) \
+                if mesh is not None else \
+                path_mc_sumstats_kernel(*args, device=kwargs.get("device"),
+                                        **pk)
+            return _estimate_from_stats(stats_vec, S0, K, T, r, q, 0.0,
+                                        kind == "call", "local_vol",
+                                        control_variate)
     sigma_loc = dupire_local_vol_func(surface, r, q)
     return exotic_price_mc(payoff, S0, K, T, r, q, sigma_loc=sigma_loc,
                            scheme=scheme, backend="xla", **kwargs)

@@ -41,6 +41,7 @@ import torch
 
 from .. import _build
 from ..dtypes import MC_DTYPE, resolve_device
+from ..utils.profiling import annotated
 from . import stats as stats_ops
 from .fastmath import exp32, log32
 from .path_mc import _sqrt32
@@ -316,6 +317,7 @@ def blocks_per_sm(n_assets: int, payoff_id: int, antithetic: bool) -> int:
     return n.value
 
 
+@annotated("optpricer.launch.basket_mc")
 def basket_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
               reps: int, n_assets: int, n_steps: int, antithetic: bool,
               payoff_id: int, barrier_up: bool, knock_in: bool,

@@ -52,6 +52,7 @@ import torch
 
 from .. import _build
 from ..dtypes import resolve_device
+from ..utils.profiling import annotated
 from .black_scholes import is_call_mask
 from .fastmath import exp32
 from .grid import build_grid
@@ -364,6 +365,7 @@ def _launch_plan(method: str, n_strikes: int, m_pad: int,
                       plan_floats, 0 if in_smem else m_pad * n_strikes)
 
 
+@annotated("optpricer.launch.fd_lv")
 def fd_lv(params, K, sign, sig_tab, *, n_t: int, m: int, m_pad: int,
           theta: float, american: bool, method: str = "pcr") -> torch.Tensor:
     """f32[m_pad, B]: the interior layer at t = 0 of every strike's march.

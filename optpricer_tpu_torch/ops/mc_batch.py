@@ -27,6 +27,7 @@ import torch
 
 from .. import _build
 from ..dtypes import MC_DTYPE, resolve_device
+from ..utils.profiling import annotate, annotated
 from . import stats as stats_ops
 from .black_scholes import is_call_mask
 from .fastmath import exp32, log32
@@ -187,6 +188,7 @@ def _mc_batch_plain(seed, params, kparams, *, n_programs: int, reps: int,
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
+@annotated("optpricer.launch.mc_batch")
 def mc_batch(seed: torch.Tensor, params: torch.Tensor, kparams: torch.Tensor,
              *, n_programs: int, reps: int, antithetic: bool
              ) -> torch.Tensor:
@@ -230,6 +232,7 @@ mc_batch.launches = 0
 # ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
+@annotated("optpricer.call")
 def euro_price_mc_batch(S0, K, T, r, q, sigma, kind, *,
                         n_paths: int = 1_000_000, seed: int = 0,
                         antithetic: bool = True,
@@ -243,18 +246,26 @@ def euro_price_mc_batch(S0, K, T, r, q, sigma, kind, *,
     variate (terminal spot, digital) solved per contract, its standard
     error floored at 2e-6·(1 + |price|) (f32 moment round-off).
     """
-    dev = resolve_device(device)
-    kparams, book = batch_kparams(S0, K, T, r, q, sigma, kind)
-    B = book["B"]
-    reps, n_programs = _plan(n_paths)
-    stats = mc_batch(
-        torch.tensor([seed % (2**31 - 1)], dtype=torch.int32, device=dev),
-        torch.tensor([float(n_paths)], dtype=MC_DTYPE, device=dev),
-        torch.as_tensor(kparams).to(dev), n_programs=n_programs, reps=reps,
-        antithetic=bool(antithetic))
-    s = stats.cpu().numpy().astype(np.float64)
-    s = s.transpose(1, 0, 2).reshape(NSTAT, -1)[:, :B]      # (10, B)
-    return _book_estimate(s, book, control_variate)
+    with annotate("optpricer.prepare"):
+        dev = resolve_device(device)
+        kparams, book = batch_kparams(S0, K, T, r, q, sigma, kind)
+        B = book["B"]
+        reps, n_programs = _plan(n_paths)
+    with annotate("optpricer.copy"):
+        seed_t = torch.tensor([seed % (2**31 - 1)], dtype=torch.int32,
+                              device=dev)
+    with annotate("optpricer.copy"):
+        paths_t = torch.tensor([float(n_paths)], dtype=MC_DTYPE, device=dev)
+    with annotate("optpricer.copy"):
+        kparams_t = torch.as_tensor(kparams).to(dev)
+    stats = mc_batch(seed_t, paths_t, kparams_t, n_programs=n_programs,
+                     reps=reps, antithetic=bool(antithetic))
+    with annotate("optpricer.read"):
+        s = stats.cpu().numpy()
+    with annotate("optpricer.estimate"):
+        s = s.astype(np.float64)
+        s = s.transpose(1, 0, 2).reshape(NSTAT, -1)[:, :B]      # (10, B)
+        return _book_estimate(s, book, control_variate)
 
 
 def _book_estimate(s, book, control_variate: bool):

@@ -61,6 +61,7 @@ import torch
 
 from .. import _build
 from ..dtypes import MC_DTYPE, resolve_device
+from ..utils.profiling import annotate, annotated
 from . import stats as stats_ops
 from .fastmath import exp32, log32, norminv32
 from .swprng import threefry2x32
@@ -766,6 +767,7 @@ def blocks_per_sm(dynamics: str, payoff_id: int, with_greeks: bool,
     return n.value
 
 
+@annotated("optpricer.launch.path_mc")
 def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
             n_programs: int, reps: int, n_steps: int, antithetic: bool,
             payoff_id: int, barrier_up: bool, knock_out: bool,
@@ -863,16 +865,22 @@ def path_mc_sumstats_kernel(
     ``scheme="milstein"``), LSV with an ``lsv`` dict (Euler, or QE for its
     ``scheme="qe"``). n_steps must be even.
     """
-    dev = resolve_device(device)
-    params, static = _resolve_config(
-        n_paths, n_steps, S0, K, T, r, q, sigma, is_call, payoff, antithetic,
-        barrier, barrier_type, rebate, average_type, strike_type, payout,
-        svi_slices, scheme, dS_bump, heston, sabr, geo_cv, lsv)
-    reps, n_programs = _plan_grid(int(n_paths), TILE)
+    with annotate("optpricer.prepare"):
+        dev = resolve_device(device)
+        params, static = _resolve_config(
+            n_paths, n_steps, S0, K, T, r, q, sigma, is_call, payoff,
+            antithetic, barrier, barrier_type, rebate, average_type,
+            strike_type, payout, svi_slices, scheme, dS_bump, heston, sabr,
+            geo_cv, lsv)
+        reps, n_programs = _plan_grid(int(n_paths), TILE)
     if static["svi"] is not None:
-        static["svi"] = static["svi"].to(dev)
-    return path_mc(_seed_pair(seed, dev), params.to(dev),
-                   n_programs=n_programs, reps=reps,
+        with annotate("optpricer.copy"):
+            static["svi"] = static["svi"].to(dev)
+    with annotate("optpricer.copy"):
+        seed_t = _seed_pair(seed, dev)
+    with annotate("optpricer.copy"):
+        params = params.to(dev)
+    return path_mc(seed_t, params, n_programs=n_programs, reps=reps,
                    with_greeks=bool(greek_stats), **static)
 
 

@@ -42,6 +42,7 @@ import torch
 
 from .. import _build
 from ..dtypes import MC_DTYPE, resolve_device
+from ..utils.profiling import annotated
 from . import stats as stats_ops
 from .fastmath import exp32, norminv32
 from .sobol import bridge_matrix, direction_numbers
@@ -424,6 +425,7 @@ def blocks_per_sm(payoff_id: int, n_steps: int) -> int:
     return n
 
 
+@annotated("optpricer.launch.qmc_path")
 def qmc_path(seed, params, V, shifts, B, drift, plan=None, *,
              n_programs: int, reps: int, progs_per_rep: int, n_steps: int,
              d_pad: int, m_bits: int, payoff_id: int, barrier_up: bool,

@@ -42,6 +42,7 @@ import torch
 
 from .. import _build
 from ..dtypes import MC_DTYPE, resolve_device
+from ..utils.profiling import annotated
 from . import stats as stats_ops
 from .fastmath import bitrev32, exp32, log32, norminv32
 from .swprng import threefry2x32
@@ -390,6 +391,7 @@ def _warp_rows(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+@annotated("optpricer.launch.terminal_mc")
 def terminal_mc(seed: torch.Tensor, params: torch.Tensor, *, n_programs: int,
                 reps: int, antithetic: bool, invcdf: bool = False
                 ) -> torch.Tensor:
@@ -444,6 +446,7 @@ def blocks_per_sm(antithetic: bool, invcdf: bool = False) -> int:
     return n
 
 
+@annotated("optpricer.launch.terminal_qmc")
 def terminal_qmc(seed: torch.Tensor, params: torch.Tensor, *,
                  n_programs: int, reps: int, progs_per_rep: int,
                  device=None) -> torch.Tensor:

@@ -56,6 +56,7 @@ from collections import Counter
 import torch
 
 from .. import _build
+from ..utils.profiling import annotated
 from .terminal_mc import _stream
 
 __all__ = ["tridiag_solve_kernel", "tridiag_solve_kernel_lastdim"]
@@ -179,6 +180,7 @@ def _strides(t, shape):
             outer if t.shape[1] == shape[1] else 0)
 
 
+@annotated("optpricer.launch.tridiag_solve_kernel")
 def _solve_into(a, b, c, d, x):
     """x ← the solution of the (n, outer, inner) systems (a, b, c, d), each
     operand a view of any strides that broadcasts to x's shape (checked by

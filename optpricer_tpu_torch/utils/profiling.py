@@ -5,8 +5,9 @@ Counterpart of ``optpricer_tpu/utils/profiling.py``:
 * :func:`trace` — a ``torch.profiler`` trace of the enclosed block, CPU
   and CUDA activities, exported as a Chrome trace (Perfetto,
   ``chrome://tracing``) into ``log_dir``.
-* :func:`annotate` — a named region on the profiler's timeline
-  (``torch.profiler.record_function``).
+* :func:`annotate` — a named region on the profiler's host timeline, and
+  :func:`annotated`, the same region around every call of a function.
+  Both cost one check when no profiler is recording.
 * :func:`benchmark` — wall clock of any function returning tensors, with
   warm-up runs (the kernels' build and first launches) excluded and every
   output tensor's device synchronized inside the timed region.
@@ -19,16 +20,19 @@ what the caller runs where the caller runs it.
 """
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
-__all__ = ["trace", "annotate", "benchmark", "timed", "timing_report",
-           "reset_timings", "device_memory"]
+__all__ = ["trace", "annotate", "annotated", "benchmark", "timed",
+           "timing_report", "reset_timings", "device_memory"]
+
+_OFF = nullcontext()
 
 
 @contextmanager
@@ -57,8 +61,30 @@ def trace(log_dir: str | None = None):
 
 
 def annotate(name: str):
-    """Named region that shows up in profiler timelines."""
-    return torch.profiler.record_function(name)
+    """Named region that shows up in profiler timelines.
+
+    With no profiler recording it is one shared no-op context. While one
+    records, the region is a host-side event on the profiler's clock, the
+    clock of every kernel and copy it records, and nests in the regions
+    around it. Like the JAX package's ``TraceAnnotation`` it marks the host
+    alone: it is not a user annotation (``record_function``), which the
+    profiler would copy onto the device's timeline over the work launched
+    inside it.
+    """
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def annotated(name: str):
+    """Decorator: every call of the function runs inside ``annotate(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def _leaves(out):
