@@ -9,9 +9,11 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    and power limit as ``nvidia-smi`` reports them.
 2. build — compile the CUDA kernels from ``optpricer_tpu_torch/csrc`` (one
    nvcc per source, all started together) and print the build seconds,
-   ptxas' registers and spills for every kernel instantiation, and the
+   ptxas' registers and spills for every kernel instantiation (those of
+   K4's Dupire branches at the desk's call, ``K4_LV``, by name), and the
    resident blocks per SM (the CUDA runtime's occupancy) and waves of K4's
-   timed instantiations (``K4_TIMED``), of K6 at its three phase-5
+   timed instantiations (``K4_TIMED``) and of ``K4_LV`` at 200 000 x 500,
+   of K6 at its three phase-5
    shapes (``K6_SHAPES``), of K1 at 2^30 and of K5 at its two timed
    shapes.
 3. kernel vs plain — each kernel's wrapper against its plain torch version
@@ -97,7 +99,9 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
    the LSV calibration twice on one seed: equal leverage tables (its binned
    sums are sequential per bin, no float atomics); the desk's K4 call
    (lv_milstein and lv_euler) on the SVI table recorded from commit
-   1eec4fa's run: the 21 sums that run gave (``DESK_SUMS``), bit for bit.
+   1eec4fa's run: the 21 sums that run gave (``DESK_SUMS``), bit for bit,
+   each with its count of threads that stepped some state outside the
+   range of the branch's fast arithmetic (``path_mc.lv_fallbacks()``; 0).
 5. main paths — the public API on ``device="cuda"``; each path's launch
    counts are set to 0 just before it and read just after.
    The Monte-Carlo path:
@@ -434,17 +438,20 @@ compared bit for bit across the turns and at the 4-rep shape this vs
 other, K3's (n_ktiles, 10, 128) sums by SHA-256 across the turns, and the
 walls (median of 21) of basket_exotic_mc at ``[basket-path]`` and the
 16-asset barrier and of euro_price_mc_batch at 1 000 x 1M; the resident
-blocks per SM and waves of ``K4_TIMED`` and of K6 at ``K6_SHAPES`` (none
-for a tree without the kernel's occupancy query); and, from each turn
-that builds its tree's library, ptxas' registers and spills of K7, K8, K4
-``LV_MILSTEIN`` and ``K4_TIMED`` and of every K3 and K6 instantiation, and
-the static SASS instruction count of ``K4_TIMED``'s step-pair loop, of
+blocks per SM and waves of ``K4_TIMED``, of ``K4_LV`` and of K6 at
+``K6_SHAPES`` (none for a tree without the kernel's occupancy query); the
+desk calls' fallback counts (none for a tree without them); and, from
+each turn that builds its tree's library, ptxas' registers and spills of
+K7, K8, K4's Dupire instantiations and ``K4_TIMED`` and of every K3 and
+K6 instantiation, and the static SASS instruction count (with its CALLs
+and BSSY) of ``K4_TIMED``'s and ``K4_LV``'s step-pair loops, of
 K6's step loop at ``K6_SHAPES``, of K3's and K1's rep loops (full and
 tail), of K2's loops (``sass_k2``) and of K5's loops (the Sobol words
 and normals, the bridge) by class (``cuobjdump -sass``), with the ALU-pipe
 ops among them. The
 static count holds code a step pair seldom runs (the division and
-sin/cos slow paths), so it is not the count of instructions issued, and
+sin/cos slow paths' call sites), so it is not the count of instructions
+issued, and
 the time it gives at one instruction per lane and cycle is no bound on
 the kernel's.
 """
@@ -524,6 +531,13 @@ K4_TIMED = {
     "sabr_ln vanilla": ("sabr_ln", "vanilla", False, 1_000_000, 64),
     "heston_qe vanilla": ("heston_qe", "vanilla", False, 1_000_000, 64),
     "sabr_cev vanilla": ("sabr_cev", "vanilla", False, 1_000_000, 64),
+}
+# K4's Dupire instantiations at the desk's call (200 000 x 500, up-and-out,
+# antithetic), under its scheme and under log-Euler: their waves in phase 2
+# and --ab, their step-pair loops' SASS in phase 6 and --ab
+K4_LV = {
+    "lv_milstein barrier": ("lv_milstein", "barrier", False, 200_000, 500),
+    "lv_euler barrier": ("lv_euler", "barrier", False, 200_000, 500),
 }
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores and
@@ -720,13 +734,15 @@ def k4_timed_calls(dev, multi, n=None) -> dict:
 
 def k4_waves(dev) -> dict:
     """label -> (resident blocks per SM, grid blocks, waves, paths priced)
-    of each ``K4_TIMED`` instantiation at its shape on this card."""
+    of each ``K4_TIMED`` and ``K4_LV`` instantiation at its shape on this
+    card."""
     from optpricer_tpu_torch.ops import path_mc as pmc
     from optpricer_tpu_torch.ops import terminal_mc as tmc
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for label, (dynamics, payoff, greeks, n, _) in K4_TIMED.items():
+    for label, (dynamics, payoff, greeks, n, _) in {**K4_TIMED,
+                                                     **K4_LV}.items():
         per_sm = pmc.blocks_per_sm(dynamics, pmc.PAYOFF_IDS[payoff], greeks,
                                    True)
         reps, n_prog = tmc._plan_grid(n, pmc.TILE)
@@ -1771,9 +1787,11 @@ class Config5Slice:
         # the recorded sums on the recorded desk table, bit for bit
         svi = desk_svi()
         fitted = torch.equal(torch.as_tensor(self.surface.svi_table()), svi)
+        fallbacks = {}
         for scheme, sums in DESK_SUMS.items():
             seed, params, run = self.desk_k4(svi, scheme)
             got = pmc.path_mc(seed, params, **run).cpu()
+            fallbacks[scheme] = pmc.path_mc.lv_fallbacks()
             want = torch.zeros_like(got)
             want[:len(sums)] = torch.tensor([float.fromhex(h) for h in sums])
             if not torch.equal(got, want):
@@ -1784,7 +1802,9 @@ class Config5Slice:
                     f"{float(want[i]).hex()}")
         print(f"phase 4 desk K4 call on the recorded table (the fit here "
               f"{'equals' if fitted else 'differs from'} it): lv_milstein "
-              f"and lv_euler give the recorded 21 sums bit for bit")
+              f"and lv_euler give the recorded 21 sums bit for bit; threads "
+              f"that stepped outside the fast arithmetic's range: "
+              + ", ".join(f"{k} {v}" for k, v in fallbacks.items()))
         ops, kw, _ = self.k3(1 << 20, True)
         if not torch.equal(tmb.mc_batch(*ops, **kw).clone(),
                            tmb.mc_batch(*ops, **kw).clone()):
@@ -5117,8 +5137,11 @@ def main(full: bool = False):
         if line.startswith("--- ") or "Function properties" in line \
                 or "spill" in line or "Used" in line:
             print("  " + line.strip())
+    for name, line in ptxas_k4_k7(report.getvalue()).items():
+        if name.split(" ", 1)[-1] in K4_LV:
+            print(f"phase 2 K4 {name.split(' ', 1)[1]}: {line}")
     for label, (per_sm, blocks, waves, _) in k4_waves(dev).items():
-        dynamics, _, _, n, n_steps = K4_TIMED[label]
+        dynamics, _, _, n, n_steps = {**K4_TIMED, **K4_LV}[label]
         print(f"phase 2 K4 {label} ({n} x {n_steps}): {per_sm} resident "
               f"blocks per SM, {blocks} blocks, {waves:.2f} waves")
     for key, (per_sm, blocks, waves) in k6_waves(dev).items():
@@ -5633,6 +5656,9 @@ def main(full: bool = False):
     for line in k2_issue_lines("phase 6", sass_k2(text), k1k5,
                                {str(n): t for n, t in k2_threads.items()}):
         print(line)
+    for line in k4_sass_lines("phase 6", dict(k1k5,
+                                              sass=sass_step_loops(text))):
+        print(line)
     phase_clock.lap("mc", "phase6")
     pde.phase6(times)
     phase_clock.lap("pde", "phase6")
@@ -5757,7 +5783,6 @@ K7_NAMES = re.compile(r"\b(?:tridiag_\w+_kernel|thomas_kernel)\b")
 # payoff, Greeks, antithetic and, from this tree on, the LSV coefficients
 K4_KERNEL = re.compile(
     r"path_mc_kernelILi(\d+)ELi(\d)ELb([01])ELb([01])E(?:Li(\d+)E)?E")
-LV_MILSTEIN = 6
 # an fd_lv kernel instantiation's mangled bool template arguments
 K8_KERNEL = re.compile(r"(fd_lv_[a-z]+_kernel)I((?:Lb[01]E)+)E")
 # a basket_mc_kernel instantiation's: payoff, antithetic, asset count (the
@@ -5781,14 +5806,19 @@ def k3_k6_label(name: str) -> str | None:
 
 def k4_label(m: re.Match) -> str | None:
     """The name of a ``K4_KERNEL`` match that ``--ab`` reports: K4's
-    LV_MILSTEIN instantiations, and the ``K4_TIMED`` ones (antithetic; LSV
-    at the reference's 13 coefficients)."""
+    Dupire instantiations (``K4_LV``'s by its key), and the ``K4_TIMED``
+    ones (antithetic; LSV at the reference's 13 coefficients)."""
     from optpricer_tpu_torch.ops import path_mc as pmc
 
     dyn, payoff, greeks, anti, nc = (int(m[1]), int(m[2]), m[3] == "1",
                                      m[4] == "1", m[5])
-    if dyn == LV_MILSTEIN:
-        return (f"path_mc_kernel<LV_MILSTEIN, payoff {payoff}, "
+    lv = {pmc.DYNAMICS[d]: d for d in ("lv_euler", "lv_milstein")}
+    if dyn in lv:
+        for label, (dynamics, pay, *_) in K4_LV.items():
+            if (dynamics, pmc.PAYOFF_IDS[pay], True) == (lv[dyn], payoff,
+                                                           anti):
+                return f"path_mc_kernel {label}"
+        return (f"path_mc_kernel<{lv[dyn].upper()}, payoff {payoff}, "
                 f"anti={int(anti)}>")
     if not anti or nc not in (None, "0", str(pmc.MAX_COEFFS)):
         return None
@@ -5803,7 +5833,7 @@ def k4_label(m: re.Match) -> str | None:
 
 def ptxas_k4_k7(report: str) -> dict:
     """{kernel: 'N registers, S bytes spill stores, L bytes spill loads'}
-    from a verbose build's report, for K4's LV_MILSTEIN and ``K4_TIMED``
+    from a verbose build's report, for K4's Dupire and ``K4_TIMED``
     instantiations, K7's and K8's kernels and every instantiation of K3 and
     K6."""
     lines = report.splitlines()
@@ -5868,9 +5898,11 @@ def sass_text(lib: Path) -> str:
 
 
 def k4_sass_label(name: str) -> str | None:
+    """The ``--ab`` SASS name of a K4 instantiation: ``K4_TIMED``'s, and
+    of the Dupire ones ``K4_LV``'s alone."""
     m = K4_KERNEL.search(name)
     label = m and k4_label(m)
-    return None if not label or "LV_MILSTEIN" in label else label
+    return None if not label or "<LV_" in label else label
 
 
 def k3_k6_sass_label(name: str) -> str | None:
@@ -5889,7 +5921,8 @@ def sass_step_loops(text: str, labeller=k4_sass_label,
     instructions from the target of the smallest backward branch whose
     span holds a MUFU instruction (the Box-Muller square root, log32's
     division) to that branch, with the backward branches inside it
-    (``inner_loops``) and its CALLs (the division and sin/cos slow paths).
+    (``inner_loops``), its CALLs (the division and sin/cos slow paths; the
+    Dupire branches' out-of-line IEEE step) and its BSSY (their regions).
     ``innermost``: a list of every such loop that holds no other, in
     address order (K3's full and tail rep loops), not the smallest."""
     out = {}
@@ -5957,7 +5990,8 @@ SASS_ALU = {"IADD3", "IADD", "ISETP", "IABS", "IMNMX", "LOP3", "LOP", "SHF",
 def sass_counts(ops) -> dict:
     """Instruction counts of ``ops`` by class (``sass_class``), with the
     ALU-pipe ops (``SASS_ALU``), MUFU.RCP (one a log32 division), FRND
-    (one an exp32), FMUL, LDS, LDG and STS among them."""
+    (one an exp32), FMUL, LDS, LDG and STS among them, and the CALLs and
+    BSSY (the slow-path regions)."""
     counts = {c: 0 for c in ("int", "fp32", "mufu", "conversion", "memory",
                              "other")}
     for o in ops:
@@ -5967,7 +6001,8 @@ def sass_counts(ops) -> dict:
                   rcp=sum(o.startswith("MUFU.RCP") for o in ops),
                   frnd=base.count("FRND"), fmul=base.count("FMUL"),
                   lds=base.count("LDS"), ldg=base.count("LDG"),
-                  sts=base.count("STS"), calls=base.count("CALL"))
+                  sts=base.count("STS"), calls=base.count("CALL"),
+                  bssy=base.count("BSSY"))
     return counts
 
 
@@ -6251,7 +6286,7 @@ def ab_turn(tree: Path, groups=AB_GROUPS) -> dict:
 def ab_k4(dev, multi, desk) -> dict:
     """``ab_turn``'s K4 numbers: ``K4_TIMED``'s times and sums, the walls
     of config 3's exotic_price_mc and of lsv_price_mc, and the desk's
-    lv_milstein and lv_euler calls."""
+    lv_milstein and lv_euler calls with their fallback counts."""
     import optpricer_tpu_torch as tp
     from optpricer_tpu_torch.ops import path_mc as pmc
 
@@ -6287,6 +6322,9 @@ def ab_k4(dev, multi, desk) -> dict:
         seed, params, run = desk.desk_k4(desk_svi(), scheme)
         sums = pmc.path_mc(seed, params, **run).cpu()
         out[f"k4 {scheme} sums"] = [float(v).hex() for v in sums]
+        # a tree from before the fast arithmetic has no fallbacks to count
+        out[f"k4 {scheme} fallbacks"] = pmc.path_mc.lv_fallbacks() \
+            if hasattr(pmc.path_mc, "lv_fallbacks") else None
         out[f"k4 {scheme} ms"] = cuda_ms(
             lambda: pmc.path_mc(seed, params, **run))
     return out
@@ -6664,6 +6702,32 @@ def k1_k5_sass_lines(side: str, turn: dict) -> list:
     return lines
 
 
+def k4_sass_lines(side: str, turn: dict) -> list:
+    """The lines that report K4's step-pair loops (``sass_step_loops`` in
+    ``turn["sass"]``) with the issue time their static counts give at the
+    main path's shape, at one instruction a lane and cycle."""
+    from optpricer_tpu_torch.ops import path_mc as pmc
+    from optpricer_tpu_torch.ops import terminal_mc as tmc
+
+    lines = []
+    for label, counts in turn.get("sass", {}).items():
+        if counts is None:
+            lines.append(f"sass {side} {label}: no step-pair loop found")
+            continue
+        _, _, _, n, n_steps = {**K4_TIMED, **K4_LV}[label.split(" ", 1)[1]]
+        reps, n_prog = tmc._plan_grid(n, pmc.TILE)
+        paths = n_prog * reps * pmc.TILE
+        issue_ms = (counts["total"] * paths * (n_steps // 2)
+                    / (turn["sms"] * 128 * turn["sm_clock_max_mhz"] * 1e6)
+                    * 1e3)
+        lines.append(f"sass {side} {label}: step-pair loop "
+                     + ", ".join(f"{k} {v}" for k, v in counts.items())
+                     + f"; {issue_ms:.4f} ms at {n} x {n_steps} if each "
+                     f"static instruction issued once a step pair (one a "
+                     f"lane and cycle, 4 schedulers an SM)")
+    return lines
+
+
 def ab(other: Path, groups=AB_GROUPS):
     """Run ``ab_turn`` on ``other`` and on this tree in the turns
     ``AB_TURNS``, one process each, for the kernel groups ``groups``, and
@@ -6689,9 +6753,6 @@ def ab(other: Path, groups=AB_GROUPS):
 
 def ab_report(turns, trees):
     """``ab``'s lines for the turns ``turns`` ((side, numbers) pairs)."""
-    from optpricer_tpu_torch.ops import path_mc as pmc
-    from optpricer_tpu_torch.ops import terminal_mc as tmc
-
     sides = ", ".join(side for side, _ in turns)
     first = turns[0][1]
     print(f"card: {first['card']}; {first['sms']} SMs, max SM clock "
@@ -6714,7 +6775,8 @@ def ab_report(turns, trees):
     timed_keys = [k for k in first if k.startswith(("k1 ", "k2 ", "k5 ",
                                                     "k8 ", "k6 ", "k3 "))
                   and k.endswith(" ms")]
-    for key in [f"k4 {label} ms" for label in K4_TIMED
+    for key in [f"k4 {label} ms" for label in (*K4_TIMED, "milstein",
+                                               "log_euler")
                 if f"k4 {label} ms" in first] + timed_keys \
             + [k for k in first if k.startswith("wall ")]:
         ms = {side: [t[key] for s, t in turns if s == side and key in t]
@@ -6764,21 +6826,8 @@ def ab_report(turns, trees):
                                    turn.get("k2 threads", {})):
             print(line)
     for side, turn in turns:
-        for label, counts in turn.get("sass", {}).items():
-            if counts is None:
-                print(f"sass {side} {label}: no step-pair loop found")
-                continue
-            _, _, _, n, n_steps = K4_TIMED[label.split(" ", 1)[1]]
-            reps, n_prog = tmc._plan_grid(n, pmc.TILE)
-            paths = n_prog * reps * pmc.TILE
-            issue_ms = (counts["total"] * paths * (n_steps // 2)
-                        / (turn["sms"] * 128
-                           * turn["sm_clock_max_mhz"] * 1e6) * 1e3)
-            print(f"sass {side} {label}: step-pair loop "
-                  + ", ".join(f"{k} {v}" for k, v in counts.items())
-                  + f"; {issue_ms:.4f} ms at {n} x {n_steps} if each static "
-                  f"instruction issued once a step pair (one a lane and "
-                  f"cycle, 4 schedulers an SM)")
+        for line in k4_sass_lines(side, turn):
+            print(line)
 
     def same(values):
         return "equal" if all(v == values[0] for v in values) else "NOT equal"

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "optpricer_path_mc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
     "optpricer_path_mc_occupancy": (_I, _I, _I, _I, _I, _P),
+    "optpricer_path_mc_fast_ops": (_P, _P, _P, _L, _I, _P),
     "optpricer_qmc_path": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P),
     "optpricer_qmc_path_occupancy": (_I, _I),

@@ -91,8 +91,13 @@ MAX_SLICES = 16         # csrc/path_mc.cu MAX_SLICES: the SVI table's bound
 MAX_COEFFS = 13         # csrc/path_mc.cu MAX_COEFFS: deg <= 12 leverage rows
 LEV_WINDOW = 128        # csrc/path_mc.cu LEV_WINDOW: leverage rows staged
 
-LV_PLAN_WORDS = 17      # csrc/path_mc.cu LvStep: a Dupire step's plan
+LV_PLAN_WORDS = 18      # csrc/path_mc.cu LvStep: a Dupire step's plan
 _ROW = 24               # kernel stats rows are padded to 24 floats
+# csrc/path_mc.cu FALLBACKS, LV_COLS: a Dupire launch's column that counts
+# the threads that left the fast arithmetic's range, and the columns its
+# combine passes sum
+_FALLBACKS = 21
+_LV_COLS = 22
 _THREADS = 128          # csrc/path_mc.cu THREADS
 _BLOCKS_PER_PROGRAM = TILE // _THREADS
 _TINY = 2.0 ** -24
@@ -790,11 +795,16 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     allow (heston_qe and sabr_cev keep ptxas' own allocation). The Dupire branches (``svi``:
     the f32 (6, n_slices) table) add three σ_loc evaluations a step under
     Milstein, one under log-Euler: a log32 and one or two SVI slices with
-    their derivatives each, IEEE divisions and square roots; they keep
-    one thread per (program, element) looping over the reps, the table
-    sits in shared memory, and each step's plan (the forward, the three
-    blends in T) is worked out once per launch by a one-pass pre-kernel
-    into an (n_steps, ``LV_PLAN_WORDS``) scratch. The LSV branches
+    their derivatives each, IEEE divisions and square roots, here as
+    straight-line fast sequences that give IEEE's bits inside a range
+    tested once a state-step (a state outside it takes the step again
+    with IEEE's own code; ``path_mc.lv_fallbacks()`` reads how many
+    threads did);
+    they keep one thread per (program, element) looping over the reps,
+    the table sits in shared memory, and each step's plan (the forward,
+    the three blends in T, whether the table and the step are inside the
+    range) is worked out once per launch by a one-pass pre-kernel into an
+    (n_steps, ``LV_PLAN_WORDS``) scratch. The LSV branches
     (``svi``: the f32 (n_steps, deg+1) leverage coefficients) add a
     log32 and a deg-term Horner polynomial a step: each block stages the
     table in shared memory ``LEV_WINDOW`` steps at a time and reads a
@@ -835,10 +845,45 @@ def path_mc(seed: torch.Tensor, params: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"path_mc_kernel launch failed: CUDA error {err}")
     path_mc.launches += 1
+    if plans is not None:
+        path_mc.lv_out = out
     return out[:NSTAT]
 
 
+def _lv_fallbacks() -> int | None:
+    """``path_mc.lv_fallbacks()``: threads of the last Dupire launch on the
+    card that stepped some state with IEEE's own division and square root
+    (``csrc/path_mc.cu``: outside the range in which the fast sequences
+    give its bits), from the launch's output row; None before any. It
+    waits for that launch: the main path never calls it."""
+    out = path_mc.lv_out
+    return None if out is None else int(out[_FALLBACKS].item())
+
+
 path_mc.launches = 0
+path_mc.lv_out = None   # the last Dupire launch's output row (f32[24])
+path_mc.lv_fallbacks = _lv_fallbacks
+
+
+def _fast_ops(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
+    """``optpricer_path_mc_fast_ops`` on CUDA f32 tensors: a / b by the
+    Dupire branches' ``div_rn_fast`` (op 0) or IEEE's division (1), the
+    square root of a by ``sqrt_rn_fast`` (2) or ``sqrtf`` (3), its log by
+    ``lv_log32`` (4) or ``fastmath.cuh``'s ``log32`` (5), the Box-Muller
+    radius of a by ``lv_radius`` (6) or ``sqrtf(-2 log32(a))`` (7); b is
+    read by ops 0 and 1 alone."""
+    if a.dtype != MC_DTYPE or b.dtype != MC_DTYPE or a.shape != b.shape \
+            or a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("_fast_ops takes two f32 CUDA tensors of one shape")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = _build.load().optpricer_path_mc_fast_ops(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), int(op),
+            _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"fast_ops_kernel launch failed: CUDA error {err}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -611,6 +611,172 @@ def test_path_kernel_local_vol_matches_plain(cuda_device, payoff, kw, scheme,
                   tpm._path_mc_plain(seed, params, **run))
 
 
+# K4's Dupire arithmetic (csrc/path_mc.cu div_rn_fast, sqrt_rn_fast) on
+# the ranges its note states, against IEEE's own division and sqrtf, built
+# in the same file; exponents of b in [-60, 59], of a in [-100, 99], their
+# difference in [-119, 119]
+_DIV_EB, _DIV_EA, _DIV_GAP = (-60, 59), (-100, 99), 119
+
+
+def _f32_bits(exponent, mantissa, negative=None):
+    bits = ((exponent + 127) << 23) | mantissa
+    if negative is not None:
+        bits = bits - (negative.to(torch.int64) << 31)   # the sign bit
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _fast_vs_ieee(a, b, fast_op):
+    got = tpm._fast_ops(a, b, fast_op).view(torch.int32)
+    want = tpm._fast_ops(a, b, fast_op + 1).view(torch.int32)
+    if fast_op in (0, 2):   # the kernel's IEEE op is the host's, on a sample
+        x, y = a[:4096].cpu().numpy(), b[:4096].cpu().numpy()
+        host = x / y if fast_op == 0 else np.sqrt(x)
+        assert np.array_equal(want[:4096].cpu().numpy(), host.view(np.int32))
+    differ = got != want
+    if bool(differ.any()):
+        i = int(differ.nonzero()[0])
+        raise AssertionError(
+            f"op {fast_op}: a={float(a[i]).hex()} b={float(b[i]).hex()}: "
+            f"{float(got[i].view(torch.float32)).hex()} against IEEE "
+            f"{float(want[i].view(torch.float32)).hex()}")
+
+
+def test_sqrt_rn_fast_is_sqrtf_on_every_float_in_range(cuda_device):
+    # every float in [2^-100, FLT_MAX], 2^27 at a time
+    lo, hi = (-100 + 127) << 23, 0x7F7FFFFF
+    for start in range(lo, hi + 1, 1 << 27):
+        x = torch.arange(start, min(start + (1 << 27), hi + 1),
+                         dtype=torch.int32, device=cuda_device)
+        x = x.view(torch.float32)
+        _fast_vs_ieee(x, x, 2)
+
+
+def test_lv_log32_is_log32_on_every_float(cuda_device):
+    # its one division in range for every input: all 2^32 bit patterns,
+    # 2^28 at a time
+    for start in range(-(1 << 31), 1 << 31, 1 << 28):
+        x = torch.arange(start, start + (1 << 28), dtype=torch.int32,
+                         device=cuda_device).view(torch.float32)
+        _fast_vs_ieee(x, x, 4)
+
+
+def test_lv_radius_is_ieee_on_every_box_muller_draw(cuda_device):
+    # every u1 = (k + 0.5) 2^-24 the kernel draws, 1 (k = 2^24 - 1) among
+    # them
+    k = torch.arange(1 << 24, dtype=torch.int32, device=cuda_device)
+    u1 = (k.to(torch.float32) + 0.5) * 2.0 ** -24
+    assert float(u1[-1]) == 1.0
+    _fast_vs_ieee(u1, u1, 6)
+
+
+def test_div_rn_fast_is_ieee_on_random_pairs(cuda_device):
+    # 2^30 pairs, b's and a's exponents uniform over the range, a of
+    # either sign, one a in 64 zero; 2^26 at a time
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    n = 1 << 26
+    for _ in range(16):
+        def ints(lo, hi):
+            return torch.randint(lo, hi + 1, (n,), generator=gen,
+                                 device=cuda_device, dtype=torch.int64)
+
+        eb = ints(*_DIV_EB)
+        ea = torch.clamp(eb + ints(-_DIV_GAP, _DIV_GAP), *_DIV_EA)
+        b = _f32_bits(eb, ints(0, (1 << 23) - 1))
+        a = _f32_bits(ea, ints(0, (1 << 23) - 1), ints(0, 1))
+        a = torch.where(ints(0, 63) == 0, 0.0, a)
+        _fast_vs_ieee(a, b, 0)
+
+
+def test_div_rn_fast_is_ieee_on_every_exponent_pair(cuda_device):
+    # every exponent pair in range, each with the mantissas at their ends
+    # (1 and 2 - 2^-23) and 252 random pairs, both signs of a
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    eb = torch.arange(_DIV_EB[0], _DIV_EB[1] + 1, device=cuda_device)
+    ea = torch.arange(_DIV_EA[0], _DIV_EA[1] + 1, device=cuda_device)
+    eb, ea = (t.reshape(-1) for t in torch.meshgrid(eb, ea, indexing="ij"))
+    keep = (ea - eb).abs() <= _DIV_GAP
+    eb, ea = eb[keep], ea[keep]
+    top = (1 << 23) - 1
+    ends = torch.tensor([[0, 0], [0, top], [top, 0], [top, top]],
+                        device=cuda_device)
+    rand = torch.randint(0, top + 1, (252, 2), generator=gen,
+                         device=cuda_device)
+    mant = torch.cat([ends, rand]).to(torch.int64)
+    for negative in (0, 1):
+        ma, mb = mant[:, 0].view(1, -1), mant[:, 1].view(1, -1)
+        b = _f32_bits(eb.view(-1, 1), mb).reshape(-1)
+        a = _f32_bits(ea.view(-1, 1), ma, torch.full_like(
+            ma.expand(len(ea), -1), negative)).reshape(-1)
+        _fast_vs_ieee(a, b, 0)
+
+
+def _desk_k4(cuda_device, scheme, scale=1.0, n=None, n_steps=None):
+    """chip_smoke.py's desk K4 call on the recorded table (``DESK_SVI``):
+    (seed, params, run), spot, strike and barrier times ``scale``."""
+    import chip_smoke
+    from optpricer_tpu_torch.scripts import \
+        desk_workflow_localvol_barrier as desk
+
+    slc = chip_smoke.Config5Slice(cuda_device, "")
+    S0, K, T, r, q = slc.MARKET
+    return slc.k4_lv(n or slc.DESK["n_paths"],
+                     n_steps or slc.DESK["n_steps"],
+                     dict(payoff="barrier", barrier=130.0 * scale), scheme,
+                     True, chip_smoke.desk_svi(),
+                     market=(S0 * scale, K * scale, T, r, q), seed=desk.SEED)
+
+
+# the degree in the spot of each of the 11 price sums: n, ΣX, ΣX², ΣY1,
+# ΣY1², ΣXY1, ΣY2, ΣY2², ΣXY2, ΣY1Y2, ΣY3
+_SPOT_DEGREE = (0, 1, 2, 1, 2, 2, 0, 0, 1, 1, 0)
+
+
+@pytest.mark.parametrize("scheme", ["milstein", "log_euler"])
+def test_dupire_fast_arithmetic_keeps_the_desk_sums(cuda_device, scheme):
+    # the desk's call: every state inside the range (no thread falls
+    # back), the recorded sums bit for bit
+    import chip_smoke
+
+    seed, params, run = _desk_k4(cuda_device, scheme)
+    got = tpm.path_mc(seed, params, **run).cpu()
+    assert tpm.path_mc.lv_fallbacks() == 0
+    want = torch.zeros_like(got)
+    sums = chip_smoke.DESK_SUMS[scheme]
+    want[:len(sums)] = torch.tensor([float.fromhex(h) for h in sums])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scheme", ["milstein", "log_euler"])
+@pytest.mark.parametrize("power, some", [(34, False), (33, True)])
+def test_dupire_fallback_gives_the_fast_bits(cuda_device, scheme, power,
+                                             some):
+    # spot, strike and barrier times 2^power: every operation scales
+    # exactly, so each sum is the desk's times 2^(power x its degree), bit
+    # for bit; at 2^34 the spot starts above the range (every thread
+    # steps with IEEE's code), at 2^33 the paths that rise ~27% leave it
+    scale = 2.0 ** power
+    seed, params, run = _desk_k4(cuda_device, scheme)
+    base = tpm.path_mc(seed, params, **run).cpu().double()
+    seed, params, run = _desk_k4(cuda_device, scheme, scale)
+    got = tpm.path_mc(seed, params, **run).cpu().double()
+    fallbacks = tpm.path_mc.lv_fallbacks()
+    threads = run["n_programs"] * tpm.TILE
+    assert 0 < fallbacks < threads if some else fallbacks == threads
+    degree = torch.tensor(_SPOT_DEGREE + (0,) * (tpm.NSTAT - 11),
+                          dtype=torch.float64)
+    assert torch.equal(got, base * scale ** degree)
+
+
+def test_dupire_fallback_matches_plain(cuda_device):
+    # every thread on IEEE's code (the spot above the range) against the
+    # plain version, at test_path_kernel_local_vol_matches_plain's rtol
+    seed, params, run = _desk_k4(cuda_device, "milstein", 2.0 ** 34,
+                                 n=(1 << 18) + 123, n_steps=16)
+    got = tpm.path_mc(seed, params, **run)
+    assert tpm.path_mc.lv_fallbacks() == run["n_programs"] * tpm.TILE
+    _assert_close(got, tpm._path_mc_plain(seed, params, **run))
+
+
 def _book(B=1000, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.uniform(90.0, 110.0, B), np.linspace(70.0, 130.0, B),

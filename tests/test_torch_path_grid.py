@@ -74,6 +74,32 @@ def test_kernel_constants_match_the_wrapper():
     assert _kernel_constant("ROW") == tpm._ROW
 
 
+def test_dupire_row_constants_match_the_wrapper():
+    # a Dupire launch counts its fallback threads in the stats row's
+    # padding after the 21 sums, and combines that one column more; the
+    # step plan the wrapper sizes is the kernel's LvStep
+    assert _kernel_constant("FALLBACKS") == tpm._FALLBACKS == tpm.NSTAT
+    assert _kernel_constant("LV_COLS") == tpm._LV_COLS == tpm._FALLBACKS + 1
+    assert tpm._LV_COLS <= tpm._ROW
+    assert _kernel_constant("LV_PLAN_WORDS") == tpm.LV_PLAN_WORDS
+
+
+def test_lv_fallbacks_reads_only_a_card_launch():
+    # the plain version has no fast arithmetic to fall back from: a CPU
+    # Dupire call leaves the accessor's row as it was
+    params, static = tpm._resolve_config(
+        4096, 4, 100.0, 100.0, 1.0, 0.03, 0.0, None, True, "barrier", True,
+        130.0, "up-and-out", 0.0, "arithmetic", "fixed", 1.0,
+        np.array([[0.01], [0.12], [-0.4], [0.0], [0.1], [1.0]]), "milstein",
+        0.01, None)
+    before = tpm.path_mc.lv_out
+    tpm.path_mc(torch.tensor([3, 0], dtype=torch.int32), params,
+                n_programs=1, reps=1, with_greeks=False, **static)
+    assert tpm.path_mc.lv_out is before
+    if before is None:
+        assert tpm.path_mc.lv_fallbacks() is None
+
+
 def _lsv(n_steps, deg, scheme="euler", seed=0):
     rng = np.random.default_rng(seed)
     coeffs = 0.05 * rng.standard_normal((n_steps, deg + 1))
