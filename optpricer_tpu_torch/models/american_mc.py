@@ -30,6 +30,11 @@ end of a pass.
   by (seed, shard index), and every date's (XᵀWX, XᵀWy, n_itm) partials
   are summed in mesh order (``mesh_sum``, the reference's ``psum``)
   before every shard solves the same system.
+* ``lsmc_ladder`` prices a strike ladder with each strike's standard
+  error, read back in one copy; ``lsmc_price_batch`` is its prices left
+  on the device. It is not a public name of the package, whose names are
+  the reference's. Spans (``utils.profiling.annotate``) mark the ladder's
+  host preparation, copies, paths, date loop and read.
 
 Every entry point takes ``device=`` (default ``"cuda"``); float64 unless
 ``dtype=`` says otherwise.
@@ -45,6 +50,7 @@ import torch
 from ..core import CALL, OptionSpec
 from ..dtypes import canonical, full_f32, resolve_device
 from ..ops.black_scholes import is_call_mask
+from ..utils.profiling import annotate, annotated
 from .monte_carlo import keyed_generator, resolve_seed
 from .processes import gbm_paths
 
@@ -812,7 +818,7 @@ def _lsmc_backward_batch(paths, K_b, r, dt, is_call_b, *, basis_dim: int,
         return torch.clamp(sign * (S_row[None, :] - K_col), min=0.0)
 
     cash = intrinsic(paths[-1])
-    with full_f32():
+    with full_f32(), annotate("optpricer.lsmc.backward"):
         for t in range(paths.shape[0] - 2, 0, -1):
             S_t = paths[t]
             y = disc * cash                                   # (B, n)
@@ -950,25 +956,72 @@ def _lsmc_sharded_core(shards, S0, K, r, dt, is_call, *, basis_dim: int,
     return np.asarray(mesh_sum(stats).cpu(), np.float64)
 
 
+def _ladder(S0, K, T, r, q, sigma, kind, *, n_paths: int, n_steps: int,
+            basis_dim: int, antithetic: bool, seed, dtype, device):
+    """The ladder's one path: (price, stderr) of each strike on the device,
+    flat, and ``K``'s shape. The scalars are filled on the device; the
+    strikes and the kind mask are its two copies from the host."""
+    with annotate("optpricer.prepare"):
+        dt_ = canonical(dtype)
+        dev = resolve_device(device)
+        K_arr = np.atleast_1d(np.asarray(K, dtype=float))
+        mask = np.broadcast_to(np.atleast_1d(is_call_mask(kind)),
+                               K_arr.shape).reshape(-1)
+        seed_val = resolve_seed(seed)
+        r_t = torch.full((), float(r), dtype=dt_, device=dev)
+        dt_t = torch.full((), T / n_steps, dtype=dt_, device=dev)
+    with annotate("optpricer.copy"):
+        K_t = torch.as_tensor(K_arr.reshape(-1), dtype=dt_, device=dev)
+    with annotate("optpricer.copy"):
+        call_t = torch.as_tensor(np.array(mask), device=dev)
+    with annotate("optpricer.paths"):
+        paths = gbm_paths(S0, r, q, sigma, T, n_steps, n_paths,
+                          antithetic=antithetic, seed=seed_val, dtype=dt_,
+                          device=dev)
+    price, se = _lsmc_backward_batch(paths, K_t, r_t, dt_t, call_t,
+                                     basis_dim=int(basis_dim),
+                                     return_stderr=True)
+    return price, se, K_arr.shape
+
+
+@annotated("optpricer.call")
+def lsmc_ladder(S0, K, T, r, q, sigma, kind, *, n_paths: int = 100_000,
+                n_steps: int = 50, basis_dim: int = 4,
+                antithetic: bool = True, seed: Optional[int] = None,
+                dtype=None, device=None):
+    """American strike/kind ladder with its error bars: ``(price,
+    stderr)``, float64 host arrays of ``K``'s shape (at least 1-d).
+
+    One path matrix of ``n_paths`` base draws a step (doubled by
+    ``antithetic``) serves every strike; each date's regressions are two
+    matmuls and one batched solve (:func:`_lsmc_backward_batch`). The
+    price is max(mean of the discounted t = 1 cashflows, intrinsic at
+    t = 0); the stderr is that of the same cashflows over all the paths.
+    The prices are :func:`lsmc_price_batch`'s on the same seed and dtype,
+    bit for bit; prices and stderrs come back to the host in one copy."""
+    price, se, shape = _ladder(
+        S0, K, T, r, q, sigma, kind, n_paths=n_paths, n_steps=n_steps,
+        basis_dim=basis_dim, antithetic=antithetic, seed=seed, dtype=dtype,
+        device=device)
+    with annotate("optpricer.read"):
+        out = torch.stack([price, se]).cpu().numpy().astype(np.float64)
+    return out[0].reshape(shape), out[1].reshape(shape)
+
+
+@annotated("optpricer.call")
 def lsmc_price_batch(S0, K, T, r, q, sigma, kind, *, n_paths: int = 100_000,
                      n_steps: int = 50, basis_dim: int = 4,
                      antithetic: bool = True, seed: Optional[int] = None,
                      dtype=None, device=None) -> torch.Tensor:
     """American strike/kind ladder sharing ONE path matrix: the per-date
     regressions of every strike are two matmuls
-    (:func:`_lsmc_backward_batch`). Returns a tensor of ``K``'s shape."""
-    dt_ = canonical(dtype)
-    dev = resolve_device(device)
-    K_arr = np.atleast_1d(np.asarray(K, dtype=float))
-    mask = np.broadcast_to(np.atleast_1d(is_call_mask(kind)), K_arr.shape)
-    paths = gbm_paths(S0, r, q, sigma, T, n_steps, n_paths,
-                      antithetic=antithetic, seed=resolve_seed(seed),
-                      dtype=dt_, device=dev)
-    prices = _lsmc_backward_batch(
-        paths, torch.as_tensor(K_arr.reshape(-1), dtype=dt_, device=dev),
-        _scalar(r, dt_, dev), _scalar(T / n_steps, dt_, dev),
-        mask.reshape(-1), basis_dim=int(basis_dim))
-    return prices.reshape(np.shape(K_arr))
+    (:func:`_lsmc_backward_batch`). Returns a tensor of ``K``'s shape on
+    the device: :func:`lsmc_ladder`'s prices, not read back."""
+    price, _, shape = _ladder(
+        S0, K, T, r, q, sigma, kind, n_paths=n_paths, n_steps=n_steps,
+        basis_dim=basis_dim, antithetic=antithetic, seed=seed, dtype=dtype,
+        device=device)
+    return price.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
