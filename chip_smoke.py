@@ -235,13 +235,21 @@ Phases (each prints its own lines; any failure raises, nothing is caught):
      on them at 200 x 200 (1e-8).
    K1, K4, K6 and K7 must have been launched on it; their counts are the
    ``launches_mesh_scan`` of their kernel entries.
-   The American and multilevel path (``AmericanMlmcSlice``; no kernel of
-   its own, so its launch counts are printed, not required):
+   The American and multilevel path (``AmericanMlmcSlice``; one kernel
+   of its own, the LSMC date loop, whose launches must be 2 a date on the
+   float32 ladder's call; the other kernels' counts are printed, not
+   required):
    * ``[lsmc]``: lsmc_price_batch on 512 strikes 70..130 x 200 000 x 50;
      every strike within max(5 se, 0.006·ref) of crr_vec(N=2000,
      american) and at most ref + 5 se, the se from the ladder's own pass
      on the same paths; 8 strikes across it within 1 se of the single-pass
      lsmc_price on the same seed;
+   * ``[lsmc]`` float32, american.lsmc_ladder's shape (512 puts x 200 000
+     antithetic pairs x 50, float32): through the date loop
+     (``csrc/lsmc.cu``), every price within 0.5 se and every se within 2%
+     of the plain pass in float64 on the same paths; one date on the
+     loop's own state: the exercise the plain rule's off near-ties, the
+     normal equations within 2e-5 of float64 sums, β a float64 solve;
    * ``[lsmc-bracket]``: the 200 000 x 50 put (K 110, σ 0.25) with
      bound="both" (n_inner 256, 8 192 upper paths): crr(N=4000) at the 49
      Bermudan dates inside [lower − 3 se, upper + 3 se], gap ≥ −3(se + se);
@@ -385,7 +393,15 @@ each shape; K1's, K4's
 and K6's their sharded entry's time on 4 x cuda:0 beside its plain
 version and bound (``ms_sharded``, ``plain_ms_sharded``,
 ``bound_ms_sharded``) and phase 3's worst shard
-(``max_rel_err_sharded``). The last line is ``{"ok": true, "device":
+(``max_rel_err_sharded``). The LSMC date loop's entry
+(``lsmc_date_kernel``, with ``lsmc_reduce_kernel``) is at american.lsmc_
+ladder's shape: its launches on the float32 ladder's phase 5 call,
+``max_abs_err`` against the plain pass in float64 on the same paths, with
+that gap in standard errors (``max_z_se``), the standard errors' relative
+gap and the one date's sums' (``sums_max_rel_err``); ``plain_ms`` the plain
+torch pass in float32 (the pass the kernel replaced); ``bound_ms`` the date
+loop's least work by ``ops_lsmc_ladder``, ``bound_ms_request`` the whole
+request's, paths included. The last line is ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --full
@@ -577,6 +593,23 @@ def ops_k8_ladder(n_strikes: int, m: int, n_t: int,
     value (1); per row and step, shared by every strike, σ's operator
     coefficients, the pivot c' and its reciprocal (~25)."""
     return ((10 + american) * n_strikes + 25) * m * n_t
+
+
+def ops_lsmc_ladder(B: int, n: int, n_steps: int, paths: bool = False):
+    """(operations, bytes) of the LSMC ladder's date loop by the least work
+    ``perfbench/counts/lsmc_ladder.py`` counts (basis 4): per strike, path
+    and regression date 42, per path and date 7, per strike and path 6; a
+    one-byte stopping date read and written a date, the path matrix read
+    once, the strikes read and two rows written. With ``paths``, the
+    whole request: the n / 2 antithetic draws and the n paths' steps, and
+    the path matrix written too."""
+    dates = n_steps - 1
+    ops = n * dates * 7 + B * n * (dates * 42 + 6)
+    n_bytes = 2 * B * n * dates + 4 * n * (n_steps + 1) + 12 * B
+    if paths:
+        ops += n // 2 * n_steps * 65 + n * n_steps * 25
+        n_bytes += 4 * n * (n_steps + 1)
+    return ops, n_bytes
 
 
 def ops_k5_point(n_steps: int) -> float:
@@ -3904,6 +3937,128 @@ class AmericanMlmcSlice:
               f"most {worst:.3f} of max(5 se, 0.006 ref); 8 single calls "
               f"within {max(singles):.3f} se of the ladder")
 
+    # american.lsmc_ladder's shape: 512 puts 70..130, 200 000 antithetic
+    # pairs x 50 dates, float32, on config 1's market
+    LADDER32 = dict(B=512, n_paths=200_000, n_steps=50, S0=100.0, r=0.03,
+                    sigma=0.2, seed=2**31 + 11)
+
+    def ladder32_case(self):
+        """(paths, K, puts, r, dt) of ``LADDER32`` on the card, float32."""
+        import optpricer_tpu_torch as tp
+
+        c, dev = self.LADDER32, self.dev
+        f32 = dict(dtype=torch.float32, device=dev)
+        paths = tp.gbm_paths(c["S0"], c["r"], 0.0, c["sigma"], 1.0,
+                             c["n_steps"], c["n_paths"], antithetic=True,
+                             seed=c["seed"], dtype="float32", device=dev)
+        return (paths, torch.linspace(70.0, 130.0, c["B"], **f32),
+                torch.zeros(c["B"], dtype=torch.bool, device=dev),
+                torch.full((), c["r"], **f32),
+                torch.full((), 1.0 / c["n_steps"], **f32))
+
+    def ladder_kernel(self):
+        """[lsmc] float32: ``LADDER32`` through ``_lsmc_backward_batch``,
+        which takes the date loop of ``csrc/lsmc.cu`` (its launch count
+        set to 0 just before and read just after: 2 a date), against the
+        plain pass in float64 on the same paths: every price within 0.5 se,
+        every se within 2%. Then one date (t = 25) on the state the loop
+        itself left at t + 1: the exercise equal to the plain rule in
+        float64 but for near-ties of intrinsic and fit, the partial rows
+        summing to the float64 normal equations within 2e-5 of the sums of
+        absolute terms (the in-the-money count exactly), β_t a float64
+        solve of them."""
+        from optpricer_tpu_torch.models import american_mc as tam
+        from optpricer_tpu_torch.ops import lsmc
+
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+        try:   # the stopping dates' layout, as the card tests read it
+            from torch_lsmc_layout import unpack_tau
+        finally:
+            sys.path.pop(0)
+        c = self.LADDER32
+        paths, Ks, puts, r, dt = self.ladder32_case()
+        lsmc.lsmc_date.launches = 0
+        got, got_se = self.call(
+            "[lsmc] float32 date loop 512 x 400000 x 50",
+            lambda: tam._lsmc_backward_batch(paths, Ks, r, dt, puts,
+                                             basis_dim=4,
+                                             return_stderr=True))
+        self.lsmc_launches = lsmc.lsmc_date.launches
+        self.need(self.lsmc_launches == 2 * c["n_steps"],
+                  f"[lsmc] float32: {self.lsmc_launches} date-loop launches, "
+                  f"not {2 * c['n_steps']}")
+        want, se = tam._lsmc_backward_batch_plain(
+            paths.double(), Ks.double(), r.double(), dt.double(), puts,
+            basis_dim=4, return_stderr=True)
+        z = float(((got.double() - want).abs() / se).max())
+        se_rel = float((got_se.double() / se - 1.0).abs().max())
+        self.lsmc_err = float((got.double() - want).abs().max())
+        self.lsmc_z, self.lsmc_se_rel = z, se_rel
+        self.need(float(se.min()) > 0.0 and z <= 0.5 and se_rel <= 0.02,
+                  f"[lsmc] float32 vs float64 plain: {z:.4f} se, se within "
+                  f"{se_rel:.3e}")
+
+        B, n, t = c["B"], paths.shape[1], 25
+        sign = torch.full((B,), -1.0, dtype=torch.float32, device=self.dev)
+        disc = torch.exp(-r * dt).reshape(1)
+        buf = lsmc.lsmc_buffers(paths, B)
+        for u in range(c["n_steps"] - 1, t, -1):
+            lsmc.lsmc_date(paths, Ks, sign, disc, u, **buf)
+        tau0 = unpack_tau(buf["tau"], B, n).long()
+        lsmc.lsmc_date(paths, Ks, sign, disc, t, **buf)
+        tau1 = unpack_tau(buf["tau"], B, n).long()
+        S = paths.double()
+        K = Ks.double()[:, None]
+        x1 = S[t + 1] / S[0, 0] - 1.0
+        fit = buf["betas"][t + 1].double() @ torch.stack(
+            [x1 ** m for m in range(4)])
+        e1 = torch.clamp(K - S[t + 1], min=0.0)
+        tie = (e1 - fit).abs() <= 1e-5 * (1.0 + e1.abs())
+        rule = torch.where((e1 > 0.0) & (e1 > fit), t + 1, tau0)
+        del fit, tau0
+        self.need(torch.equal(tau1[~tie], rule[~tie]),
+                  "[lsmc] float32 date 25: the exercise differs from the "
+                  "plain rule off near-ties")
+        n_tie = int(tie.sum())
+        del rule, tie, e1
+        y = (torch.clamp(K - S.T.gather(1, tau1.T).T, min=0.0)
+             * float(disc.double()) ** (tau1 - t).double())
+        del tau1
+        w = (K - S[t] > 0.0).double()
+        x = S[t] / S[0, 0] - 1.0
+        wy = w * y
+        del y
+        want_rows, scale = [], []
+        for a, m in [(w, m) for m in range(7)] + [(wy, m) for m in range(4)]:
+            term = a * x ** m
+            want_rows.append(term.sum(1))
+            scale.append(term.abs().sum(1))
+        del w, wy, term
+        want_sums, scale = torch.stack(want_rows), torch.stack(scale)
+        sums = buf["part"].double().sum(0)
+        rel = float(((sums - want_sums).abs() / (scale + 1e-300)).max())
+        self.lsmc_sums_rel = rel
+        self.need(torch.equal(sums[0], want_sums[0]) and rel <= 2e-5,
+                  f"[lsmc] float32 date 25: the sums {rel:.3e} of their "
+                  "absolute terms off float64")
+        inv = 1.0 / torch.clamp(sums[0], min=1.0)
+        A = torch.stack([torch.stack([sums[i + j] * inv for j in range(4)],
+                                     -1) for i in range(4)], -2)
+        A = A + 1e-7 * torch.eye(4, dtype=torch.float64, device=self.dev)
+        beta = torch.linalg.solve(A, (sums[7:11] * inv).T[..., None])[..., 0]
+        beta_rel = float(((buf["betas"][t].double() - beta).abs()
+                          / beta.abs().amax(1, keepdim=True).clamp_min(1e-30)
+                          ).max())
+        self.need(beta_rel <= 1e-5, f"[lsmc] float32 date 25: β_t "
+                                    f"{beta_rel:.3e} off a float64 solve")
+        print(f"  [lsmc] float32 512 x 400000 x 50 through the date loop "
+              f"({self.lsmc_launches} launches): {self.secs * 1e3:.3f} ms "
+              f"wall; vs the float64 plain pass at most {z:.4f} se and "
+              f"{self.lsmc_err:.3e} in price, se within {se_rel:.3e}; date "
+              f"25 on the loop's own state: exercise the plain rule's off "
+              f"{n_tie} near-ties, sums within {rel:.3e} of their absolute "
+              f"terms, β_t within {beta_rel:.3e} of a float64 solve")
+
     def bracket(self):
         """[lsmc-bracket]: the 200 000 x 50 put (K 110, σ 0.25) with
         bound="both" (n_inner 256, 8 192 upper paths): the Bermudan-50
@@ -4185,9 +4340,10 @@ class AmericanMlmcSlice:
         float32 betas: as accurate against the float64 ones on the card as
         on the CPU, and equal bit for bit with TF32 on or off process-wide;
         and no host sync inside the backward passes (the CUDA sync debug
-        mode set to raise)."""
+        mode set to raise), the float32 ladder's date loop among them."""
         import optpricer_tpu_torch as tp
         from optpricer_tpu_torch.models import american_mc as tam
+        from optpricer_tpu_torch.ops import lsmc
 
         dev = self.dev
         t0 = time.perf_counter()
@@ -4237,6 +4393,7 @@ class AmericanMlmcSlice:
         mask = torch.zeros(64, dtype=torch.bool, device=dev)
         Ks = torch.linspace(70.0, 130.0, 64, dtype=torch.float64,
                             device=dev)
+        f32 = [x.float() for x in (gbm, Ks, s[1], s[2])]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -4245,11 +4402,18 @@ class AmericanMlmcSlice:
             tam._lsmc_forward_fixed_policy(gbm, b, *s, False, basis_dim=4)
             tam._lsmc_backward_sv(S, v, *s, False, basis_dim=6)
             tam._lsmc_backward_batch(gbm, Ks, s[1], s[2], mask, basis_dim=4)
+            before = lsmc.lsmc_date.launches
+            tam._lsmc_backward_batch(*f32, mask, basis_dim=4,
+                                     return_stderr=True)
+            launched = lsmc.lsmc_date.launches - before
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        self.need(launched == 2 * 50, f"the float32 ladder launched "
+                                      f"{launched} date-loop kernels")
         print("  backward passes (GBM, betas, forward, Heston, 64-strike "
-              "ladder; 200 000 x 50) ran under the sync debug mode 'error': "
-              "no host sync")
+              "ladder in float64 and in float32 through the date loop; "
+              "200 000 x 50) ran under the sync debug mode 'error': no host "
+              "sync")
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
@@ -4325,9 +4489,10 @@ class AmericanMlmcSlice:
               + " | ".join(lines))
 
     def phase5(self) -> dict:
-        """The slice's path with every kernel's launch count set to 0 just
-        before it and read just after (the slice has no kernel: the counts
-        are printed, not required)."""
+        """The slice's path with every other kernel's launch count set to
+        0 just before it and read just after (printed, not required); its
+        own kernel's, the LSMC date loop's, ``ladder_kernel`` reads around
+        its main-path call."""
         from optpricer_tpu_torch.ops import (basket_mc, fd_lv, mc_batch,
                                              path_mc, qmc_path, terminal_mc,
                                              thomas)
@@ -4346,6 +4511,7 @@ class AmericanMlmcSlice:
         t0 = time.perf_counter()
         procs = self.start_clis()
         self.ladder()
+        self.ladder_kernel()
         self.bracket()
         self.heston()
         self.levy_bermudan()
@@ -4356,14 +4522,64 @@ class AmericanMlmcSlice:
         self.cli(procs)
         launches = {name: fn.launches for name, fn in fns.items()}
         print(f"  American and MLMC path {time.perf_counter() - t0:.2f} s; "
-              f"kernel launches in this process (the slice runs none of its "
-              f"own): {launches}")
+              f"kernel launches in this process: {launches}; its own, "
+              f"lsmc_date_kernel and lsmc_reduce_kernel on the float32 "
+              f"ladder's main-path call: {self.lsmc_launches}")
         return launches
 
     def phase6(self, full):
-        """With ``full``, each call's wall and device-busy share
-        (:func:`user_call_walls`)."""
+        """The float32 ladder's backward pass at ``LADDER32`` through the
+        date loop and through its plain torch pass on the same float32
+        paths (CUDA events; the date loop also queued behind a device
+        sleep, its device time alone); with ``full``, each call's wall and
+        device-busy share (:func:`user_call_walls`)."""
+        from optpricer_tpu_torch.models import american_mc as tam
+
+        paths, Ks, puts, r, dt = self.ladder32_case()
+        args = (paths, Ks, r, dt, puts)
+
+        def kernel():
+            tam._lsmc_backward_batch(*args, basis_dim=4, return_stderr=True)
+
+        def plain():
+            tam._lsmc_backward_batch_plain(*args, basis_dim=4,
+                                           return_stderr=True)
+        self.times = {"ms": cuda_ms(kernel),
+                      "device_ms": cuda_ms(kernel, queued=True),
+                      "plain_ms": cuda_ms(plain, reps=3)}
+        print(f"phase 6 time LSMC date loop 512 x 400000 x 50 float32 "
+              f"{self.times['ms']:.4f} ms (the device's time alone "
+              f"{self.times['device_ms']:.4f} ms), its plain torch pass "
+              f"{self.times['plain_ms']:.4f} ms [{self.card}]")
         user_call_walls("American and MLMC", self.calls, self.card, full)
+
+    def kernel_entries(self):
+        """The kernels-line entry of the LSMC date loop at ``LADDER32``."""
+        from optpricer_tpu_torch import _build
+        from optpricer_tpu_torch.ops import lsmc
+
+        c = self.LADDER32
+        shape = (c["B"], 2 * c["n_paths"], c["n_steps"])
+        return [{
+            "name": "lsmc_date_kernel", "route": "cuda",
+            "source": "optpricer_tpu_torch/csrc/lsmc.cu",
+            "replaces": None, "launches": self.lsmc_launches,
+            "max_abs_err": self.lsmc_err, "max_z_se": self.lsmc_z,
+            "se_max_rel_err": self.lsmc_se_rel,
+            "sums_max_rel_err": self.lsmc_sums_rel,
+            "ms": self.times["ms"], "plain_ms": self.times["plain_ms"],
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(*ops_lsmc_ladder(*shape)))),
+            "library_ms": None,
+            "shape": "512 puts x 400 000 paths (200 000 antithetic pairs) x "
+                     "50 dates, float32, lsmc_date_kernel and "
+                     "lsmc_reduce_kernel a date",
+            "device_ms": self.times["device_ms"],
+            "bound_ms_request": bound(*ops_lsmc_ladder(*shape,
+                                                       paths=True))[0],
+            "blocks_per_sm": lsmc._blocks_per_sm(c["n_steps"]),
+            "resources": res_usage(_build.library_path(),
+                                   re.compile(r"lsmc_\w+_kernel"))}]
 
 
 def user_call_walls(what: str, calls: dict, card: str, full: bool):
@@ -5750,7 +5966,7 @@ def main(full: bool = False):
                        if "qmc_path" in k}},
     ] + pde.kernel_entries(launches, worst, times) \
         + desk.kernel_entries(launches, worst, times) \
-        + multi.kernel_entries(launches, worst)
+        + multi.kernel_entries(launches, worst) + american.kernel_entries()
     for entry in kernels:   # K1 and K7 on the closed-form path
         if entry["name"] in closed_launches:
             entry["launches_closed_form"] = closed_launches[entry["name"]]

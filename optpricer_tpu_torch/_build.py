@@ -38,6 +38,7 @@ SOURCES = {
     "thomas.cu": (),
     "fd_lv.cu": ("-fmad=false",),
     "basket_mc.cu": ("-fmad=false",),
+    "lsmc.cu": (),
 }
 
 _P = ctypes.c_void_p
@@ -67,6 +68,10 @@ _SIGNATURES = {
     "optpricer_basket_mc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P),
     "optpricer_basket_mc_occupancy": (_I, _I, _I, _P),
+    "optpricer_lsmc_date": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _P),
+    "optpricer_lsmc_occupancy": (_I,),
+    "optpricer_lsmc_layout": (_P,),
 }
 
 

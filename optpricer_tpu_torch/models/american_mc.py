@@ -34,7 +34,8 @@ end of a pass.
   error, read back in one copy; ``lsmc_price_batch`` is its prices left
   on the device. It is not a public name of the package, whose names are
   the reference's. Spans (``utils.profiling.annotate``) mark the ladder's
-  host preparation, copies, paths, date loop and read.
+  host preparation, copies, paths, date loop and read. On the card at
+  float32 its date loop is ``ops.lsmc``'s CUDA pass a date.
 
 Every entry point takes ``device=`` (default ``"cuda"``); float64 unless
 ``dtype=`` says otherwise.
@@ -49,6 +50,7 @@ import torch
 
 from ..core import CALL, OptionSpec
 from ..dtypes import canonical, full_f32, resolve_device
+from ..ops import lsmc as lsmc_ops
 from ..ops.black_scholes import is_call_mask
 from ..utils.profiling import annotate, annotated
 from .monte_carlo import keyed_generator, resolve_seed
@@ -798,13 +800,35 @@ def lsmc_price(opt: OptionSpec, kind: Literal["call", "put"] = CALL, *,
 
 def _lsmc_backward_batch(paths, K_b, r, dt, is_call_b, *, basis_dim: int,
                          return_stderr: bool = False):
-    """Backward pass for a strike/kind ladder over one path matrix.
+    """Backward pass for a strike/kind ladder over one path matrix;
+    ``return_stderr`` also returns each strike's cashflow stderr.
+
+    A float32 path matrix on the card with the cubic basis takes the CUDA
+    date loop (``ops.lsmc``: a one-byte stopping date per strike and path,
+    one pass and one solve a date); everything else takes its plain
+    version, :func:`_lsmc_backward_batch_plain`."""
+    if not lsmc_ops.takes(paths, basis_dim):
+        return _lsmc_backward_batch_plain(paths, K_b, r, dt, is_call_b,
+                                          basis_dim=basis_dim,
+                                          return_stderr=return_stderr)
+    dtype, dev = paths.dtype, paths.device
+    disc = torch.exp(-r * dt)
+    sign = _sign(is_call_b, dtype, dev).expand(K_b.shape[0])
+    with annotate("optpricer.lsmc.backward"):
+        price, se = lsmc_ops.lsmc_backward(
+            paths.contiguous(), K_b.to(dev, dtype).contiguous(),
+            sign.contiguous(), disc.to(dev, dtype).reshape(1))
+    return (price, se) if return_stderr else price
+
+
+def _lsmc_backward_batch_plain(paths, K_b, r, dt, is_call_b, *,
+                               basis_dim: int, return_stderr: bool = False):
+    """The ladder's backward pass in torch.
 
     The basis lives in the strike-independent s = S_t/S0, so X and the
     per-path outer products X⊗X are shared by the ladder: a date's
     per-strike normal equations are two matmuls, (B, n)·(n, k²) for XᵀWX
-    and (B, n)·(n, k) for XᵀWy. Nothing of size (B, n, k) is formed.
-    ``return_stderr`` also returns each strike's cashflow stderr."""
+    and (B, n)·(n, k) for XᵀWy. Nothing of size (B, n, k) is formed."""
     dtype, dev = paths.dtype, paths.device
     n_paths = paths.shape[1]
     k = basis_dim
@@ -993,8 +1017,10 @@ def lsmc_ladder(S0, K, T, r, q, sigma, kind, *, n_paths: int = 100_000,
     stderr)``, float64 host arrays of ``K``'s shape (at least 1-d).
 
     One path matrix of ``n_paths`` base draws a step (doubled by
-    ``antithetic``) serves every strike; each date's regressions are two
-    matmuls and one batched solve (:func:`_lsmc_backward_batch`). The
+    ``antithetic``) serves every strike; each date's regressions are one
+    pass over a stopping date per strike and path and one solve on the card
+    at float32, two matmuls and one batched solve elsewhere
+    (:func:`_lsmc_backward_batch`). The
     price is max(mean of the discounted t = 1 cashflows, intrinsic at
     t = 0); the stderr is that of the same cashflows over all the paths.
     The prices are :func:`lsmc_price_batch`'s on the same seed and dtype,
@@ -1014,8 +1040,8 @@ def lsmc_price_batch(S0, K, T, r, q, sigma, kind, *, n_paths: int = 100_000,
                      antithetic: bool = True, seed: Optional[int] = None,
                      dtype=None, device=None) -> torch.Tensor:
     """American strike/kind ladder sharing ONE path matrix: the per-date
-    regressions of every strike are two matmuls
-    (:func:`_lsmc_backward_batch`). Returns a tensor of ``K``'s shape on
+    regressions of every strike at once (:func:`_lsmc_backward_batch`).
+    Returns a tensor of ``K``'s shape on
     the device: :func:`lsmc_ladder`'s prices, not read back."""
     price, _, shape = _ladder(
         S0, K, T, r, q, sigma, kind, n_paths=n_paths, n_steps=n_steps,

@@ -39,7 +39,12 @@ statistically; ``profiling.trace`` naming K1 and ``device_memory`` the
 card. The American and multilevel slice (no kernel of its own): every
 deterministic core on the card equal to the CPU's at 1e-12 in float64,
 the float32 regression betas unchanged by a process-wide TF32 setting,
-the LSMC passes free of host syncs (``-k "american or lsmc"``).
+the LSMC passes free of host syncs (``-k "american or lsmc"``). The LSMC
+ladder's date kernel (``csrc/lsmc.cu``): one date's exercise and normal
+equations against float64 sums of the same state, its β against a float64
+solve, the last date's moments against float64 sums and its prices and
+standard errors against their float64 formulas, the float32 ladder against the plain pass in float64 on the same
+paths, strikes never in the money, a seed repeated bit for bit.
 """
 import numpy as np
 import pytest
@@ -54,6 +59,7 @@ from optpricer_tpu_torch.ops import path_mc as tpm
 from optpricer_tpu_torch.ops import qmc_path as tqp
 from optpricer_tpu_torch.ops import terminal_mc as tmc
 from optpricer_tpu_torch.ops import thomas as tth
+from torch_lsmc_layout import pack_tau, unpack_tau
 
 pytestmark = pytest.mark.cuda
 
@@ -1692,3 +1698,236 @@ def test_traced_cv_estimator_makes_no_host_sync(cuda_device):
         for a, b in zip(card, want):
             assert a.device.type == "cuda"
             torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The LSMC ladder's date loop (csrc/lsmc.cu) against its plain torch pass
+# ---------------------------------------------------------------------------
+def _lsmc_case(device, B, n_half, n_steps, seed=5):
+    """A float32 ladder on the card: antithetic GBM paths, B strikes over
+    70-130, every third a call."""
+    paths = tp.gbm_paths(100.0, 0.03, 0.0, 0.2, 1.0, n_steps, n_half,
+                         antithetic=True, seed=seed, dtype="float32",
+                         device=device)
+    Ks = torch.linspace(70.0, 130.0, B, dtype=torch.float32, device=device)
+    calls = torch.arange(B, device=device) % 3 == 0
+    r = torch.full((), 0.03, dtype=torch.float32, device=device)
+    dt = torch.full((), 1.0 / n_steps, dtype=torch.float32, device=device)
+    return paths, Ks, calls, r, dt
+
+
+def _lsmc_state(paths, r, dt, B, calls):
+    """(sign, disc, buffers) of the date loop for B strikes."""
+    from optpricer_tpu_torch.ops import lsmc
+
+    sign = torch.where(calls, 1.0, -1.0).to(torch.float32)
+    return sign, torch.exp(-r * dt).reshape(1), lsmc.lsmc_buffers(paths, B)
+
+
+def test_lsmc_date_pass_sums_and_exercise_against_float64(cuda_device):
+    """One date pass (t = 5 of 12; 100 strikes and 2·(2^14 + 37) paths, no
+    multiple of the kernel's tiles) on a given stopping date and β_{t+1}:
+    the exercise is the plain version's strict rule computed in float64 on
+    the same float32 inputs, equal but for near-ties of the intrinsic and
+    the fit; the partial rows sum to the float64 normal equations of the
+    same state (the in-the-money count exactly, the rest within 2e-5 of
+    the sum of absolute terms); β_t solves them as a float64 solve does."""
+    from optpricer_tpu_torch.ops import lsmc
+
+    B, t = 100, 5
+    paths, Ks, calls, r, dt = _lsmc_case(cuda_device, B, 2**14 + 37, 12)
+    n_steps, n = paths.shape[0] - 1, paths.shape[1]
+    sign, disc, buf = _lsmc_state(paths, r, dt, B, calls)
+    S = paths.double().cpu()
+    K, sg = Ks.double().cpu()[:, None], sign.double().cpu()[:, None]
+    s_ref = S[0, 0]
+    gen = torch.Generator().manual_seed(3)
+    tau0 = torch.randint(t + 2, n_steps + 1, (B, n), generator=gen)
+    # β_{t+1}: each strike's cubic least-squares fit of its intrinsic at
+    # t+1, so that fit and intrinsic cross on many paths
+    x1 = S[t + 1] / s_ref - 1.0
+    X1 = torch.stack([x1 ** m for m in range(4)], dim=-1)
+    e1 = torch.clamp(sg * (S[t + 1] - K), min=0.0)
+    beta1 = torch.linalg.lstsq(X1, e1.T).solution.T.float()
+    buf["tau"].copy_(pack_tau(tau0.to(torch.uint8).to(cuda_device), n_steps))
+    buf["betas"][t + 1] = beta1.to(cuda_device)
+    lsmc.lsmc_date(paths, Ks, sign, disc, t, **buf)
+    tau1 = unpack_tau(buf["tau"], B, n).long().cpu()
+
+    fit = (X1 @ beta1.double().T).T
+    want_tau = torch.where((e1 > 0.0) & (e1 > fit), t + 1, tau0)
+    tie = (e1 - fit).abs() <= 1e-5 * (1.0 + e1.abs())
+    assert torch.equal(tau1[~tie], want_tau[~tie])
+    assert int((tau1 == t + 1).sum()) > 0 and int((tau1 > t + 1).sum()) > 0
+
+    d = float(disc.double())
+    y = (torch.clamp(sg * (S.T.gather(1, tau1.T).T - K), min=0.0)
+         * d ** (tau1 - t).double())
+    w = (torch.clamp(sg * (S[t] - K), min=0.0) > 0.0).double()
+    x = S[t] / s_ref - 1.0
+    terms = [w * x ** m for m in range(7)] + [w * y * x ** m
+                                               for m in range(4)]
+    want = torch.stack([a.sum(1) for a in terms])           # (11, B)
+    scale = torch.stack([a.abs().sum(1) for a in terms])
+    got = buf["part"].double().sum(0).cpu()
+    assert torch.equal(got[0], want[0])
+    assert bool(((got - want).abs() <= 2e-5 * scale + 1e-12).all())
+
+    inv = 1.0 / torch.clamp(got[0], min=1.0)
+    A = torch.stack([torch.stack([got[i + j] * inv for j in range(4)], -1)
+                     for i in range(4)], -2)
+    A = A + 1e-7 * torch.eye(4, dtype=torch.float64)
+    b = (got[7:11] * inv).T
+    beta_t = torch.linalg.solve(A, b[..., None])[..., 0]
+    err = (buf["betas"][t].double().cpu() - beta_t).abs()
+    assert bool((err <= 1e-5 * beta_t.abs().amax(1, keepdim=True)
+                 + 1e-12).all())
+
+
+def test_lsmc_final_pass_moments_price_and_se_against_float64(cuda_device):
+    """The last date pass (t = 0 of 12; 100 strikes, calls and puts mixed,
+    2·(2^14 + 37) paths) on a given stopping date and β_1: its two moment
+    rows sum to the float64 sums Σv and Σ(v − c)² of the same state, v =
+    max(sign (S_τ − K), 0)·disc^τ after date 1's exercise by the plain
+    version's strict rule, c the strike's intrinsic at t = 0, within 2e-5
+    of the sums of absolute terms (a path whose intrinsic and fit tie at
+    date 1 may go either way, and adds its two values' gap). β_1 is a
+    constant a strike, the median of its positive intrinsic values at date
+    1, so that the exercise splits its in-the-money paths: at date 1 a
+    cubic fit's coefficients reach ~10^3 (x = S_1/S_0 − 1 is small), and
+    its float32 sum then strays from float64 by more than a tie's width.
+    Each price is max(Σv/n, c) and each standard error √((Σ(v − c)² −
+    n(Σv/n − c)²) / (n − 1) / n), computed in float64 from the kernel's own
+    rows, to float32 round-off."""
+    from optpricer_tpu_torch.ops import lsmc
+
+    B = 100
+    paths, Ks, calls, r, dt = _lsmc_case(cuda_device, B, 2**14 + 37, 12)
+    n_steps, n = paths.shape[0] - 1, paths.shape[1]
+    sign, disc, buf = _lsmc_state(paths, r, dt, B, calls)
+    S = paths.double().cpu()
+    K, sg = Ks.double().cpu()[:, None], sign.double().cpu()[:, None]
+    gen = torch.Generator().manual_seed(4)
+    tau0 = torch.randint(2, n_steps + 1, (B, n), generator=gen)
+    e1 = torch.clamp(sg * (S[1] - K), min=0.0)
+    beta1 = torch.zeros((B, 4), dtype=torch.float32)
+    for b in range(B):
+        if bool((e1[b] > 0.0).any()):
+            beta1[b, 0] = float(e1[b][e1[b] > 0.0].median())
+    buf["tau"].copy_(pack_tau(tau0.to(torch.uint8).to(cuda_device), n_steps))
+    buf["betas"][1] = beta1.to(cuda_device)
+    before = lsmc.lsmc_date.launches
+    lsmc.lsmc_date(paths, Ks, sign, disc, 0, **buf)
+    assert lsmc.lsmc_date.launches - before == 2
+
+    d = float(disc.double())
+    hold = (torch.clamp(sg * (S.T.gather(1, tau0.T).T - K), min=0.0)
+            * d ** tau0.double())
+    stop = e1 * d
+    fit = beta1[:, :1].double()
+    ex = (e1 > 0.0) & (e1 > fit)
+    tie = ((e1 > 0.0)
+           & ((e1 - fit).abs() <= 1e-5 * (1.0 + e1.abs()))).double()
+    assert int(ex.sum()) > 0 and int((~ex).sum()) > 0
+    v, other = torch.where(ex, stop, hold), torch.where(ex, hold, stop)
+    # c as the kernel forms it: sign·(S_0 − K) rounded once in float32
+    c = torch.clamp(sign * (paths[0, 0] - Ks), min=0.0).double().cpu()
+    want = torch.stack([v.sum(1), ((v - c[:, None]) ** 2).sum(1)])
+    scale = torch.stack([v.sum(1), want[1]])
+    gap = torch.stack([((other - v).abs() * tie).sum(1),
+                       (((other - c[:, None]) ** 2 - (v - c[:, None]) ** 2)
+                        .abs() * tie).sum(1)])
+    n_pb = buf["part"].shape[0]
+    got = buf["part"].reshape(-1)[:n_pb * 2 * B].view(n_pb, 2, B)
+    got = got.double().sum(0).cpu()
+    assert bool(((got - want).abs() <= 2e-5 * scale + gap + 1e-12).all())
+
+    mean = got[0] / n
+    var = torch.clamp((got[1] - n * (mean - c) ** 2) / (n - 1), min=0.0)
+    out = buf["out"].double().cpu()
+    torch.testing.assert_close(out[0], torch.maximum(mean, c), rtol=2e-7,
+                               atol=1e-12)
+    torch.testing.assert_close(out[1], torch.sqrt(var / n), rtol=2e-7,
+                               atol=1e-12)
+    assert float(out[1].max()) > 0.0
+
+
+@pytest.mark.parametrize("B, n_half", [(128, 2**15), (100, 2**15 + 37)])
+def test_lsmc_ladder_kernel_within_half_an_se_of_plain(cuda_device, B,
+                                                       n_half):
+    """The float32 ladder on the card (50 dates, calls and puts mixed) goes
+    through the date loop, two launches a date, and its prices lie within
+    0.5 standard errors of the plain torch pass's in float64 on the same
+    paths, its standard errors within 2%. A price is a discontinuous
+    function of the fitted policy: the plain pass in float32 itself lies up
+    to 0.55 se from the float64 one at these sizes (0.14-0.55 over 12
+    cases; the kernel 0.15-0.42)."""
+    from optpricer_tpu_torch.models import american_mc as tam
+    from optpricer_tpu_torch.ops import lsmc
+
+    paths, Ks, calls, r, dt = _lsmc_case(cuda_device, B, n_half, 50)
+    before = lsmc.lsmc_date.launches
+    got, got_se = tam._lsmc_backward_batch(paths, Ks, r, dt, calls,
+                                           basis_dim=4, return_stderr=True)
+    assert lsmc.lsmc_date.launches - before == 2 * 50
+    assert got.dtype == got_se.dtype == torch.float32
+    want, se = tam._lsmc_backward_batch_plain(
+        paths.double(), Ks.double(), r.double(), dt.double(), calls,
+        basis_dim=4, return_stderr=True)
+    assert float(se.min()) > 0.0
+    z = float(((got.double() - want).abs() / se).max())
+    assert z <= 0.5, z
+    assert float((got_se.double() / se - 1.0).abs().max()) <= 0.02
+
+
+def test_lsmc_strike_never_in_the_money_has_no_fit_and_no_exercise(
+        cuda_device):
+    """A put struck at 1 and a call struck at 10 000 among the ladder's
+    strikes: no path is in the money, so every β of theirs is 0, no path
+    stops before maturity, and price and standard error are 0, as in the
+    plain pass; the other strikes are priced as without them."""
+    from optpricer_tpu_torch.ops import lsmc
+
+    paths, Ks, calls, r, dt = _lsmc_case(cuda_device, 40, 2**12 + 5, 16)
+    Ks[7], calls[7] = 1.0, False
+    Ks[9], calls[9] = 1.0e4, True
+    B, n_steps, n = 40, 16, paths.shape[1]
+    sign, disc, buf = _lsmc_state(paths, r, dt, B, calls)
+    for t in range(n_steps - 1, -1, -1):
+        lsmc.lsmc_date(paths, Ks, sign, disc, t, **buf)
+    idle = [7, 9]
+    assert bool((buf["betas"][1:n_steps, idle] == 0.0).all())
+    assert bool((unpack_tau(buf["tau"], B, n)[idle] == n_steps).all())
+    assert bool((buf["out"][:, idle] == 0.0).all())
+    rest = [i for i in range(B) if i not in idle]
+    sub, _, sub_buf = _lsmc_state(paths, r, dt, len(rest), calls[rest])
+    for t in range(n_steps - 1, -1, -1):
+        lsmc.lsmc_date(paths, Ks[rest].contiguous(), sub, disc, t, **sub_buf)
+    # up to 256 strikes the paths split alike, so each strike's sums are
+    # the same bits
+    assert sub_buf["part"].shape[0] == buf["part"].shape[0]
+    assert torch.equal(sub_buf["out"], buf["out"][:, rest])
+
+
+def test_lsmc_ladder_seed_repeats_bit_for_bit_with_no_host_sync(cuda_device):
+    """The float32 ladder twice on one seed gives the same bits (no
+    atomics); its date loop runs under the CUDA sync debug mode set to
+    raise."""
+    from optpricer_tpu_torch.models import american_mc as tam
+
+    Ks = np.linspace(70.0, 130.0, 96)
+    kw = dict(n_paths=2**14, n_steps=50, seed=2**31 + 77, dtype="float32",
+              device=cuda_device)
+    first = tam.lsmc_ladder(99.0, Ks, 1.0, 0.03, 0.0, 0.2, "put", **kw)
+    again = tam.lsmc_ladder(99.0, Ks, 1.0, 0.03, 0.0, 0.2, "put", **kw)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    paths, Kt, calls, r, dt = _lsmc_case(cuda_device, 96, 2**14, 50)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tam._lsmc_backward_batch(paths, Kt, r, dt, calls, basis_dim=4,
+                                       return_stderr=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(o).all()) for o in out)

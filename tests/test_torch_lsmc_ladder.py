@@ -131,3 +131,52 @@ def test_untraced_ladder_enters_no_span_and_prices_alike(monkeypatch):
     plain = _ladder(dtype="float32")
     for a, b in zip(traced, plain):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype, basis_dim", [("float32", 4), ("float64", 4),
+                                              ("float32", 3)])
+def test_batch_pass_off_the_card_is_the_plain_torch_pass(dtype, basis_dim,
+                                                         monkeypatch):
+    """Off the card the ladder's backward pass never reaches the CUDA date
+    loop (``ops.lsmc``): at float32 and float64 on the CPU, and at any
+    basis, it is the plain torch pass, bit for bit, calls and puts mixed."""
+    from optpricer_tpu_torch.ops import lsmc
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU pass took the CUDA date loop")
+
+    monkeypatch.setattr(lsmc, "lsmc_backward", refuse)
+    dt = DTYPES[dtype]
+    paths = gbm_paths(99.5, 0.03, 0.0, 0.2, 1.0, KW["n_steps"],
+                      KW["n_paths"], antithetic=True, seed=SEED, dtype=dt,
+                      device="cpu")
+    assert not lsmc.takes(paths, basis_dim)
+    args = (paths, torch.as_tensor(KS, dtype=dt),
+            torch.as_tensor(0.03, dtype=dt),
+            torch.as_tensor(1.0 / KW["n_steps"], dtype=dt),
+            np.arange(len(KS)) % 3 == 0)
+    got = tam._lsmc_backward_batch(*args, basis_dim=basis_dim,
+                                   return_stderr=True)
+    want = tam._lsmc_backward_batch_plain(*args, basis_dim=basis_dim,
+                                          return_stderr=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B, n", [(32, 128), (40, 300), (1, 1), (77, 4097), (64, 129)])
+def test_stopping_date_layout_round_trips(B, n):
+    """``pack_tau`` puts strike b's paths 16g … 16g + 15 in the 16-byte
+    word (b // 32, g, b % 32) of the kernel's layout, and ``unpack_tau``
+    takes them back."""
+    from torch_lsmc_layout import pack_tau, unpack_tau
+
+    tau = ((torch.arange(B)[:, None] * 7 + torch.arange(n)[None, :]) % 251
+           ).to(torch.uint8)
+    flat = pack_tau(tau, 255)
+    tiles, n_pad = -(-B // 32), -(-n // 128) * 128
+    assert flat.numel() == tiles * 32 * n_pad
+    words = flat.view(tiles, n_pad // 16, 32, 16)
+    for b, p in [(0, 0), (B - 1, n - 1), (B // 2, n // 3)]:
+        assert int(words[b // 32, p // 16, b % 32, p % 16]) == int(tau[b, p])
+    assert torch.equal(unpack_tau(flat, B, n), tau)
+    assert int((flat == 255).sum()) == tiles * 32 * n_pad - B * n
